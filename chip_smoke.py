@@ -2,24 +2,34 @@
 """Smoke run of the PyTorch port (singleshotpose_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py                    # from the root of the repository
-    python3 chip_smoke.py --profile OUT_DIR  # and where the serve's time goes
+    python3 chip_smoke.py --profile OUT_DIR  # and where the serve's and the
+                                             # train step's time goes
 
-Drives the single-object serving path at full width — ``yolo_pose_single``,
-~50.6 M parameters, 672² frames, random weights from a seed — through the
-entry points a user calls, in phases; any failure propagates and the exit
-code is nonzero:
+Drives the single-object serving and training paths at full width —
+``yolo_pose_single``, ~50.6 M parameters, random weights from a seed —
+through the entry points a user calls, in phases; any failure propagates
+and the exit code is nonzero:
 
   1. device: the card's name and power limit; TF32 off for convs and matmuls;
-  2. build: the serving-stem CUDA kernel from ``csrc/stem_serve.cu``;
-  3. kernel against plain: the kernel vs its plain PyTorch version at the
-     serving shapes, error and time of both;
-  4. model: fold BN, bf16 forward at batch 8; the stem went through the
-     kernel, and the head equals the forward with the plain stem;
+  2. build: both CUDA kernels, one nvcc each, started together
+     (``csrc/stem_serve.cu``, ``csrc/max_corner_confidence.cu``);
+  3. kernels against plain: each kernel vs its plain PyTorch version at the
+     main paths' shapes, error and time of both;
+  4. model: fold BN, bf16 forward at batch 8, 672²; the stem went through
+     the kernel, and the head equals the forward with the plain stem;
   5. serve: ``make_serving_fn`` behind a ``MicroBatcher`` answering 16
      frames from 4 client threads, held to one direct batch-16 call;
      batch-1 latency and batch-8 frames per second;
-  6. pose: batched PnP on 64 synthetic LINEMOD poses, and the 6D metrics.
+  6. pose: batched PnP on 64 synthetic LINEMOD poses, and the 6D metrics;
+  7. train: ``make_train_step`` at batch 8, 416², bf16, 20 steps on
+     synthetic frames with labels projected from seeded poses; K2 ran once
+     per step, the loss equals the loss with the plain reduction, and one
+     fixed batch overfits in 30 steps;
+  8. train → serve: the trained weights through the darknet codec, BN fold
+     and the serving function; a checkpoint saved and restored on the card.
 
+Phases 4–5 are the serving path and phase 7 the training path: each
+kernel's launch count is set to 0 just before its path and read just after.
 The line before the last is the kernel summary (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; without one it exits
 nonzero before any result.  Reads no image files (the card's machine may lack
@@ -32,11 +42,13 @@ import argparse
 import collections
 import contextlib
 import functools
+import itertools
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from unittest import mock
@@ -44,13 +56,20 @@ from unittest import mock
 import numpy as np
 import torch
 
+from singleshotpose_tpu_torch import weights as W
+from singleshotpose_tpu_torch.checkpoint import Checkpointer
+from singleshotpose_tpu_torch.drivers import loss_config_from_spec
 from singleshotpose_tpu_torch.evaluate import (EvalContext, PoseErrors,
                                                accuracy_summary, pose_metrics)
 from singleshotpose_tpu_torch.models.darknet import (Darknet, apply_folded,
                                                      fold_batchnorm)
-from singleshotpose_tpu_torch.ops import stem
+from singleshotpose_tpu_torch.ops import cuda_build, stem, targets
+from singleshotpose_tpu_torch.ops import max_corner_confidence as mcc
+from singleshotpose_tpu_torch.ops.losses import region_loss
 from singleshotpose_tpu_torch.ops.pnp import pnp_batched, so3_exp
 from singleshotpose_tpu_torch.serving import MicroBatcher, make_serving_fn
+from singleshotpose_tpu_torch.training import (init_train_state,
+                                               make_train_step, schedule_lr)
 from singleshotpose_tpu_torch.zoo import yolo_pose_single
 
 STEM_SHAPES = ((1, 416, 416), (8, 416, 416), (8, 672, 672))
@@ -58,6 +77,13 @@ SIZE = 672            # yolo_pose_single's test size
 MODEL_BATCH = 8
 N_FRAMES, N_CLIENTS, BUCKETS = 16, 4, (1, 2, 4, 8)
 N_POSES = 64
+# K2 (B, G, S): the batch-8 416² train step (13² cells), the 832² bucket of
+# multi-scale training (26²), the multi-object batch-32 step (13²·5 anchors)
+K2_SHAPES = ((8, 50, 169), (8, 50, 676), (32, 50, 845))
+TRAIN_SIZE, TRAIN_BATCH = 416, 8      # yolo-pose.cfg's width and batch
+TRAIN_STEPS, OVERFIT_STEPS = 20, 30
+TRAIN_EPOCH = 16      # past the 15-epoch pretrain gate: every loss term counts
+BATCHES_PER_EPOCH = 125   # ~1,000 LINEMOD training frames / batch 8
 # LINEMOD camera (singleshotpose_tpu/zoo.py:152-157) and image size
 LINEMOD_K = np.array([[572.4114, 0.0, 325.2611],
                       [0.0, 573.5704, 242.0489],
@@ -109,9 +135,11 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    path = stem.build_library()
+    paths = cuda_build.build_libraries(["stem_serve", "max_corner_confidence"])
     stem._library()
-    print(f"[build] {path} in {time.perf_counter() - t0:.2f} s")
+    mcc._library()
+    print(f"[build] {', '.join(paths)} in {time.perf_counter() - t0:.2f} s "
+          "(one nvcc per source, in parallel)")
 
 
 def phase_kernel(dev, card: str):
@@ -138,6 +166,49 @@ def phase_kernel(dev, card: str):
         _check(max_d <= bound, f"stem kernel max|d| {max_d} > {bound}")
         _check(exact >= 0.99, f"stem kernel exact share {exact} < 0.99")
         result = {"max_abs_err": max_d, "ms": ms, "plain_ms": plain_ms}
+    return result
+
+
+def _corners_near_gt(dev, B, G, S, gen):
+    """GT slots (the first ``n`` of each image valid, as the break rule
+    reads them) and per-cell predictions = a slot's GT + noise, so the
+    confidences spread over (0, 1)."""
+    gt = torch.rand((B, G, 18), generator=gen, device=dev) * 0.8 + 0.1
+    n = torch.randint(1, G + 1, (B, 1), generator=gen, device=dev)
+    valid = torch.arange(G, device=dev)[None, :] < n
+    pick = torch.randint(0, G, (B, S), generator=gen, device=dev) % n
+    pred = torch.gather(gt, 1, pick[:, :, None].expand(B, S, 18)) \
+        + torch.randn((B, S, 18), generator=gen, device=dev) * 0.03
+    return gt, valid, pred
+
+
+def phase_k2(dev, card: str):
+    """K2 vs its plain version.  Returns the numbers of the first shape
+    (the main path's batch-8 416² train step)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    result = None
+    for B, G, S in K2_SHAPES:
+        gt, valid, pred = _corners_near_gt(dev, B, G, S, g)
+        got = mcc.max_corner_confidence(gt, valid, pred)
+        ref = mcc.max_corner_confidence_reference(gt, valid, pred)
+        torch.cuda.synchronize()
+        d = (got - ref).abs()
+        max_d = float(d.max())
+        within = bool((d <= 1e-6 + 1e-5 * ref.abs()).all())
+        same_mask = bool(torch.equal(got > 0.6, ref > 0.6))
+        spread = float(((ref > 0.05) & (ref < 0.95)).float().mean())
+        ms = _time_ms(lambda: mcc.max_corner_confidence(gt, valid, pred))
+        plain_ms = _time_ms(
+            lambda: mcc.max_corner_confidence_reference(gt, valid, pred))
+        print(f"[kernel] K2 ({B},{G},{S}): max|d|={max_d:.6g} (rtol 1e-5, "
+              f"atol 1e-6: {within}), silenced-cell mask (> 0.6) equal: "
+              f"{same_mask}, {float((ref > 0.6).float().mean()):.4f} of cells "
+              f"silenced, {spread:.4f} in (0.05, 0.95); kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms [{card}]")
+        _check(within, f"K2 off its plain version by {max_d}")
+        _check(same_mask, "K2 silences other cells than its plain version")
+        if result is None:
+            result = {"max_abs_err": max_d, "ms": ms, "plain_ms": plain_ms}
     return result
 
 
@@ -288,6 +359,149 @@ def phase_pose(dev, served: np.ndarray) -> None:
     _check(finite, "metrics on the served boxes are not finite")
 
 
+def _train_batches(dev, n: int, seed: int):
+    """``n`` batches of synthetic u8 frames (TRAIN_BATCH, 416, 416, 3) on the
+    card, with padded labels (TRAIN_BATCH, 50·21): one object per frame,
+    its 9 keypoints projected from a seeded pose with the LINEMOD camera,
+    normalized by 640×480."""
+    rng = np.random.RandomState(seed)
+    pts, _, _ = _box_points()
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        Rs = so3_exp(torch.from_numpy(rng.randn(TRAIN_BATCH, 3) * 0.8)).numpy()
+        ts = np.stack([rng.uniform(-0.1, 0.1, TRAIN_BATCH),
+                       rng.uniform(-0.1, 0.1, TRAIN_BATCH),
+                       rng.uniform(0.5, 1.5, TRAIN_BATCH)], axis=1)
+        cam = np.einsum("bij,nj->bni", Rs, pts.astype(np.float64)) + ts[:, None]
+        uvw = cam @ LINEMOD_K.T
+        px = uvw[..., :2] / uvw[..., 2:] / [IM_W, IM_H]          # (B, 9, 2)
+        lab = np.zeros((TRAIN_BATCH, 50, 21), np.float32)
+        lab[:, 0, 1:19] = px.reshape(TRAIN_BATCH, 18)
+        lab[:, 0, 19] = np.ptp(px[..., 0], axis=1)
+        lab[:, 0, 20] = np.ptp(px[..., 1], axis=1)
+        frames = torch.randint(0, 256, (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+                               generator=gen, dtype=torch.uint8)
+        out.append((frames.to(dev), torch.from_numpy(
+            lab.reshape(TRAIN_BATCH, -1)).to(dev)))
+    return out
+
+
+def _train_setup(spec, dev, seed: int):
+    net = spec.net
+    state = init_train_state(_random_model(spec, dev, seed),
+                             weight_decay=net.decay * TRAIN_BATCH,
+                             momentum=net.momentum)
+    cfg = loss_config_from_spec(spec, pretrain_num_epochs=15,
+                                im_width=IM_W, im_height=IM_H)
+    step = make_train_step(cfg, compute_dtype=torch.bfloat16)
+    return state, cfg, step
+
+
+def _lr(spec, processed: int) -> float:
+    """The darknet schedule's lr for this batch, divided by the batch."""
+    net = spec.net
+    steps = [s * BATCHES_PER_EPOCH for s in net.steps]
+    return schedule_lr(net.learning_rate, processed, steps,
+                       net.scales) / TRAIN_BATCH
+
+
+def phase_train(spec, dev, card: str):
+    """The training path: TRAIN_STEPS steps of the full-width net at batch 8,
+    416², bf16.  Returns (the trained state, K2's launches in those steps,
+    the median step ms)."""
+    state, cfg, step = _train_setup(spec, dev, seed=5)
+    batches = _train_batches(dev, TRAIN_STEPS, seed=8)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    # the main path: every K2 launch counted from here on came from it
+    mcc.max_corner_confidence.launches = 0
+    for i, (frames, labels) in enumerate(batches):
+        t = time.perf_counter()
+        stats = step(state, frames, labels, _lr(spec, i), TRAIN_EPOCH)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(stats["loss"]))
+    launches = mcc.max_corner_confidence.launches
+    step_ms = statistics.median(times[3:])
+    print(f"[train] yolo_pose_single {TRAIN_SIZE}² batch {TRAIN_BATCH} bf16, "
+          f"{TRAIN_STEPS} steps, lr {_lr(spec, 0):.6g} (darknet lr / batch): "
+          f"losses {losses[0]:.6g} ... {losses[-1]:.6g}, K2 launches "
+          f"{launches}, seen {state.seen}; step median {step_ms:.4f} ms "
+          f"(host clock, sync each step, steps 4-{TRAIN_STEPS}), first step "
+          f"{times[0]:.1f} ms [{card}]")
+    _check(all(np.isfinite(losses)), f"a train loss is not finite: {losses}")
+    _check(launches == TRAIN_STEPS,
+           f"K2 launched {launches} times in {TRAIN_STEPS} train steps")
+    _check(state.seen == TRAIN_STEPS * TRAIN_BATCH, f"seen {state.seen}")
+
+    # the loss of one train-mode head with K2, and with the plain reduction
+    frames, labels = batches[-1]
+    with torch.no_grad():
+        state.model.train()
+        head = state.model(frames.float() / 255.0, torch.bfloat16)
+        loss_k2, st = region_loss(head, labels, TRAIN_EPOCH, cfg)
+        with mock.patch.object(targets, "max_corner_confidence",
+                               mcc.max_corner_confidence_reference):
+            loss_plain, _ = region_loss(head, labels, TRAIN_EPOCH, cfg)
+    rel = abs(float(loss_k2) - float(loss_plain)) / abs(float(loss_plain))
+    print(f"[train] loss with K2 {float(loss_k2):.8g}, with the plain "
+          f"reduction {float(loss_plain):.8g}: rel {rel:.3g} (bound 1e-5); "
+          f"nGT {int(st['nGT'])}, nCorrect {int(st['nCorrect'])}")
+    _check(rel <= 1e-5, f"K2 loss vs plain-reduction loss rel {rel}")
+
+    # overfit one fixed batch from a fresh model
+    fit_state, _, fit_step = _train_setup(spec, dev, seed=6)
+    frames, labels = batches[0]
+    lr = _lr(spec, 0)
+    fit = [float(fit_step(fit_state, frames, labels, lr, TRAIN_EPOCH)["loss"])
+           for _ in range(OVERFIT_STEPS)]
+    print(f"[train] overfit one batch, {OVERFIT_STEPS} steps at lr {lr:.6g}: "
+          f"loss {fit[0]:.6g} -> {fit[-1]:.6g} (min {min(fit):.6g})")
+    _check(np.isfinite(fit).all() and fit[-1] < fit[0],
+           f"one batch did not overfit: {fit[0]} -> {fit[-1]}")
+    return state, launches, step_ms
+
+
+def phase_train_to_serve(spec, state, dev) -> None:
+    """The trained weights serve; a checkpoint round-trips on the card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.weights")
+        W.save_weights(spec, state.model.state_dict(), path, seen=state.seen)
+        header, sd = W.load_weights(spec, path)
+        model = Darknet(spec, device=dev)
+        model.load_state_dict(sd)
+        serve = make_serving_fn(spec, fold_batchnorm(model), pick=("best",))
+        gen = torch.Generator().manual_seed(9)
+        frames = torch.randint(0, 256, (MODEL_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+                               generator=gen, dtype=torch.uint8).to(dev)
+        boxes = serve(frames)
+        torch.cuda.synchronize()
+        print(f"[train->serve] weights file seen={header.seen}; boxes "
+              f"{tuple(boxes.shape)}, finite {bool(torch.isfinite(boxes).all())}")
+        _check(header.seen == state.seen, "seen lost in the weights file")
+        _check(tuple(boxes.shape) == (MODEL_BATCH, 21)
+               and bool(torch.isfinite(boxes).all()),
+               "the trained weights give no finite boxes")
+
+        ckpt = Checkpointer(os.path.join(tmp, "ckpt"))
+        ckpt.save(TRAIN_STEPS, state)
+        back, _, _ = _train_setup(spec, dev, seed=11)
+        step = ckpt.restore(back)
+        same = all(torch.equal(a, b) for a, b in zip(
+            state.model.state_dict().values(),
+            back.model.state_dict().values()))
+        bufs = [(state.optimizer.state[p]["momentum_buffer"],
+                 back.optimizer.state[q]["momentum_buffer"])
+                for p, q in zip(state.model.parameters(),
+                                back.model.parameters())]
+        same_m = all(torch.equal(a, b) for a, b in bufs)
+        print(f"[train->serve] checkpoint step {step}: model equal {same}, "
+              f"momentum equal {same_m}, seen {back.seen}")
+        _check(step == TRAIN_STEPS and same and same_m
+               and back.seen == state.seen, "the checkpoint did not round-trip")
+
+
 def _host_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     """Median host-clock time of ``fn()`` plus a device sync, in ms."""
     for _ in range(warmup):
@@ -303,28 +517,46 @@ def _host_ms(fn, iters: int = 30, warmup: int = 3) -> float:
 
 
 def _family(name: str) -> str:
-    """The serving path's family of a device kernel, from its name."""
+    """The family of a device kernel of the serve or the train step, from
+    its name (the first rule that matches)."""
     if "stem_serve_kernel" in name:
         return "K1 stem"
+    if "max_corner_confidence_kernel" in name:
+        return "K2 max corner confidence"
     if "nchwToNhwc" in name or "nhwcToNchw" in name:
         return "cuDNN layout transposes"
-    if any(k in name for k in ("xmma", "nvjet", "cutlass", "gemm", "splitKreduce")):
-        return "convs (cuDNN, cuBLAS)"
+    if any(k in name for k in ("xmma", "nvjet", "cutlass", "gemm",
+                               "splitKreduce", "convolve", "dgrad", "wgrad")):
+        return "convs (cuDNN, cuBLAS), forward and backward"
     if "max_pool" in name:
-        return "max pool"
+        return "max pool, forward and backward"
+    if "multi_tensor_apply" in name:
+        return "SGD update (foreach)"
+    if "reduce_kernel" in name:
+        return "reductions (BN statistics, loss sums)"
+    if any(k in name for k in ("scatter", "gather", "index")):
+        return "scatter, gather, index (targets)"
     if "compare_scalar_kernel" in name or "where_kernel" in name or (
             "MulFunctor" in name and "c10::BFloat16" in name):
         return "leaky (ge, mul, where)"
     if "CUDAFunctor_add<float>" in name:
         return "f32 adds (conv bias)"
-    if "bfloat16_copy_kernel" in name or "direct_copy_kernel" in name:
+    if "CUDAFunctor_add<c10::BFloat16>" in name:
+        return "bf16 adds (gradient accumulation)"
+    if any(k in name for k in ("BinaryFunctor<float", "UnaryFunctor<float",
+                               "MulFunctor<float>", "DivFunctor<float",
+                               "pow_tensor", "rsqrt", "sqrt")):
+        return "f32 elementwise (BN normalize and its backward, loss)"
+    if "bfloat16_copy_kernel" in name or "direct_copy_kernel" in name \
+            or "Memcpy DtoD" in name:
         return "dtype casts, copies"
-    return "decode, cat, fills, memcpy"
+    return "other elementwise, decode, cat, fills, memcpy"
 
 
-def _device_time(trace_path: str):
+def _device_time(trace_path: str, by_name=None):
     """(device µs by family, busy µs) of a torch.profiler chrome trace; busy
-    is the union of the device intervals."""
+    is the union of the device intervals.  ``by_name``, a Counter, also
+    gets the device µs of each kernel name."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     dev = [e for e in events
@@ -332,6 +564,8 @@ def _device_time(trace_path: str):
     by_family = collections.Counter()
     for e in dev:
         by_family[_family(e["name"])] += e["dur"]
+        if by_name is not None:
+            by_name[e["name"]] += e["dur"]
     busy, end = 0.0, float("-inf")
     for e in sorted(dev, key=lambda e: e["ts"]):
         stop = e["ts"] + e["dur"]
@@ -390,19 +624,86 @@ def phase_profile(spec, folded, dev, card: str, out_dir: str) -> None:
                   f"({us / total:.2%} of device time)")
 
 
+def phase_profile_k2(dev, card: str, out_dir: str) -> None:
+    """K2 and its plain version on the device alone (``--profile``): the
+    device time per call from a trace of PROFILE_CALLS calls, beside the
+    CUDA-event time per call of phase 3, which also counts the host's work
+    when the host is the slower of the two."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    os.makedirs(out_dir, exist_ok=True)
+    for B, G, S in K2_SHAPES:
+        gt, valid, pred = _corners_near_gt(dev, B, G, S, g)
+        for name, fn in (("K2", mcc.max_corner_confidence),
+                         ("plain", mcc.max_corner_confidence_reference)):
+            fn(gt, valid, pred)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(PROFILE_CALLS):
+                    fn(gt, valid, pred)
+                torch.cuda.synchronize()
+            path = os.path.join(out_dir, f"k2_{name}_{B}_{G}_{S}.json")
+            prof.export_chrome_trace(path)
+            by_family, busy = _device_time(path)
+            print(f"[profile] {name} ({B},{G},{S}): device "
+                  f"{sum(by_family.values()) / PROFILE_CALLS:.2f} µs/call in "
+                  f"kernels, busy {busy / PROFILE_CALLS:.2f} µs/call [{card}]")
+
+
+def phase_profile_train(spec, dev, card: str, out_dir: str) -> None:
+    """Where the train step's time goes (``--profile``): the host-clock
+    median of 20 steps (sync each step), then device time by kernel family
+    over PROFILE_CALLS profiled steps and the device's idle share.  Chrome
+    trace to ``out_dir``."""
+    state, _, step = _train_setup(spec, dev, seed=12)
+    batches = itertools.cycle(_train_batches(dev, 4, seed=13))
+
+    def one():
+        frames, labels = next(batches)
+        step(state, frames, labels, _lr(spec, 0), TRAIN_EPOCH)
+
+    host = _host_ms(one, iters=20)
+    os.makedirs(out_dir, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(PROFILE_CALLS):
+            one()
+        torch.cuda.synchronize()
+    path = os.path.join(out_dir, f"train_trace_b{TRAIN_BATCH}.json")
+    prof.export_chrome_trace(path)
+    by_name = collections.Counter()
+    by_family, busy = _device_time(path, by_name)
+    busy_ms = busy / 1e3 / PROFILE_CALLS
+    total = sum(by_family.values())
+    print(f"[profile] train step batch {TRAIN_BATCH}, {TRAIN_SIZE}², bf16: "
+          f"host clock {host:.4f} ms/step (median of 20, sync each step); "
+          f"device busy {busy_ms:.4f} ms/step over {PROFILE_CALLS} profiled "
+          f"steps; idle share {1 - busy_ms / host:.4f}; trace {path} [{card}]")
+    for fam, us in by_family.most_common():
+        print(f"[profile]   {fam}: {us / 1e3 / PROFILE_CALLS:.4f} ms/step "
+              f"({us / total:.2%} of device time)")
+    for name, us in by_name.most_common(15):
+        print(f"[profile]   kernel {us / 1e3 / PROFILE_CALLS:.4f} ms/step "
+              f"[{_family(name)}] {name[:110]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
                                  "on one NVIDIA card.")
     ap.add_argument("--profile", metavar="OUT_DIR",
-                    help="after the phases, profile the serve: device time "
-                         "by kernel family, idle share, and K1 against the "
-                         "plain stem in turns; chrome traces go to OUT_DIR")
+                    help="after the phases, profile the serve and the train "
+                         "step: device time by kernel family, idle share, "
+                         "and K1 against the plain stem in turns; chrome "
+                         "traces go to OUT_DIR")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     card = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     stem_numbers = phase_kernel(dev, card)
+    k2_numbers = phase_k2(dev, card)
 
     spec = yolo_pose_single()
     model = _random_model(spec, dev)
@@ -416,15 +717,23 @@ def main(argv=None) -> int:
     launches = stem.stem_conv_pool_infer.launches
     _check(launches > 0, "the serving path launched no stem kernel")
     phase_pose(dev, served)
+    state, k2_launches, _ = phase_train(spec, dev, card)
+    phase_train_to_serve(spec, state, dev)
     if args.profile:
         phase_profile(spec, folded, dev, card, args.profile)
+        phase_profile_k2(dev, card, args.profile)
+        phase_profile_train(spec, dev, card, args.profile)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "stem_conv_pool_infer", "route": "cuda",
         "source": "singleshotpose_tpu_torch/csrc/stem_serve.cu",
         "replaces": "singleshotpose_tpu/ops/stem.py:545",
-        "launches": launches, **stem_numbers}]}))
+        "launches": launches, **stem_numbers}, {
+        "name": "max_corner_confidence", "route": "cuda",
+        "source": "singleshotpose_tpu_torch/csrc/max_corner_confidence.cu",
+        "replaces": "singleshotpose_tpu/ops/pallas_kernels.py:44",
+        "launches": k2_launches, **k2_numbers}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

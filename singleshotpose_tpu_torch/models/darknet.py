@@ -4,9 +4,9 @@ Mirrors ``singleshotpose_tpu/models/darknet.py``.  The layer specs and
 :class:`DarknetSpec` are the JAX module's, free of jax: the same block dicts
 give the same layers, ``out_filters`` and route liveness.  :class:`Darknet`
 holds the parameters (conv weights in OIHW, darknet's own layout) and runs
-the eval-mode forward; :func:`fold_batchnorm` and :func:`apply_folded` are
-the BN-folded serving path, whose stem goes to the CUDA kernel in
-``ops/stem.py``.
+the eval-mode forward and the train-mode one (batch-statistic BN);
+:func:`fold_batchnorm` and :func:`apply_folded` are the BN-folded serving
+path, whose stem goes to the CUDA kernel in ``ops/stem.py``.
 
 Layout: NHWC at the public boundary (images ``(B, H, W, 3)`` in, the head
 ``(B, H/32, W/32, D)`` out, as in the JAX package), channels_last NCHW inside
@@ -346,11 +346,26 @@ class ConvBlock(nn.Module):
                 self.bias.detach() - self.running_mean * inv)
 
     def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+        """Conv, then BN or the f32 bias add.  In training mode BN normalizes
+        with the batch statistics and updates the running buffers in place
+        (``DarknetSpec.apply(train=True)``, ``darknet.py:373-391``); in eval
+        mode it uses the running statistics.  With a compute dtype the conv
+        output is in that dtype and BN returns it in that dtype; the head's
+        f32 bias add promotes the head to f32."""
         y = _conv(self.spec, x, self.weight, compute_dtype)
-        if self.spec.batch_normalize:
+        if not self.spec.batch_normalize:
+            return y + L.per_channel(self.bias, y)
+        if not self.training:
             return L.batch_norm(y, self.scale, self.bias, self.running_mean,
                                 self.running_var)
-        return y + L.per_channel(self.bias, y)
+        y, mean, var = L.batch_norm_train(y, self.scale, self.bias)
+        n = y.shape[0] * y.shape[2] * y.shape[3]
+        with torch.no_grad():
+            new_mean, new_var = L.running_stat_update(
+                self.running_mean, self.running_var, mean, var, n)
+            self.running_mean.copy_(new_mean)
+            self.running_var.copy_(new_var)
+        return y
 
 
 class Connected(nn.Module):
@@ -368,10 +383,14 @@ class Connected(nn.Module):
 
 
 class Darknet(nn.Module):
-    """The network of a :class:`DarknetSpec`, in eval form.
+    """The network of a :class:`DarknetSpec`.
 
-    ``forward`` is the counterpart of ``DarknetSpec.apply(train=False)``:
-    running BN statistics, NHWC in and out.  Random initialisation comes
+    ``forward`` in eval mode (the default) is the counterpart of
+    ``DarknetSpec.apply(train=False)``: running BN statistics, NHWC in and
+    out.  In training mode (``model.train()``) it is the counterpart of
+    ``apply(train=True)``: batch-statistic BN whose running buffers are
+    updated in place; :meth:`forward_train` also returns the new statistics.
+    Random initialisation comes
     only from an explicit ``generator``; without one the weights are zeros,
     to be replaced by ``load_state_dict``.  State-dict keys are
     ``<layer>.weight`` plus ``<layer>.{scale,bias,running_mean,running_var}``
@@ -399,6 +418,21 @@ class Darknet(nn.Module):
                     lambda s, x: getattr(self, s.name)(x, compute_dtype),
                     self._fc)
         return _to_nhwc(out)
+
+    def forward_train(self, images: torch.Tensor, compute_dtype=None):
+        """Switch to training mode and run the forward: returns (head,
+        new_stats), ``new_stats`` the updated running statistics as
+        ``{layer: {"mean", "var"}}`` — the JAX ``apply(train=True)``'s
+        second result.  The running buffers are updated in place."""
+        self.train()
+        head = self(images, compute_dtype)
+        return head, self.batch_stats()
+
+    def batch_stats(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The running BN statistics, ``{layer: {"mean", "var"}}``."""
+        return {l.name: {"mean": getattr(self, l.name).running_mean,
+                         "var": getattr(self, l.name).running_var}
+                for l in self.spec.conv_specs() if l.batch_normalize}
 
 
 def fold_batchnorm(model: Darknet) -> Dict[str, Dict[str, torch.Tensor]]:

@@ -14,10 +14,12 @@ import functools
 import torch
 import torch.nn.functional as F
 
-__all__ = ["BN_EPS", "batch_norm", "leaky_relu", "max_pool",
+__all__ = ["BN_EPS", "BN_MOMENTUM", "batch_norm", "batch_norm_train",
+           "running_stat_update", "leaky_relu", "max_pool",
            "max_pool_stride1", "reorg", "global_avg_pool"]
 
 BN_EPS = 1e-4  # singleshotpose_tpu/models/layers.py:27; torch's default is 1e-5
+BN_MOMENTUM = 0.1
 
 
 def per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -35,6 +37,36 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     shift = bias - mean * inv
     y = x.float() * per_channel(inv, x) + per_channel(shift, x)
     return y.to(x.dtype)
+
+
+def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     eps: float = BN_EPS):
+    """Training-mode batch norm of NCHW ``x`` over (N, H, W), the JAX
+    formula written out (``singleshotpose_tpu/models/layers.py:62-84``):
+    f32 math, ``mean = E[x]``, the *biased* ``var = E[x²] − mean²``, then
+    :func:`batch_norm` with those statistics, the result in ``x.dtype``.
+    The gradient flows through the batch statistics.  ``F.batch_norm`` is
+    not used: its variance, eps handling and backward are not these.
+
+    Returns (y, batch_mean, batch_var); the statistics are f32 and still
+    attached to the graph (detach them for :func:`running_stat_update`).
+    """
+    x32 = x.float()
+    dims = (0, 2, 3)
+    mean = x32.mean(dim=dims)
+    var = torch.square(x32).mean(dim=dims) - torch.square(mean)
+    return batch_norm(x, scale, bias, mean, var, eps), mean, var
+
+
+def running_stat_update(running_mean: torch.Tensor, running_var: torch.Tensor,
+                        batch_mean: torch.Tensor, batch_var: torch.Tensor,
+                        n: int, momentum: float = BN_MOMENTUM):
+    """The torch-convention running update (``layers.py:87-94``):
+    ``running = (1 − m)·running + m·batch``, with the *unbiased* batch
+    variance ``var·n/(n − 1)``.  Returns (new_mean, new_var)."""
+    unbiased = batch_var * (n / max(n - 1, 1))
+    return ((1 - momentum) * running_mean + momentum * batch_mean,
+            (1 - momentum) * running_var + momentum * unbiased)
 
 
 @functools.lru_cache(maxsize=None)

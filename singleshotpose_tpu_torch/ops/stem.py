@@ -10,34 +10,25 @@ CUDA tensor runs the kernel or raises.
 
 The kernel is compiled with ``nvcc`` into a plain-C shared library at first
 use, keyed on the source's content, under ``singleshotpose_tpu_torch/_build/``,
-and bound with ``ctypes``.
+and bound with ``ctypes`` (``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import torch
 import torch.nn.functional as F
 
 from ..models import layers as L
+from . import cuda_build
 
-__all__ = ["stem_conv_pool_infer", "stem_conv_pool_infer_reference",
-           "build_library"]
+__all__ = ["stem_conv_pool_infer", "stem_conv_pool_infer_reference"]
 
 _CO = 32
 _CI = 3
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "stem_serve.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+_SOURCE = "stem_serve"           # csrc/stem_serve.cu
 
 
 def _check_args(images: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
@@ -68,46 +59,9 @@ def stem_conv_pool_infer_reference(images: torch.Tensor, w: torch.Tensor,
     return pooled.permute(0, 2, 3, 1).contiguous()
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    found = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.isfile(found):
-        raise RuntimeError(
-            "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the "
-            "serving-stem CUDA kernel cannot be built")
-    return found
-
-
-def build_library() -> str:
-    """Compile ``csrc/stem_serve.cu`` for sm_90a into ``_build/`` unless a
-    library built from the same source and flags is there; returns its path.
-    Raises ``RuntimeError`` when ``nvcc`` is absent or fails."""
-    nvcc = _nvcc()
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib = os.path.join(BUILD_DIR, f"libstem_serve_{digest.hexdigest()[:16]}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)       # atomic: concurrent builds agree
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_library())
+    lib = cuda_build.load_library(_SOURCE)
     fn = lib.stem_conv_pool_infer_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -1,6 +1,7 @@
 """PyTorch port vs the JAX package: the serving function, the micro-batcher,
 the validation driver and its CLI (singleshotpose_tpu_torch/serving.py,
-drivers.py, cli.py) — and that the port runs with jax absent.
+drivers.py, cli.py) — and that the port (serving and a train step) runs
+with jax absent.
 
 Tolerances: f32 serving boxes to 1e-5 (the same f32 net, summed in another
 order); bf16 boxes to 2e-2 of a corner's scale — the tiny net's bf16 convs
@@ -211,9 +212,12 @@ sys.modules["jax"] = None            # any `import jax` now raises ImportError
 import numpy as np, torch
 torch.set_num_threads(2)
 import singleshotpose_tpu_torch
-from singleshotpose_tpu_torch import cli, drivers, evaluate, serving, weights, zoo
+from singleshotpose_tpu_torch import (checkpoint, cli, drivers, evaluate,
+                                      serving, training, weights, zoo)
 from singleshotpose_tpu_torch.models import darknet, layers
-from singleshotpose_tpu_torch.ops import decode, pnp, stem
+from singleshotpose_tpu_torch.ops import (confidence, cuda_build, decode,
+                                          losses, max_corner_confidence, pnp,
+                                          stem, targets)
 spec = zoo.yolo_pose_single(test_size=64)
 model = darknet.Darknet(spec, generator=torch.Generator().manual_seed(0))
 boxes = serving.make_serving_fn(spec, darknet.fold_batchnorm(model),
@@ -225,6 +229,17 @@ K = np.array([[572.4, 0, 325.3], [0, 573.6, 242.0], [0, 0, 1]], np.float32)
 uvw = (X + [0.01, -0.02, 0.7]) @ K.T
 R, t = pnp.pnp_batched(X, (uvw[:, :2] / uvw[:, 2:])[None], K)
 assert np.abs(t.numpy()[0] - [0.01, -0.02, 0.7]).max() < 1e-3
+sys.path.insert(0, "tests")
+from torch_port_helpers import TINY_BLOCKS
+tiny = darknet.DarknetSpec(TINY_BLOCKS)
+state = training.init_train_state(
+    darknet.Darknet(tiny, generator=torch.Generator().manual_seed(1)),
+    weight_decay=1e-3, momentum=0.9)
+target = torch.zeros((2, 50 * 21))
+target.view(2, 50, 21)[:, 0, 1:19] = 0.5
+stats = training.make_train_step(losses.RegionLossConfig())(
+    state, torch.zeros((2, 64, 64, 3), dtype=torch.uint8), target, 1e-3, 16)
+assert bool(torch.isfinite(stats["loss"])) and state.seen == 2
 allowed = {"singleshotpose_tpu", "singleshotpose_tpu.config",
            "singleshotpose_tpu.utils", "singleshotpose_tpu.utils.geometry",
            "singleshotpose_tpu.utils.meshply", "singleshotpose_tpu.utils.labels",

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from singleshotpose_tpu.models import layers as JL
 from singleshotpose_tpu.ops import stem as jstem
 
+from singleshotpose_tpu_torch.ops import cuda_build
 from singleshotpose_tpu_torch.ops import stem as tstem
 
 import torch_port_helpers  # noqa: F401  (caps torch threads)
@@ -106,4 +107,4 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(RuntimeError, match="nvcc"):
-        tstem.build_library()
+        cuda_build.build_library("stem_serve")
