@@ -11,29 +11,36 @@ through the entry points a user calls, in phases; any failure propagates
 and the exit code is nonzero:
 
   1. device: the card's name and power limit; TF32 off for convs and matmuls;
-  2. build: both CUDA kernels, one nvcc each, started together
-     (``csrc/stem_serve.cu``, ``csrc/max_corner_confidence.cu``);
-  3. kernels against plain: each kernel vs its plain PyTorch version at the
-     main paths' shapes, error and time of both;
+  2. build: the three CUDA sources, one nvcc each, started together
+     (``csrc/stem_serve.cu``, ``csrc/max_corner_confidence.cu``,
+     ``csrc/stem_train.cu``);
+  3. kernels against plain: each kernel (K1 the serving stem, K2 the max
+     corner confidence, K3–K6 the train stem) vs its plain PyTorch version
+     at the main paths' shapes, error and time of both, and its bound;
   4. model: fold BN, bf16 forward at batch 8, 672²; the stem went through
      the kernel, and the head equals the forward with the plain stem;
   5. serve: ``make_serving_fn`` behind a ``MicroBatcher`` answering 16
      frames from 4 client threads, held to one direct batch-16 call;
      batch-1 latency and batch-8 frames per second;
   6. pose: batched PnP on 64 synthetic LINEMOD poses, and the 6D metrics;
-  7. train: ``make_train_step`` at batch 8, 416², bf16, 20 steps on
-     synthetic frames with labels projected from seeded poses; K2 ran once
-     per step, the loss equals the loss with the plain reduction, and one
-     fixed batch overfits in 30 steps;
+  7. train: ``make_train_step`` at batch 8, 416², bf16, with the fused
+     train stem resolved as ``drivers.run_training`` resolves it (on, on a
+     card), 20 steps on synthetic frames with labels projected from seeded
+     poses; K2–K6 each ran once per step, the loss equals the loss with the
+     plain reduction and the loss through the unfused forward; 5 unfused
+     steps (the stem's plain PyTorch path, no K3–K6); the fused and the
+     unfused step timed in turns; one fixed batch overfits in 30 fused
+     steps;
   8. train → serve: the trained weights through the darknet codec, BN fold
      and the serving function; a checkpoint saved and restored on the card.
 
-Phases 4–5 are the serving path and phase 7 the training path: each
-kernel's launch count is set to 0 just before its path and read just after.
-The line before the last is the kernel summary (JSON); the last line is
-``{"ok": true, "device": {...}}``.  Needs one CUDA card; without one it exits
-nonzero before any result.  Reads no image files (the card's machine may lack
-Pillow) and imports no jax.
+Phases 4–5 are the serving path and phase 7's fused steps the training
+path: each kernel's launch count is set to 0 just before its path and read
+just after.  The line before the last is the kernel summary (JSON: each
+kernel's launches, error, kernel and plain ms, bound and what sets it); the
+last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card;
+without one it exits nonzero before any result.  Reads no image files (the
+card's machine may lack Pillow) and imports no jax.
 """
 
 from __future__ import annotations
@@ -51,16 +58,22 @@ import sys
 import tempfile
 import threading
 import time
+from typing import Optional
 from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from singleshotpose_tpu_torch import weights as W
 from singleshotpose_tpu_torch.checkpoint import Checkpointer
-from singleshotpose_tpu_torch.drivers import loss_config_from_spec
+from singleshotpose_tpu_torch.drivers import (TrainRunConfig,
+                                              _resolve_fused_stem,
+                                              loss_config_from_spec)
 from singleshotpose_tpu_torch.evaluate import (EvalContext, PoseErrors,
                                                accuracy_summary, pose_metrics)
+from singleshotpose_tpu_torch.models import darknet
+from singleshotpose_tpu_torch.models import layers as L
 from singleshotpose_tpu_torch.models.darknet import (Darknet, apply_folded,
                                                      fold_batchnorm)
 from singleshotpose_tpu_torch.ops import cuda_build, stem, targets
@@ -81,7 +94,11 @@ N_POSES = 64
 # multi-scale training (26²), the multi-object batch-32 step (13²·5 anchors)
 K2_SHAPES = ((8, 50, 169), (8, 50, 676), (32, 50, 845))
 TRAIN_SIZE, TRAIN_BATCH = 416, 8      # yolo-pose.cfg's width and batch
-TRAIN_STEPS, OVERFIT_STEPS = 20, 30
+TRAIN_STEPS, OVERFIT_STEPS, UNFUSED_STEPS = 20, 30, 5
+# K3-K6 (B, H, W): the batch-8 416² train step, and the 832² bucket, the
+# largest of the multi-scale schedule
+TRAIN_STEM_SHAPES = ((8, 416, 416), (8, 832, 832))
+GATE_BATCH = 64       # the JAX package's batch gate for the fused stem
 TRAIN_EPOCH = 16      # past the 15-epoch pretrain gate: every loss term counts
 BATCHES_PER_EPOCH = 125   # ~1,000 LINEMOD training frames / batch 8
 # LINEMOD camera (singleshotpose_tpu/zoo.py:152-157) and image size
@@ -90,6 +107,9 @@ LINEMOD_K = np.array([[572.4114, 0.0, 325.2611],
                       [0.0, 0.0, 1.0]])
 IM_W, IM_H = 640, 480
 PROFILE_CALLS = 10
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): HBM bytes/s, bf16
+# tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 
 
 def _check(cond: bool, what: str) -> None:
@@ -115,6 +135,19 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _bound(nbytes: float, flops: float, peak: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over ``peak`` (their type's rate), in ms,
+    and which of the two sets it."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -135,9 +168,11 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    paths = cuda_build.build_libraries(["stem_serve", "max_corner_confidence"])
+    paths = cuda_build.build_libraries(
+        ["stem_serve", "max_corner_confidence", "stem_train"])
     stem._library()
     mcc._library()
+    stem._train_library()
     print(f"[build] {', '.join(paths)} in {time.perf_counter() - t0:.2f} s "
           "(one nvcc per source, in parallel)")
 
@@ -165,7 +200,10 @@ def phase_kernel(dev, card: str):
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
         _check(max_d <= bound, f"stem kernel max|d| {max_d} > {bound}")
         _check(exact >= 0.99, f"stem kernel exact share {exact} < 0.99")
-        result = {"max_abs_err": max_d, "ms": ms, "plain_ms": plain_ms}
+        # conv MACs on bf16 operands: the tensor cores' rate
+        result = {"max_abs_err": max_d, "ms": ms, "plain_ms": plain_ms,
+                  **_bound(_nbytes(img, w, b, got), 2 * 27 * 32 * B * H * W,
+                           BF16_FLOPS)}
     return result
 
 
@@ -208,8 +246,120 @@ def phase_k2(dev, card: str):
         _check(within, f"K2 off its plain version by {max_d}")
         _check(same_mask, "K2 silences other cells than its plain version")
         if result is None:
-            result = {"max_abs_err": max_d, "ms": ms, "plain_ms": plain_ms}
+            # ~16 f32 operations per (valid slot, cell, keypoint): the
+            # distance, its test, the confidence and the running sum
+            flops = 16 * 9 * S * float(valid.sum())
+            result = {"max_abs_err": max_d, "ms": ms, "plain_ms": plain_ms,
+                      **_bound(_nbytes(gt, valid, pred, got), flops,
+                               F32_FLOPS)}
     return result
+
+
+_STEM_KERNELS = (("K3", "stem_conv_stats", "singleshotpose_tpu/ops/stem.py:182"),
+                 ("K4", "stem_bn_pool", "singleshotpose_tpu/ops/stem.py:229"),
+                 ("K5", "stem_bwd_sums", "singleshotpose_tpu/ops/stem.py:267"),
+                 ("K6", "stem_bwd_dw", "singleshotpose_tpu/ops/stem.py:297"))
+
+
+def _rel(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max().clamp_min(1e-30))
+
+
+def phase_train_stem(dev, card: str):
+    """K3–K6 against their plain versions at TRAIN_STEM_SHAPES: K3 on the
+    images, K4–K6 on the plain K3's output with a seeded bf16 gradient.
+    Bounds: y and pooled as K1 (≥ 99% equal, max|d| ≤ 1e-2·max|ref| +
+    1e-3); the sums of K3 and K5 rel 1e-5 and K6's dW rel 1e-4 of
+    max|ref| (the same formulas, f32 sums in another order); K3's and K6's
+    sums the same bits in a second run.  Returns {kernel name: numbers} at
+    the main path's shape, the first."""
+    results = {}
+    for B, H, W in TRAIN_STEM_SHAPES:
+        g0 = torch.Generator(device=dev).manual_seed(B + H)
+        img = torch.rand((B, H, W, 3), generator=g0, device=dev)
+        w = torch.randn((32, 3, 3, 3), generator=g0, device=dev) * 0.3
+        scale = torch.rand((32,), generator=g0, device=dev) + 0.5
+        bias = torch.randn((32,), generator=g0, device=dev) * 0.1
+        n = torch.full((), float(B * H * W), device=dev)
+        y_ref, sums_ref = stem.stem_conv_stats_reference(img, w)
+        mean = sums_ref[0] / n
+        var = sums_ref[1] / n - mean * mean
+        inv = scale * torch.rsqrt(var + 1e-4)
+        shift = bias - mean * inv
+        rstd = torch.rsqrt(var + 1e-4)
+        pooled_ref = stem.stem_bn_pool_reference(y_ref, inv, shift)
+        g = torch.randn(pooled_ref.shape, generator=g0, device=dev) \
+            .to(torch.bfloat16)
+        s_ref = stem.stem_bwd_sums_reference(y_ref, g, inv, shift, mean, rstd)
+        c1, c2 = inv * s_ref[0] / n, inv * s_ref[1] / n
+        vec = 32 * 4
+        calls = {
+            "stem_conv_stats": (
+                lambda: stem.stem_conv_stats(img, w),
+                lambda: stem.stem_conv_stats_reference(img, w),
+                _nbytes(img, w, y_ref, sums_ref), 2 * 27 * 32 * B * H * W,
+                BF16_FLOPS),
+            "stem_bn_pool": (
+                lambda: stem.stem_bn_pool(y_ref, inv, shift),
+                lambda: stem.stem_bn_pool_reference(y_ref, inv, shift),
+                _nbytes(y_ref, pooled_ref) + 2 * vec, 6 * y_ref.numel(),
+                F32_FLOPS),
+            "stem_bwd_sums": (
+                lambda: stem.stem_bwd_sums(y_ref, g, inv, shift, mean, rstd),
+                lambda: stem.stem_bwd_sums_reference(y_ref, g, inv, shift,
+                                                     mean, rstd),
+                _nbytes(y_ref, g, s_ref) + 4 * vec, 16 * y_ref.numel(),
+                F32_FLOPS),
+            "stem_bwd_dw": (
+                lambda: stem.stem_bwd_dw(y_ref, g, img, inv, shift, mean,
+                                         rstd, c1, c2),
+                lambda: stem.stem_bwd_dw_reference(y_ref, g, img, inv, shift,
+                                                   mean, rstd, c1, c2),
+                _nbytes(y_ref, g, img) + 6 * vec + 27 * 32 * 4,
+                2 * 27 * 32 * B * H * W, BF16_FLOPS)}
+        for tag, name, _ in _STEM_KERNELS:
+            kernel, plain, nbytes, flops, peak = calls[name]
+            got, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            if name == "stem_conv_stats":
+                (y, sums), (y_r, sums_r) = got, ref
+                d = (y.float() - y_r.float()).abs()
+                exact = float((d == 0).float().mean())
+                bound = 1e-2 * float(y_r.float().abs().max()) + 1e-3
+                err, rel = float(d.max()), _rel(sums, sums_r)
+                what = (f"y max|d|={err:.6g} (bound {bound:.6g}), exactly "
+                        f"equal {exact:.6%}; sums rel {rel:.3g} (bound 1e-5)")
+                ok = err <= bound and exact >= 0.99 and rel <= 1e-5 and \
+                    torch.equal(stem.stem_conv_stats(img, w)[1], sums)
+            elif name == "stem_bn_pool":
+                d = (got.float() - ref.float()).abs()
+                exact = float((d == 0).float().mean())
+                bound = 1e-2 * float(ref.float().abs().max()) + 1e-3
+                err = float(d.max())
+                what = (f"pooled max|d|={err:.6g} (bound {bound:.6g}), "
+                        f"exactly equal {exact:.6%}")
+                ok = err <= bound and exact >= 0.99
+            else:
+                err = float((got - ref).abs().max())
+                rel = max(_rel(a, b) for a, b in zip(got, ref)) \
+                    if name == "stem_bwd_sums" else _rel(got, ref)
+                tol = 1e-5 if name == "stem_bwd_sums" else 1e-4
+                what = f"max|d|={err:.6g}, rel {rel:.3g} of max|ref| " \
+                       f"(bound {tol:g})"
+                ok = rel <= tol
+                if name == "stem_bwd_dw":
+                    ok = ok and torch.equal(kernel(), got)
+            ms = _time_ms(kernel)
+            plain_ms = _time_ms(plain)
+            print(f"[kernel] {tag} {name} ({B},{H},{W}): {what}; kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+            _check(ok, f"{tag} {name} off its plain version at ({B},{H},{W})")
+            if name not in results:
+                results[name] = {"max_abs_err": err, "ms": ms,
+                                 "plain_ms": plain_ms,
+                                 **_bound(nbytes, flops, peak)}
+    return results
 
 
 def _random_model(spec, dev, seed: int = 0) -> Darknet:
@@ -359,43 +509,56 @@ def phase_pose(dev, served: np.ndarray) -> None:
     _check(finite, "metrics on the served boxes are not finite")
 
 
-def _train_batches(dev, n: int, seed: int):
-    """``n`` batches of synthetic u8 frames (TRAIN_BATCH, 416, 416, 3) on the
-    card, with padded labels (TRAIN_BATCH, 50·21): one object per frame,
-    its 9 keypoints projected from a seeded pose with the LINEMOD camera,
-    normalized by 640×480."""
+def _train_batches(dev, n: int, seed: int, batch: Optional[int] = None):
+    """``n`` batches of synthetic u8 frames (batch, 416, 416, 3) on the
+    card, with padded labels (batch, 50·21): one object per frame, its 9
+    keypoints projected from a seeded pose with the LINEMOD camera,
+    normalized by 640×480.  ``batch`` defaults to TRAIN_BATCH."""
+    batch = batch or TRAIN_BATCH
     rng = np.random.RandomState(seed)
     pts, _, _ = _box_points()
     gen = torch.Generator().manual_seed(seed)
     out = []
     for _ in range(n):
-        Rs = so3_exp(torch.from_numpy(rng.randn(TRAIN_BATCH, 3) * 0.8)).numpy()
-        ts = np.stack([rng.uniform(-0.1, 0.1, TRAIN_BATCH),
-                       rng.uniform(-0.1, 0.1, TRAIN_BATCH),
-                       rng.uniform(0.5, 1.5, TRAIN_BATCH)], axis=1)
+        Rs = so3_exp(torch.from_numpy(rng.randn(batch, 3) * 0.8)).numpy()
+        ts = np.stack([rng.uniform(-0.1, 0.1, batch),
+                       rng.uniform(-0.1, 0.1, batch),
+                       rng.uniform(0.5, 1.5, batch)], axis=1)
         cam = np.einsum("bij,nj->bni", Rs, pts.astype(np.float64)) + ts[:, None]
         uvw = cam @ LINEMOD_K.T
         px = uvw[..., :2] / uvw[..., 2:] / [IM_W, IM_H]          # (B, 9, 2)
-        lab = np.zeros((TRAIN_BATCH, 50, 21), np.float32)
-        lab[:, 0, 1:19] = px.reshape(TRAIN_BATCH, 18)
+        lab = np.zeros((batch, 50, 21), np.float32)
+        lab[:, 0, 1:19] = px.reshape(batch, 18)
         lab[:, 0, 19] = np.ptp(px[..., 0], axis=1)
         lab[:, 0, 20] = np.ptp(px[..., 1], axis=1)
-        frames = torch.randint(0, 256, (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+        frames = torch.randint(0, 256, (batch, TRAIN_SIZE, TRAIN_SIZE, 3),
                                generator=gen, dtype=torch.uint8)
         out.append((frames.to(dev), torch.from_numpy(
-            lab.reshape(TRAIN_BATCH, -1)).to(dev)))
+            lab.reshape(batch, -1)).to(dev)))
     return out
 
 
-def _train_setup(spec, dev, seed: int):
+def _train_setup(spec, dev, seed: int, fused_stem: bool):
+    """A fresh train state, the loss config and a bf16 train step with the
+    fused train stem on or off."""
     net = spec.net
     state = init_train_state(_random_model(spec, dev, seed),
                              weight_decay=net.decay * TRAIN_BATCH,
                              momentum=net.momentum)
     cfg = loss_config_from_spec(spec, pretrain_num_epochs=15,
                                 im_width=IM_W, im_height=IM_H)
-    step = make_train_step(cfg, compute_dtype=torch.bfloat16)
+    step = make_train_step(cfg, compute_dtype=torch.bfloat16,
+                           fused_stem=fused_stem)
     return state, cfg, step
+
+
+_TRAIN_COUNTED = (mcc.max_corner_confidence, stem.stem_conv_stats,
+                  stem.stem_bn_pool, stem.stem_bwd_sums, stem.stem_bwd_dw)
+
+
+def _launches():
+    """K2–K6's launch counts, in that order."""
+    return [f.launches for f in _TRAIN_COUNTED]
 
 
 def _lr(spec, processed: int) -> float:
@@ -406,58 +569,131 @@ def _lr(spec, processed: int) -> float:
                        net.scales) / TRAIN_BATCH
 
 
+def _step_ms(step, state, batches, spec, n: int) -> float:
+    """Median host-clock ms of ``n`` steps, a sync after each."""
+    times = []
+    for i in range(n):
+        frames, labels = batches[i % len(batches)]
+        t = time.perf_counter()
+        step(state, frames, labels, _lr(spec, 0), TRAIN_EPOCH)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
 def phase_train(spec, dev, card: str):
     """The training path: TRAIN_STEPS steps of the full-width net at batch 8,
-    416², bf16.  Returns (the trained state, K2's launches in those steps,
-    the median step ms)."""
-    state, cfg, step = _train_setup(spec, dev, seed=5)
+    416², bf16, with the fused train stem resolved as ``run_training``
+    resolves it.  Returns (the trained state, K2–K6's launches in those
+    steps, the median step ms)."""
+    fused = _resolve_fused_stem(TrainRunConfig(), dev)
+    _check(fused, "run_training does not resolve the fused stem on for bf16 "
+                  "on a card")
+    state, cfg, step = _train_setup(spec, dev, seed=5, fused_stem=fused)
     batches = _train_batches(dev, TRAIN_STEPS, seed=8)
     losses, times = [], []
+    copies = stem.stem_conv_bn_pool_train.grad_copies
     torch.cuda.synchronize()
-    # the main path: every K2 launch counted from here on came from it
-    mcc.max_corner_confidence.launches = 0
+    # the main path: every K2-K6 launch counted from here on came from it
+    for f in _TRAIN_COUNTED:
+        f.launches = 0
     for i, (frames, labels) in enumerate(batches):
         t = time.perf_counter()
         stats = step(state, frames, labels, _lr(spec, i), TRAIN_EPOCH)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
         losses.append(float(stats["loss"]))
-    launches = mcc.max_corner_confidence.launches
+    launches = _launches()
+    copies = stem.stem_conv_bn_pool_train.grad_copies - copies
     step_ms = statistics.median(times[3:])
     print(f"[train] yolo_pose_single {TRAIN_SIZE}² batch {TRAIN_BATCH} bf16, "
-          f"{TRAIN_STEPS} steps, lr {_lr(spec, 0):.6g} (darknet lr / batch): "
-          f"losses {losses[0]:.6g} ... {losses[-1]:.6g}, K2 launches "
-          f"{launches}, seen {state.seen}; step median {step_ms:.4f} ms "
-          f"(host clock, sync each step, steps 4-{TRAIN_STEPS}), first step "
-          f"{times[0]:.1f} ms [{card}]")
+          f"fused train stem {fused}, {TRAIN_STEPS} steps, lr "
+          f"{_lr(spec, 0):.6g} (darknet lr / batch): losses {losses[0]:.6g} "
+          f"... {losses[-1]:.6g}, launches K2-K6 {launches}, incoming-"
+          f"gradient copies {copies}, seen {state.seen}; step median "
+          f"{step_ms:.4f} ms (host clock, sync each step, steps "
+          f"4-{TRAIN_STEPS}), first step {times[0]:.1f} ms [{card}]")
     _check(all(np.isfinite(losses)), f"a train loss is not finite: {losses}")
-    _check(launches == TRAIN_STEPS,
-           f"K2 launched {launches} times in {TRAIN_STEPS} train steps")
+    _check(launches == [TRAIN_STEPS] * 5,
+           f"K2-K6 launched {launches} times in {TRAIN_STEPS} train steps")
     _check(state.seen == TRAIN_STEPS * TRAIN_BATCH, f"seen {state.seen}")
 
-    # the loss of one train-mode head with K2, and with the plain reduction
+    # one batch's loss: the train-mode head with K2 and with the plain
+    # reduction; and through the fused and the unfused forward, whose stem
+    # outputs are compared first
     frames, labels = batches[-1]
     with torch.no_grad():
         state.model.train()
-        head = state.model(frames.float() / 255.0, torch.bfloat16)
+        x = frames.float() / 255.0
+        c0 = getattr(state.model, spec.layers[0].name)
+        pooled, mean, var = stem.stem_conv_bn_pool_train(x, c0.weight,
+                                                         c0.scale, c0.bias)
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(torch.bfloat16),
+                     c0.weight.to(torch.bfloat16), padding=1)
+        z, mean_u, var_u = L.batch_norm_train(y, c0.scale, c0.bias)
+        pooled_u = L.max_pool(L.leaky_relu(z), 2, 2).permute(0, 2, 3, 1)
+        head = state.model(x, torch.bfloat16, fused_stem=True)
         loss_k2, st = region_loss(head, labels, TRAIN_EPOCH, cfg)
         with mock.patch.object(targets, "max_corner_confidence",
                                mcc.max_corner_confidence_reference):
             loss_plain, _ = region_loss(head, labels, TRAIN_EPOCH, cfg)
+        loss_unfused, _ = region_loss(
+            state.model(x, torch.bfloat16, fused_stem=False), labels,
+            TRAIN_EPOCH, cfg)
+    d = (pooled.float() - pooled_u.float()).abs()
+    same = float((d == 0).float().mean())
+    bound = 1e-2 * float(pooled_u.float().abs().max()) + 1e-3
+    d_stats = max(float((mean - mean_u).abs().max()),
+                  float((var - var_u).abs().max()))
     rel = abs(float(loss_k2) - float(loss_plain)) / abs(float(loss_plain))
+    rel_stem = abs(float(loss_k2) - float(loss_unfused)) / \
+        abs(float(loss_unfused))
+    print(f"[train] stem output, fused vs unfused: exactly equal {same:.6%}, "
+          f"max|d|={float(d.max()):.6g} (bound {bound:.6g}), batch mean and "
+          f"var max|d|={d_stats:.3g} (f32 sums in another order)")
     print(f"[train] loss with K2 {float(loss_k2):.8g}, with the plain "
           f"reduction {float(loss_plain):.8g}: rel {rel:.3g} (bound 1e-5); "
-          f"nGT {int(st['nGT'])}, nCorrect {int(st['nCorrect'])}")
+          f"through the unfused forward {float(loss_unfused):.8g}: rel "
+          f"{rel_stem:.3g} (bound 1e-2: bf16 roundings that flip with the "
+          f"statistics' last bits, carried through 22 more bf16 layers); nGT "
+          f"{int(st['nGT'])}, nCorrect {int(st['nCorrect'])}")
+    _check(float(d.max()) <= bound and same >= 0.99,
+           "the fused stem's output is off the unfused one")
     _check(rel <= 1e-5, f"K2 loss vs plain-reduction loss rel {rel}")
+    _check(rel_stem <= 1e-2, f"fused vs unfused forward loss rel {rel_stem}")
 
-    # overfit one fixed batch from a fresh model
-    fit_state, _, fit_step = _train_setup(spec, dev, seed=6)
+    # the unfused path: the stem's plain PyTorch ops, no K3-K6
+    unfused = make_train_step(cfg, compute_dtype=torch.bfloat16,
+                              fused_stem=False)
+    before = _launches()
+    ul = [float(unfused(state, f, l, _lr(spec, 0), TRAIN_EPOCH)["loss"])
+          for f, l in batches[:UNFUSED_STEPS]]
+    torch.cuda.synchronize()
+    ran = [a - b for a, b in zip(_launches(), before)]
+    print(f"[train] unfused stem, {UNFUSED_STEPS} steps: losses "
+          f"{ul[0]:.6g} ... {ul[-1]:.6g}, launches K2-K6 {ran}")
+    _check(np.isfinite(ul).all(), f"an unfused loss is not finite: {ul}")
+    _check(ran == [UNFUSED_STEPS, 0, 0, 0, 0],
+           f"the unfused steps launched K2-K6 {ran} times")
+
+    # the two steps' times in turns, on one state
+    turns = {"fused": [], "unfused": []}
+    for which in ("fused", "unfused", "unfused", "fused") * 2:
+        turns[which].append(_step_ms(step if which == "fused" else unfused,
+                                     state, batches, spec, 5))
+    print("[train] step ms in turns fused/unfused/unfused/fused x2, median of "
+          "5 steps each (host clock, sync each step): " + "; ".join(
+              f"{k} " + " ".join(f"{t:.4f}" for t in v)
+              for k, v in turns.items()) + f" [{card}]")
+
+    # overfit one fixed batch from a fresh model, stem on
+    fit_state, _, fit_step = _train_setup(spec, dev, seed=6, fused_stem=fused)
     frames, labels = batches[0]
     lr = _lr(spec, 0)
     fit = [float(fit_step(fit_state, frames, labels, lr, TRAIN_EPOCH)["loss"])
            for _ in range(OVERFIT_STEPS)]
-    print(f"[train] overfit one batch, {OVERFIT_STEPS} steps at lr {lr:.6g}: "
-          f"loss {fit[0]:.6g} -> {fit[-1]:.6g} (min {min(fit):.6g})")
+    print(f"[train] overfit one batch, fused stem, {OVERFIT_STEPS} steps at lr "
+          f"{lr:.6g}: loss {fit[0]:.6g} -> {fit[-1]:.6g} (min {min(fit):.6g})")
     _check(np.isfinite(fit).all() and fit[-1] < fit[0],
            f"one batch did not overfit: {fit[0]} -> {fit[-1]}")
     return state, launches, step_ms
@@ -486,7 +722,7 @@ def phase_train_to_serve(spec, state, dev) -> None:
 
         ckpt = Checkpointer(os.path.join(tmp, "ckpt"))
         ckpt.save(TRAIN_STEPS, state)
-        back, _, _ = _train_setup(spec, dev, seed=11)
+        back, _, _ = _train_setup(spec, dev, seed=11, fused_stem=True)
         step = ckpt.restore(back)
         same = all(torch.equal(a, b) for a, b in zip(
             state.model.state_dict().values(),
@@ -523,6 +759,14 @@ def _family(name: str) -> str:
         return "K1 stem"
     if "max_corner_confidence_kernel" in name:
         return "K2 max corner confidence"
+    for kernel, family in (("stem_conv_stats_kernel", "K3 train stem conv"),
+                           ("stem_bn_pool_kernel", "K4 train stem BN + pool"),
+                           ("stem_bwd_sums_kernel", "K5 train stem sums"),
+                           ("stem_bwd_dw_kernel", "K6 train stem dW"),
+                           ("reduce_partials_kernel",
+                            "K3/K5/K6 partial-sum pass")):
+        if kernel in name:
+            return family
     if "nchwToNhwc" in name or "nhwcToNchw" in name:
         return "cuDNN layout transposes"
     if any(k in name for k in ("xmma", "nvjet", "cutlass", "gemm",
@@ -651,52 +895,153 @@ def phase_profile_k2(dev, card: str, out_dir: str) -> None:
                   f"kernels, busy {busy / PROFILE_CALLS:.2f} µs/call [{card}]")
 
 
-def phase_profile_train(spec, dev, card: str, out_dir: str) -> None:
-    """Where the train step's time goes (``--profile``): the host-clock
-    median of 20 steps (sync each step), then device time by kernel family
-    over PROFILE_CALLS profiled steps and the device's idle share.  Chrome
-    trace to ``out_dir``."""
-    state, _, step = _train_setup(spec, dev, seed=12)
-    batches = itertools.cycle(_train_batches(dev, 4, seed=13))
-
-    def one():
-        frames, labels = next(batches)
-        step(state, frames, labels, _lr(spec, 0), TRAIN_EPOCH)
-
-    host = _host_ms(one, iters=20)
-    os.makedirs(out_dir, exist_ok=True)
+def _profile(fn, calls: int, path: str):
+    """Device time by family and busy time of ``calls`` calls of ``fn``
+    under torch.profiler (chrome trace to ``path``); also by kernel name."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(PROFILE_CALLS):
-            one()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    path = os.path.join(out_dir, f"train_trace_b{TRAIN_BATCH}.json")
     prof.export_chrome_trace(path)
     by_name = collections.Counter()
     by_family, busy = _device_time(path, by_name)
-    busy_ms = busy / 1e3 / PROFILE_CALLS
-    total = sum(by_family.values())
-    print(f"[profile] train step batch {TRAIN_BATCH}, {TRAIN_SIZE}², bf16: "
-          f"host clock {host:.4f} ms/step (median of 20, sync each step); "
-          f"device busy {busy_ms:.4f} ms/step over {PROFILE_CALLS} profiled "
-          f"steps; idle share {1 - busy_ms / host:.4f}; trace {path} [{card}]")
-    for fam, us in by_family.most_common():
-        print(f"[profile]   {fam}: {us / 1e3 / PROFILE_CALLS:.4f} ms/step "
-              f"({us / total:.2%} of device time)")
-    for name, us in by_name.most_common(15):
-        print(f"[profile]   kernel {us / 1e3 / PROFILE_CALLS:.4f} ms/step "
-              f"[{_family(name)}] {name[:110]}")
+    return by_family, busy, by_name
+
+
+def phase_profile_train(spec, dev, card: str, out_dir: str) -> None:
+    """Where the train step's time goes (``--profile``), for the fused step
+    and, from the same state, the unfused one: the host-clock medians of 20
+    steps (sync each step) first, then device time by kernel family over
+    PROFILE_CALLS profiled steps and the device's idle share.  Chrome traces
+    to ``out_dir``."""
+    state, cfg, fused = _train_setup(spec, dev, seed=12, fused_stem=True)
+    steps = {"fused": fused, "unfused": make_train_step(
+        cfg, compute_dtype=torch.bfloat16, fused_stem=False)}
+    batches = itertools.cycle(_train_batches(dev, 4, seed=13))
+
+    def one(step):
+        frames, labels = next(batches)
+        step(state, frames, labels, _lr(spec, 0), TRAIN_EPOCH)
+
+    host = {k: _host_ms(functools.partial(one, step), iters=20)
+            for k, step in steps.items()}
+    os.makedirs(out_dir, exist_ok=True)
+    for which, step in steps.items():
+        path = os.path.join(out_dir, f"train_trace_{which}_b{TRAIN_BATCH}.json")
+        by_family, busy, by_name = _profile(functools.partial(one, step),
+                                            PROFILE_CALLS, path)
+        busy_ms = busy / 1e3 / PROFILE_CALLS
+        total = sum(by_family.values())
+        print(f"[profile] {which} train step batch {TRAIN_BATCH}, "
+              f"{TRAIN_SIZE}², bf16: host clock {host[which]:.4f} ms/step "
+              f"(median of 20, sync each step); device busy {busy_ms:.4f} "
+              f"ms/step over {PROFILE_CALLS} profiled steps; idle share "
+              f"{1 - busy_ms / host[which]:.4f}; trace {path} [{card}]")
+        for fam, us in by_family.most_common():
+            print(f"[profile]   {fam}: {us / 1e3 / PROFILE_CALLS:.4f} ms/step "
+                  f"({us / total:.2%} of device time)")
+        if which == "fused":
+            for name, us in by_name.most_common(15):
+                print(f"[profile]   kernel {us / 1e3 / PROFILE_CALLS:.4f} "
+                      f"ms/step [{_family(name)}] {name[:110]}")
+
+
+def phase_profile_stem(dev, card: str, out_dir: str) -> None:
+    """K1 and K3–K6 on the device alone (``--profile``): device µs per call
+    of each wrapper (its kernel and, for K3, K5 and K6, the partial-sum
+    pass) from a trace of PROFILE_CALLS calls at its main path's shape
+    (K1 the serve's batch 8, 672²; K3–K6 the train step's batch 8, 416²),
+    and the same for the plain version."""
+    os.makedirs(out_dir, exist_ok=True)
+    g0 = torch.Generator(device=dev).manual_seed(21)
+    B, H, W = STEM_SHAPES[-1]
+    args = (torch.rand((B, H, W, 3), generator=g0, device=dev),
+            torch.randn((32, 3, 3, 3), generator=g0, device=dev) * 0.2,
+            torch.randn((32,), generator=g0, device=dev) * 0.2)
+    for which, fn in (("kernel", stem.stem_conv_pool_infer),
+                      ("plain", stem.stem_conv_pool_infer_reference)):
+        fn(*args)
+        torch.cuda.synchronize()
+        path = os.path.join(out_dir, f"stem_conv_pool_infer_{which}.json")
+        by_family, busy, _ = _profile(lambda: fn(*args), PROFILE_CALLS, path)
+        print(f"[profile] K1 stem_conv_pool_infer {which} ({B},{H},{W}): "
+              f"device {sum(by_family.values()) / PROFILE_CALLS:.2f} µs/call "
+              f"in kernels, busy {busy / PROFILE_CALLS:.2f} µs/call [{card}]")
+    B, H, W = TRAIN_STEM_SHAPES[0]
+    img = torch.rand((B, H, W, 3), generator=g0, device=dev)
+    w = torch.randn((32, 3, 3, 3), generator=g0, device=dev) * 0.3
+    n = torch.full((), float(B * H * W), device=dev)
+    y, sums = stem.stem_conv_stats(img, w)
+    mean = sums[0] / n
+    var = sums[1] / n - mean * mean
+    inv = torch.rsqrt(var + 1e-4)
+    shift = -mean * inv
+    g = torch.randn((B, H // 2, W // 2, 32), generator=g0, device=dev) \
+        .to(torch.bfloat16)
+    s = stem.stem_bwd_sums(y, g, inv, shift, mean, inv)
+    c1, c2 = inv * s[0] / n, inv * s[1] / n
+    for tag, name, _ in _STEM_KERNELS:
+        args = {"stem_conv_stats": (img, w), "stem_bn_pool": (y, inv, shift),
+                "stem_bwd_sums": (y, g, inv, shift, mean, inv),
+                "stem_bwd_dw": (y, g, img, inv, shift, mean, inv, c1,
+                                c2)}[name]
+        for which, fn in (("kernel", getattr(stem, name)),
+                          ("plain", getattr(stem, name + "_reference"))):
+            fn(*args)
+            torch.cuda.synchronize()
+            path = os.path.join(out_dir, f"{name}_{which}.json")
+            by_family, busy, _ = _profile(lambda: fn(*args), PROFILE_CALLS,
+                                          path)
+            print(f"[profile] {tag} {name} {which} ({B},{H},{W}): device "
+                  f"{sum(by_family.values()) / PROFILE_CALLS:.2f} µs/call in "
+                  f"kernels, busy {busy / PROFILE_CALLS:.2f} µs/call [{card}]")
+
+
+def phase_profile_gate(spec, dev, card: str) -> None:
+    """Does the JAX package's batch gate for the fused stem (B < 64) mean
+    anything on this card?  The fused and the unfused train step at batch
+    GATE_BATCH, 416², in turns; the fused one with the gate lifted for this
+    measurement only."""
+    state, cfg, fused = _train_setup(spec, dev, seed=14, fused_stem=True)
+    unfused = make_train_step(cfg, compute_dtype=torch.bfloat16,
+                              fused_stem=False)
+    batches = _train_batches(dev, 2, seed=15, batch=GATE_BATCH)
+    gate = darknet.stem_supported
+    no_batch_gate = functools.partial(
+        mock.patch.object, darknet, "stem_supported",
+        lambda spec, dtype, shape=None: gate(spec, dtype))
+    before = _launches()[1]
+    turns = {"fused": [], "unfused": []}
+    for which in ("fused", "unfused", "unfused", "fused"):
+        with (no_batch_gate() if which == "fused"
+              else contextlib.nullcontext()):
+            _step_ms(fused if which == "fused" else unfused, state, batches,
+                     spec, 1)
+            turns[which].append(_step_ms(fused if which == "fused"
+                                         else unfused, state, batches, spec,
+                                         4))
+    ran = _launches()[1] - before
+    print(f"[profile] train step batch {GATE_BATCH}, {TRAIN_SIZE}², bf16, "
+          f"turns fused/unfused/unfused/fused, median of 4 steps each (host "
+          f"clock, sync each step): " + "; ".join(
+              f"{k} " + " ".join(f"{t:.4f}" for t in v)
+              for k, v in turns.items()) + f" ms; K3 launches {ran} [{card}]")
+    _check(ran == 10, f"the fused steps at batch {GATE_BATCH} launched K3 "
+                      f"{ran} times, not 10")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
                                  "on one NVIDIA card.")
     ap.add_argument("--profile", metavar="OUT_DIR",
-                    help="after the phases, profile the serve and the train "
-                         "step: device time by kernel family, idle share, "
-                         "and K1 against the plain stem in turns; chrome "
-                         "traces go to OUT_DIR")
+                    help="after the phases, profile the serve and the fused "
+                         "train step: device time by kernel family, idle "
+                         "share, K1 against the plain stem in turns, K2-K6 "
+                         "and their plain versions on the device, and the "
+                         "fused against the unfused step at batch 64; "
+                         "chrome traces go to OUT_DIR")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     card = phase_device()
@@ -704,6 +1049,7 @@ def main(argv=None) -> int:
     phase_build()
     stem_numbers = phase_kernel(dev, card)
     k2_numbers = phase_k2(dev, card)
+    train_stem_numbers = phase_train_stem(dev, card)
 
     spec = yolo_pose_single()
     model = _random_model(spec, dev)
@@ -717,23 +1063,33 @@ def main(argv=None) -> int:
     launches = stem.stem_conv_pool_infer.launches
     _check(launches > 0, "the serving path launched no stem kernel")
     phase_pose(dev, served)
-    state, k2_launches, _ = phase_train(spec, dev, card)
+    state, train_launches, _ = phase_train(spec, dev, card)
     phase_train_to_serve(spec, state, dev)
     if args.profile:
         phase_profile(spec, folded, dev, card, args.profile)
         phase_profile_k2(dev, card, args.profile)
+        phase_profile_stem(dev, card, args.profile)
         phase_profile_train(spec, dev, card, args.profile)
+        phase_profile_gate(spec, dev, card)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
-    print(json.dumps({"kernels": [{
+    # no single PyTorch call computes any of these functions: library_ms null
+    kernels = [{
         "name": "stem_conv_pool_infer", "route": "cuda",
         "source": "singleshotpose_tpu_torch/csrc/stem_serve.cu",
         "replaces": "singleshotpose_tpu/ops/stem.py:545",
-        "launches": launches, **stem_numbers}, {
+        "launches": launches, **stem_numbers, "library_ms": None}, {
         "name": "max_corner_confidence", "route": "cuda",
         "source": "singleshotpose_tpu_torch/csrc/max_corner_confidence.cu",
         "replaces": "singleshotpose_tpu/ops/pallas_kernels.py:44",
-        "launches": k2_launches, **k2_numbers}]}))
+        "launches": train_launches[0], **k2_numbers, "library_ms": None}]
+    for (_, name, replaces), n in zip(_STEM_KERNELS, train_launches[1:]):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "singleshotpose_tpu_torch/csrc/stem_train.cu",
+            "replaces": replaces, "launches": n, **train_stem_numbers[name],
+            "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

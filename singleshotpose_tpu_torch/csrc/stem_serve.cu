@@ -25,23 +25,21 @@
 // Rounding points, as in _k_serve (stem.py:562-565): products of bf16-rounded
 // operands accumulated in f32; the sum rounded to bf16; the f32 bias added to
 // that, rounded to bf16 again; leaky on the rounded value; the max over the 4
-// positions; one bf16 store.  The kernel allocates nothing.
+// positions; one bf16 store.  The kernel allocates nothing.  The conv
+// itself (weights staged in shared memory, the patch, the fmaf chain) is
+// stem_common.cuh, shared with the train stem's K3.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "stem_common.cuh"
 
 namespace {
 
-constexpr int kCin = 3;
-constexpr int kCout = 32;
-constexpr int kTaps = 27;            // 3 x 3 x kCin
-constexpr float kSlope = 0.10009765625f;   // bf16(0.1)
-constexpr int kThreads = 256;
+using stem::kCin;
+using stem::kCout;
+using stem::kSlope;
+using stem::kTaps;
+using stem::round_bf16;
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+constexpr int kThreads = 256;
 
 // x: (B, H, W, 3) f32; w: (32, 3, 3, 3) f32 OIHW, BN folded; bias: (32,) f32;
 // out: (B, H/2, W/2, 32) bf16.
@@ -52,11 +50,7 @@ stem_serve_kernel(const float* __restrict__ x, const float* __restrict__ w,
   // ws[tap][co], tap = (ky * 3 + kx) * 3 + ci
   __shared__ float ws[kTaps * kCout];
   __shared__ float bs[kCout];
-  for (int i = threadIdx.x; i < kTaps * kCout; i += blockDim.x) {
-    const int co = i / kTaps, rem = i % kTaps;
-    const int ci = rem / 9, ky = (rem % 9) / 3, kx = rem % 3;
-    ws[((ky * 3 + kx) * kCin + ci) * kCout + co] = round_bf16(w[i]);
-  }
+  stem::stage_weights(ws, w);
   if (threadIdx.x < kCout) bs[threadIdx.x] = bias[threadIdx.x];
   __syncthreads();
 
@@ -68,21 +62,8 @@ stem_serve_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int py = (int)(t % Hp);
   const int b = (int)(t / Hp);
 
-  // rows 2py-1 .. 2py+2, cols 2px-1 .. 2px+2 of the zero-padded image
   float patch[4][4][kCin];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int iy = 2 * py - 1 + r;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int ix = 2 * px - 1 + c;
-      const bool in = iy >= 0 && iy < H && ix >= 0 && ix < W;
-      const float* src = x + (((long long)b * H + iy) * W + ix) * kCin;
-#pragma unroll
-      for (int ci = 0; ci < kCin; ++ci)
-        patch[r][c][ci] = in ? round_bf16(src[ci]) : 0.0f;
-    }
-  }
+  stem::load_patch(patch, x, b, py, px, H, W);
 
   // 8 channels per 16-byte store; q stays a loop so `p` stays in registers
   uint4* dst = reinterpret_cast<uint4*>(out + pix * kCout);
@@ -100,15 +81,7 @@ stem_serve_kernel(const float* __restrict__ x, const float* __restrict__ w,
         for (int dy = 0; dy < 2; ++dy) {
 #pragma unroll
           for (int dx = 0; dx < 2; ++dx) {
-            float acc = 0.0f;
-#pragma unroll
-            for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-              for (int kx = 0; kx < 3; ++kx)
-#pragma unroll
-                for (int ci = 0; ci < kCin; ++ci)
-                  acc = fmaf(patch[dy + ky][dx + kx][ci],
-                             ws[((ky * 3 + kx) * kCin + ci) * kCout + o], acc);
+            const float acc = stem::conv_at(patch, ws, dy, dx, o);
             const float z = round_bf16(round_bf16(acc) + bs[o]);
             const float a = z >= 0.0f ? z : kSlope * z;
             m = fmaxf(m, a);

@@ -3,12 +3,12 @@
 Mirrors ``run_validation`` and ``run_training`` of
 ``singleshotpose_tpu/drivers.py``.
 
-Validation, on the ``rgb`` transfer: the shared host ``PoseDataset``/
+Validation, on the ``rgb`` transfer: the host ``PoseDataset``/
 ``Loader`` feed u8 batches at the spec's test size, the serving function
 (fold → bf16 forward → decode → best box) runs on the device, and the boxes
 of all batches meet the ground truth in one batched PnP + metric pass.
 
-Training: the shared host ``Loader`` (multi-scale, u8) feeds the eager train
+Training: the host ``Loader`` (multi-scale, u8) feeds the eager train
 step through pinned host memory; the reference's behaviours are kept — the
 step LR schedule in batches, the pretrain confidence gate, an eval every
 ``eval_every`` epochs after ``eval_after``, the best 2D accuracy saved as
@@ -26,19 +26,18 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from singleshotpose_tpu.config import data_config_from_options, read_data_cfg
-from singleshotpose_tpu.data.pipeline import SINGLE_SCHEDULE, Loader, PoseDataset
-from singleshotpose_tpu.data.prefetch import prefetch
-from singleshotpose_tpu.utils.labels import get_all_files
-
 from . import weights as W
 from .checkpoint import Checkpointer
+from .config import data_config_from_options, read_data_cfg
+from .data.pipeline import SINGLE_SCHEDULE, Loader, PoseDataset
+from .data.prefetch import prefetch
 from .evaluate import EvalContext, PoseErrors, accuracy_summary, pose_metrics
 from .models.darknet import Darknet, DarknetSpec, fold_batchnorm
 from .ops.losses import RegionLossConfig
 from .serving import make_serving_fn
 from .training import (TrainState, init_train_state, make_train_step,
                        schedule_lr)
+from .utils.labels import get_all_files
 from .zoo import _resolve_model
 
 __all__ = ["run_validation", "run_training", "TrainRunConfig",
@@ -183,6 +182,18 @@ class TrainRunConfig:
     checkpoint_every_epochs: int = 10
     resume: bool = False               # restore the latest checkpoint
     device: str = "cuda"
+    # the fused train stem (K3-K6); None = on for bf16 on a CUDA device,
+    # off elsewhere (_resolve_fused_stem)
+    fused_stem: Optional[bool] = None
+
+
+def _resolve_fused_stem(rc: TrainRunConfig, device: torch.device) -> bool:
+    """``rc.fused_stem`` when set; else on for bf16 on a CUDA device — the
+    counterpart of the JAX package's "bf16 on the accelerator"
+    (``singleshotpose_tpu/drivers.py:703-713``) — and off on the CPU."""
+    if rc.fused_stem is not None:
+        return rc.fused_stem
+    return rc.compute_dtype == torch.bfloat16 and device.type == "cuda"
 
 
 def _count_lines(path: str) -> int:
@@ -239,7 +250,8 @@ def run_training(datacfg: str, modelcfg: Union[str, DarknetSpec],
     loss_cfg = loss_config_from_spec(spec,
                                      pretrain_num_epochs=pretrain_num_epochs,
                                      im_width=dcfg.width, im_height=dcfg.height)
-    step = make_train_step(loss_cfg, compute_dtype=rc.compute_dtype)
+    step = make_train_step(loss_cfg, compute_dtype=rc.compute_dtype,
+                           fused_stem=_resolve_fused_stem(rc, device))
     bg_files = get_all_files(rc.bg_dir) if os.path.isdir(rc.bg_dir) else []
     ds = PoseDataset(dcfg.train, train=True, bg_file_names=bg_files,
                      num_keypoints=spec.num_keypoints)

@@ -3,8 +3,7 @@
 Mirrors ``singleshotpose_tpu/evaluate.py`` (``EvalContext``, ``PoseErrors``,
 ``pose_metrics``, ``accuracy_summary``).  The ground-truth and predicted
 poses come from one batched PnP solve on the requested device; the error
-families are numpy, with the jax-free helpers of
-``singleshotpose_tpu.utils.geometry``:
+families are numpy, with the helpers of ``utils/geometry.py``:
 
   * 2D reprojection: mean pixel distance of all mesh vertices under the two
     poses; accuracy = share of frames ≤ 5 px,
@@ -23,13 +22,11 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from singleshotpose_tpu.config import DataConfig
-from singleshotpose_tpu.utils.geometry import (calc_pts_diameter,
-                                               get_3D_corners,
-                                               get_camera_intrinsic)
-from singleshotpose_tpu.utils.meshply import MeshPly
-
+from .config import DataConfig
 from .ops.pnp import pnp_batched
+from .utils.geometry import (calc_pts_diameter, get_3D_corners,
+                             get_camera_intrinsic)
+from .utils.meshply import MeshPly
 
 __all__ = ["EvalContext", "PoseErrors", "pose_metrics", "accuracy_summary"]
 

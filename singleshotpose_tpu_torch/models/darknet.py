@@ -4,9 +4,10 @@ Mirrors ``singleshotpose_tpu/models/darknet.py``.  The layer specs and
 :class:`DarknetSpec` are the JAX module's, free of jax: the same block dicts
 give the same layers, ``out_filters`` and route liveness.  :class:`Darknet`
 holds the parameters (conv weights in OIHW, darknet's own layout) and runs
-the eval-mode forward and the train-mode one (batch-statistic BN);
-:func:`fold_batchnorm` and :func:`apply_folded` are the BN-folded serving
-path, whose stem goes to the CUDA kernel in ``ops/stem.py``.
+the eval-mode forward and the train-mode one (batch-statistic BN, its stem
+optionally the fused train stem of ``ops/stem.py``); :func:`fold_batchnorm`
+and :func:`apply_folded` are the BN-folded serving path, whose stem goes to
+the serving kernel in ``ops/stem.py``.
 
 Layout: NHWC at the public boundary (images ``(B, H, W, 3)`` in, the head
 ``(B, H/32, W/32, D)`` out, as in the JAX package), channels_last NCHW inside
@@ -23,11 +24,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from singleshotpose_tpu.config import (NetConfig, RegionConfig,
-                                       format_cfg_table,
-                                       net_config_from_block, parse_cfg,
-                                       region_config_from_block)
-
+from ..config import (NetConfig, RegionConfig, format_cfg_table,
+                      net_config_from_block, parse_cfg,
+                      region_config_from_block)
 from ..ops import stem
 from . import layers as L
 
@@ -211,13 +210,24 @@ class DarknetSpec:
         return format_cfg_table(self.blocks)
 
 
-def stem_supported(spec: DarknetSpec, compute_dtype) -> bool:
-    """True when ``spec``'s first two layers are the serving stem's pattern
+def stem_supported(spec: DarknetSpec, compute_dtype, shape=None) -> bool:
+    """True when ``spec``'s first two layers are the fused stems' pattern
     (conv 3×3 s1 p1 3→32 with BN and leaky, then a 2×2/2 max pool, neither
-    output re-read by a route) and the compute type is bf16 — the structural
-    half of ``singleshotpose_tpu/ops/stem.py:stem_supported``."""
+    output re-read by a route) and the compute type is bf16 —
+    ``singleshotpose_tpu/ops/stem.py:stem_supported`` without its device
+    check (here the tensors' device picks kernel or plain version).
+
+    ``shape``: the input (B, H, W, C), when given, also applies the JAX
+    package's batch gate as it stands there: B < 64, and H, W multiples of
+    32 (its threshold, measured on its accelerator; ``chip_smoke.py
+    --profile`` measures the fused and the unfused step on the card at
+    batch 64)."""
     if compute_dtype != torch.bfloat16 or len(spec.layers) < 2:
         return False
+    if shape is not None:
+        B, H, W = shape[0], shape[1], shape[2]
+        if B >= 64 or H % 32 or W % 32:
+            return False
     c, m = spec.layers[0], spec.layers[1]
     return (isinstance(c, ConvSpec) and isinstance(m, MaxPoolSpec)
             and c.in_filters == 3 and c.filters == 32 and c.size == 3
@@ -359,13 +369,18 @@ class ConvBlock(nn.Module):
             return L.batch_norm(y, self.scale, self.bias, self.running_mean,
                                 self.running_var)
         y, mean, var = L.batch_norm_train(y, self.scale, self.bias)
-        n = y.shape[0] * y.shape[2] * y.shape[3]
-        with torch.no_grad():
-            new_mean, new_var = L.running_stat_update(
-                self.running_mean, self.running_var, mean, var, n)
-            self.running_mean.copy_(new_mean)
-            self.running_var.copy_(new_var)
+        self.update_running(mean, var, y.shape[0] * y.shape[2] * y.shape[3])
         return y
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor,
+                       n: int) -> None:
+        """Fold one batch's statistics over ``n`` values into the running
+        buffers, in place (``layers.running_stat_update``)."""
+        new_mean, new_var = L.running_stat_update(
+            self.running_mean, self.running_var, mean, var, n)
+        self.running_mean.copy_(new_mean)
+        self.running_var.copy_(new_var)
 
 
 class Connected(nn.Module):
@@ -390,6 +405,11 @@ class Darknet(nn.Module):
     out.  In training mode (``model.train()``) it is the counterpart of
     ``apply(train=True)``: batch-statistic BN whose running buffers are
     updated in place; :meth:`forward_train` also returns the new statistics.
+    ``fused_stem=True`` in training mode runs layers 0–1 through the fused
+    train stem (``ops/stem.stem_conv_bn_pool_train``: K3–K6 on a card) when
+    :func:`stem_supported` admits the spec, dtype and input shape, as
+    ``apply(train=True, fused_stem=True)`` does; in eval mode it does
+    nothing.
     Random initialisation comes
     only from an explicit ``generator``; without one the weights are zeros,
     to be replaced by ``load_state_dict``.  State-dict keys are
@@ -412,20 +432,31 @@ class Darknet(nn.Module):
         m = getattr(self, lspec.name)
         return m.weight, m.bias
 
-    def forward(self, images: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, compute_dtype=None,
+                fused_stem: bool = False) -> torch.Tensor:
         """``images`` NHWC float in [0, 1] → the raw head, NHWC."""
-        out = _walk(self.spec, _to_nchw(images),
+        start, x = 0, _to_nchw(images)
+        if fused_stem and self.training and stem_supported(
+                self.spec, compute_dtype, tuple(images.shape)):
+            B, H, W, _ = images.shape
+            c0 = getattr(self, self.spec.layers[0].name)
+            pooled, mean, var = stem.stem_conv_bn_pool_train(
+                images.float().contiguous(), c0.weight, c0.scale, c0.bias)
+            c0.update_running(mean, var, B * H * W)
+            start, x = 2, _to_nchw(pooled)
+        out = _walk(self.spec, x,
                     lambda s, x: getattr(self, s.name)(x, compute_dtype),
-                    self._fc)
+                    self._fc, start=start)
         return _to_nhwc(out)
 
-    def forward_train(self, images: torch.Tensor, compute_dtype=None):
+    def forward_train(self, images: torch.Tensor, compute_dtype=None,
+                      fused_stem: bool = False):
         """Switch to training mode and run the forward: returns (head,
         new_stats), ``new_stats`` the updated running statistics as
         ``{layer: {"mean", "var"}}`` — the JAX ``apply(train=True)``'s
         second result.  The running buffers are updated in place."""
         self.train()
-        head = self(images, compute_dtype)
+        head = self(images, compute_dtype, fused_stem)
         return head, self.batch_stats()
 
     def batch_stats(self) -> Dict[str, Dict[str, torch.Tensor]]:

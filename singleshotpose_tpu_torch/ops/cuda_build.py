@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 with ``nvcc`` for sm_90a into a shared library under
-``singleshotpose_tpu_torch/_build/``, keyed on the hash of that source and
-the flags, at first use; the library is then bound with ``ctypes``.  Nothing
-is built when a module is imported.  :func:`build_libraries` starts one
+``singleshotpose_tpu_torch/_build/``, keyed on the hash of that source, the
+shared headers ``csrc/*.cuh`` and the flags, at first use; the library is
+then bound with ``ctypes``.  Nothing is built when a module is imported.  :func:`build_libraries` starts one
 ``nvcc`` per missing library, all at once, and waits for them together.
 """
 
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -42,9 +43,12 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> str:
     """``_build/lib<name>_<hash>.so`` for ``csrc/<name>.cu``; the hash
-    covers the source's bytes and the flags."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    covers the source's bytes, every header in ``csrc/`` and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu")] + \
+            sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

@@ -74,7 +74,8 @@ def schedule_lr(base_lr: float, processed_batches: float,
 
 
 def make_train_step(loss_cfg: RegionLossConfig, *,
-                    compute_dtype=torch.bfloat16) -> Callable:
+                    compute_dtype=torch.bfloat16,
+                    fused_stem: bool = False) -> Callable:
     """The train step ``step(state, images, target, lr, epoch) -> stats``.
 
     ``images`` NHWC, uint8 (divided by 255 on the device) or float in
@@ -83,6 +84,8 @@ def make_train_step(loss_cfg: RegionLossConfig, *,
     step runs forward (training-mode BN), the region loss, backward and the
     SGD update, and adds the batch size to ``state.seen``, all in place on
     ``state``.  ``stats`` are device tensors (no host sync).
+    ``fused_stem``: layers 0–1 through the fused train stem where the model
+    admits it (``Darknet.forward``), as the JAX step takes it.
     """
     scale_u8 = {}
 
@@ -98,7 +101,7 @@ def make_train_step(loss_cfg: RegionLossConfig, *,
                     (), 255.0, device=images.device)
             images = images.float() / div
         model.train()
-        head = model(images, compute_dtype)
+        head = model(images, compute_dtype, fused_stem)
         loss, stats = region_loss(head, target, epoch, loss_cfg)
         opt.zero_grad(set_to_none=True)
         loss.backward()

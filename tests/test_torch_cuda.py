@@ -10,7 +10,10 @@ no jax, so it runs on the card's machine, which has none:
 imports jax.)  Bounds, as for the CPU parity of each plain version: the
 serving stem max|d| ≤ 1e-2·max|ref| + 1e-3 with at least 99% of elements
 exactly equal; the max corner confidence rtol 1e-5, atol 1e-6, with the
-same cells above the 0.6 silencing threshold.
+same cells above the 0.6 silencing threshold.  The train stem's kernels
+(K3–K6) and their plain versions use the same formulas with f32 sums in
+another order: y and pooled as the serving stem; the sums of K3 and K5
+rel 1e-5 of max|ref|; K6's dW rel 1e-4 of max|ref|.
 """
 
 import pytest
@@ -22,15 +25,27 @@ from singleshotpose_tpu_torch.models.darknet import (DarknetSpec, Darknet,
 from singleshotpose_tpu_torch.ops import max_corner_confidence as mcc
 from singleshotpose_tpu_torch.ops import stem
 from singleshotpose_tpu_torch.ops.targets import build_targets
+from singleshotpose_tpu_torch.training import init_train_state, make_train_step
+from singleshotpose_tpu_torch.ops.losses import RegionLossConfig
 
 from torch_port_helpers import TINY_BLOCKS
 
 
 @pytest.fixture
 def dev():
+    """The card, with TF32 off for cuDNN and cuBLAS while the test runs: the
+    plain versions' f32 convs (the train stem's weight gradient among them)
+    are references.  With TF32 on, the plain dW at batch 8, 416² was 2.5e-4
+    of max|dW| off the kernel's; with it off, 2.3e-6."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: a CUDA kernel has no CPU mode")
-    return torch.device("cuda")
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        saved
 
 
 def _check(got, ref):
@@ -151,3 +166,140 @@ def test_build_targets_on_the_card_equals_the_cpu(dev):
                                        msg=name)
         else:
             assert torch.equal(a.cpu(), b), name
+
+
+# ---------------------------------------------------------------------------
+# the train stem, K3-K6
+# ---------------------------------------------------------------------------
+
+
+def _rel(got, ref):
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max().clamp_min(1e-30))
+
+
+def _stem_inputs(dev, B, H, W, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    img = torch.rand((B, H, W, 3), generator=g, device=dev)
+    w = torch.randn((32, 3, 3, 3), generator=g, device=dev) * 0.3
+    scale = torch.rand((32,), generator=g, device=dev) + 0.5
+    scale[3] = -0.7
+    bias = torch.randn((32,), generator=g, device=dev) * 0.1
+    return img, w, scale, bias
+
+
+def _glue(sums, n, scale, bias):
+    mean = sums[0] / n
+    var = sums[1] / n - mean * mean
+    inv = scale * torch.rsqrt(var + 1e-4)
+    return mean, var, inv, bias - mean * inv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W", [(2, 32, 64), (8, 416, 416), (8, 832, 832)])
+def test_train_stem_kernels_match_plain_versions(dev, B, H, W):
+    img, w, scale, bias = _stem_inputs(dev, B, H, W, seed=B + H)
+    n = torch.full((), float(B * H * W), device=dev)
+    before = [stem.stem_conv_stats.launches, stem.stem_bn_pool.launches,
+              stem.stem_bwd_sums.launches, stem.stem_bwd_dw.launches]
+    y, sums = stem.stem_conv_stats(img, w)
+    y_ref, sums_ref = stem.stem_conv_stats_reference(img, w)
+    torch.cuda.synchronize()
+    assert y.shape == (B, H // 2, W // 2, 4, 32) and y.dtype == torch.bfloat16
+    _check(y, y_ref)
+    assert _rel(sums, sums_ref) <= 1e-5
+    # the rest from one set of inputs, the plain version's
+    mean, var, inv, shift = _glue(sums_ref, n, scale, bias)
+    pooled = stem.stem_bn_pool(y_ref, inv, shift)
+    _check(pooled, stem.stem_bn_pool_reference(y_ref, inv, shift))
+    assert pooled.shape == (B, H // 2, W // 2, 32) and pooled.is_contiguous()
+    g = (torch.randn(pooled.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(1), device=dev)).to(torch.bfloat16)
+    rstd = torch.rsqrt(var + 1e-4)
+    s = stem.stem_bwd_sums(y_ref, g, inv, shift, mean, rstd)
+    s_ref = stem.stem_bwd_sums_reference(y_ref, g, inv, shift, mean, rstd)
+    assert _rel(s[0], s_ref[0]) <= 1e-5 and _rel(s[1], s_ref[1]) <= 1e-5
+    c1, c2 = inv * s_ref[0] / n, inv * s_ref[1] / n
+    dw = stem.stem_bwd_dw(y_ref, g, img, inv, shift, mean, rstd, c1, c2)
+    dw_ref = stem.stem_bwd_dw_reference(y_ref, g, img, inv, shift, mean, rstd,
+                                        c1, c2)
+    torch.cuda.synchronize()
+    assert dw.shape == (32, 3, 3, 3) and _rel(dw, dw_ref) <= 1e-4
+    after = [stem.stem_conv_stats.launches, stem.stem_bn_pool.launches,
+             stem.stem_bwd_sums.launches, stem.stem_bwd_dw.launches]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+    # the same bits from run to run: no float atomics in the sums
+    assert torch.equal(stem.stem_conv_stats(img, w)[1], sums)
+    assert torch.equal(stem.stem_bwd_dw(y_ref, g, img, inv, shift, mean, rstd,
+                                        c1, c2), dw)
+
+
+@pytest.mark.cuda
+def test_train_stem_function_on_the_card_matches_the_cpu(dev):
+    """The autograd.Function with its kernels against itself with the plain
+    versions: a bf16 y that rounds the other way can move a window's
+    maximum, and so the gradients are held at tests/test_stem.py's bounds
+    (dscale, dbias rel 1e-3; dW rel 3e-2)."""
+    img, w, scale, bias = _stem_inputs(dev, 2, 64, 96, seed=3)
+    cot = torch.randn((2, 32, 48, 32), device=dev)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        leaves = [t.to(d).clone().requires_grad_() for t in (w, scale, bias)]
+        pooled, mean, var = stem.stem_conv_bn_pool_train(img.to(d), *leaves)
+        (pooled.float() * cot.to(d)).sum().backward()
+        grads.append([pooled.detach().cpu(), mean.cpu(), var.cpu()]
+                     + [t.grad.cpu() for t in leaves])
+    card, cpu = grads
+    _check(card[0], cpu[0])
+    for name, a, b, tol in zip(("mean", "var", "dw", "dscale", "dbias"),
+                               card[1:], cpu[1:],
+                               (1e-5, 1e-5, 3e-2, 1e-3, 1e-3)):
+        assert _rel(a, b) <= tol, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+def test_train_stem_kernels_reject_what_they_cannot_take(dev):
+    img, w, scale, bias = _stem_inputs(dev, 2, 32, 64, seed=4)
+    with pytest.raises(ValueError, match="even"):
+        stem.stem_conv_stats(img[:, :31], w)
+    with pytest.raises(ValueError, match="contiguous"):
+        stem.stem_conv_stats(img.transpose(1, 2).contiguous().transpose(1, 2),
+                             w)
+    with pytest.raises(ValueError):
+        stem.stem_conv_stats(img, w.cpu())
+    y, _ = stem.stem_conv_stats(img, w)
+    ones, zeros = torch.ones(32, device=dev), torch.zeros(32, device=dev)
+    with pytest.raises(ValueError):
+        stem.stem_bn_pool(y.float(), ones, zeros)
+    with pytest.raises(ValueError):
+        stem.stem_bn_pool(y, ones.cpu(), zeros)
+    g = torch.zeros((2, 16, 32, 32), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(TypeError):
+        stem.stem_bwd_sums(y, g.float(), ones, zeros, zeros, ones)
+    with pytest.raises(ValueError, match="contiguous"):
+        stem.stem_bwd_sums(y, g.transpose(1, 2).contiguous().transpose(1, 2),
+                           ones, zeros, zeros, ones)
+    with pytest.raises(ValueError, match="do not match"):
+        stem.stem_bwd_dw(y, g, img[:, :, :32].contiguous(), ones, zeros,
+                         zeros, ones, zeros, zeros)
+
+
+@pytest.mark.cuda
+def test_fused_train_step_runs_the_four_kernels(dev):
+    spec = DarknetSpec(TINY_BLOCKS)
+    model = Darknet(spec, generator=torch.Generator().manual_seed(0),
+                    device=dev)
+    state = init_train_state(model, weight_decay=1e-3, momentum=0.9)
+    target = torch.zeros((2, 50, 21), device=dev)
+    target[:, 0, 1:19] = 0.5
+    target[:, 0, 19:21] = 0.3
+    imgs = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                         device=dev)
+    fns = (stem.stem_conv_stats, stem.stem_bn_pool, stem.stem_bwd_sums,
+           stem.stem_bwd_dw)
+    before = [f.launches for f in fns]
+    stats = make_train_step(RegionLossConfig(), fused_stem=True)(
+        state, imgs, target.reshape(2, -1), 1e-3, 16)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1, 1]
+    assert bool(torch.isfinite(stats["loss"]))

@@ -209,15 +209,20 @@ def test_cli_valid_refuses_missing_cuda(linemod):
 _NO_JAX = r"""
 import sys
 sys.modules["jax"] = None            # any `import jax` now raises ImportError
+sys.modules["singleshotpose_tpu"] = None     # and so does the JAX package
 import numpy as np, torch
 torch.set_num_threads(2)
 import singleshotpose_tpu_torch
-from singleshotpose_tpu_torch import (checkpoint, cli, drivers, evaluate,
-                                      serving, training, weights, zoo)
+from singleshotpose_tpu_torch import (checkpoint, cli, config, drivers,
+                                      evaluate, serving, training, weights,
+                                      zoo)
+from singleshotpose_tpu_torch.data import augment, pipeline, prefetch
 from singleshotpose_tpu_torch.models import darknet, layers
 from singleshotpose_tpu_torch.ops import (confidence, cuda_build, decode,
                                           losses, max_corner_confidence, pnp,
                                           stem, targets)
+from singleshotpose_tpu_torch.utils import geometry, labels, meshply
+import chip_smoke                    # the card's smoke script imports the same
 spec = zoo.yolo_pose_single(test_size=64)
 model = darknet.Darknet(spec, generator=torch.Generator().manual_seed(0))
 boxes = serving.make_serving_fn(spec, darknet.fold_batchnorm(model),
@@ -232,21 +237,23 @@ assert np.abs(t.numpy()[0] - [0.01, -0.02, 0.7]).max() < 1e-3
 sys.path.insert(0, "tests")
 from torch_port_helpers import TINY_BLOCKS
 tiny = darknet.DarknetSpec(TINY_BLOCKS)
-state = training.init_train_state(
-    darknet.Darknet(tiny, generator=torch.Generator().manual_seed(1)),
-    weight_decay=1e-3, momentum=0.9)
 target = torch.zeros((2, 50 * 21))
 target.view(2, 50, 21)[:, 0, 1:19] = 0.5
-stats = training.make_train_step(losses.RegionLossConfig())(
-    state, torch.zeros((2, 64, 64, 3), dtype=torch.uint8), target, 1e-3, 16)
-assert bool(torch.isfinite(stats["loss"])) and state.seen == 2
-allowed = {"singleshotpose_tpu", "singleshotpose_tpu.config",
-           "singleshotpose_tpu.utils", "singleshotpose_tpu.utils.geometry",
-           "singleshotpose_tpu.utils.meshply", "singleshotpose_tpu.utils.labels",
-           "singleshotpose_tpu.data", "singleshotpose_tpu.data.pipeline",
-           "singleshotpose_tpu.data.augment", "singleshotpose_tpu.data.prefetch"}
-used = {m for m in sys.modules if m.split(".")[0] == "singleshotpose_tpu"}
-assert used <= allowed, sorted(used - allowed)
+calls, real = [], stem.stem_conv_bn_pool_train
+stem.stem_conv_bn_pool_train = lambda *a: calls.append(1) or real(*a)
+for fused in (False, True):
+    state = training.init_train_state(
+        darknet.Darknet(tiny, generator=torch.Generator().manual_seed(1)),
+        weight_decay=1e-3, momentum=0.9)
+    stats = training.make_train_step(losses.RegionLossConfig(),
+                                     fused_stem=fused)(
+        state, torch.zeros((2, 64, 64, 3), dtype=torch.uint8), target, 1e-3,
+        16)
+    assert bool(torch.isfinite(stats["loss"])) and state.seen == 2
+assert calls == [1]                  # the fused step ran the train stem
+used = sorted(m for m in sys.modules if m.split(".")[0] == "singleshotpose_tpu"
+              and sys.modules[m] is not None)
+assert not used, used
 print("NO_JAX_OK")
 """
 
