@@ -95,9 +95,10 @@ N_POSES = 64
 K2_SHAPES = ((8, 50, 169), (8, 50, 676), (32, 50, 845))
 TRAIN_SIZE, TRAIN_BATCH = 416, 8      # yolo-pose.cfg's width and batch
 TRAIN_STEPS, OVERFIT_STEPS, UNFUSED_STEPS = 20, 30, 5
-# K3-K6 (B, H, W): the batch-8 416² train step, and the 832² bucket, the
-# largest of the multi-scale schedule
-TRAIN_STEM_SHAPES = ((8, 416, 416), (8, 832, 832))
+# K3-K6 (B, H, W): the batch-8 416² train step, the 832² bucket (the
+# largest of the multi-scale schedule), and a ragged shape whose 17 x 35
+# pooled grid is odd and no multiple of K6's 2 x 16 tiles
+TRAIN_STEM_SHAPES = ((8, 416, 416), (8, 832, 832), (3, 34, 70))
 GATE_BATCH = 64       # the JAX package's batch gate for the fused stem
 TRAIN_EPOCH = 16      # past the 15-epoch pretrain gate: every loss term counts
 BATCHES_PER_EPOCH = 125   # ~1,000 LINEMOD training frames / batch 8
@@ -166,6 +167,25 @@ def phase_device() -> str:
     return smi
 
 
+def _sass_report(lib: str, kernel: str):
+    """(the number of HMMA instructions, the resource usage line) of
+    ``kernel`` in the built library ``lib``, read with the toolkit's
+    cuobjdump."""
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+
+    def dump(flag):
+        return subprocess.run([tool, flag, lib], capture_output=True,
+                              text=True, check=True).stdout
+
+    sections = dump("--dump-sass").split("Function : ")[1:]
+    hmma = sum(sec.count("HMMA") for sec in sections
+               if kernel in sec.split("\n", 1)[0])
+    lines = dump("--dump-resource-usage").splitlines()
+    usage = next((lines[i + 1].strip() for i, line in enumerate(lines[:-1])
+                  if "Function" in line and kernel in line), "not found")
+    return hmma, usage
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     paths = cuda_build.build_libraries(
@@ -175,6 +195,10 @@ def phase_build() -> None:
     stem._train_library()
     print(f"[build] {', '.join(paths)} in {time.perf_counter() - t0:.2f} s "
           "(one nvcc per source, in parallel)")
+    hmma, usage = _sass_report(paths[2], "stem_bwd_dw_kernel")
+    print(f"[build] K6 stem_bwd_dw_kernel: {hmma} HMMA instructions in its "
+          f"SASS; {usage}")
+    _check(hmma > 0, "K6's product does not run on the tensor cores")
 
 
 def phase_kernel(dev, card: str):
@@ -266,6 +290,22 @@ def _rel(got, ref) -> float:
                  / ref.float().abs().max().clamp_min(1e-30))
 
 
+def _stem_bounds(img, w, y, sums, pooled, g, s) -> dict:
+    """K3-K6's bounds (``_bound``) for one call on these tensors: K3's
+    inputs and outputs, K4-K6's on K3's y, K4's pooled, the gradient g and
+    K5's sums."""
+    vec, conv = 32 * 4, 2 * 27 * 32 * img.shape[0] * img.shape[1] * \
+        img.shape[2]
+    return {"stem_conv_stats": _bound(_nbytes(img, w, y, sums), conv,
+                                      BF16_FLOPS),
+            "stem_bn_pool": _bound(_nbytes(y, pooled) + 2 * vec,
+                                   6 * y.numel(), F32_FLOPS),
+            "stem_bwd_sums": _bound(_nbytes(y, g, s) + 4 * vec,
+                                    16 * y.numel(), F32_FLOPS),
+            "stem_bwd_dw": _bound(_nbytes(y, g, img) + 6 * vec + 27 * 32 * 4,
+                                  conv, BF16_FLOPS)}
+
+
 def phase_train_stem(dev, card: str):
     """K3–K6 against their plain versions at TRAIN_STEM_SHAPES: K3 on the
     images, K4–K6 on the plain K3's output with a seeded bf16 gradient.
@@ -293,33 +333,25 @@ def phase_train_stem(dev, card: str):
             .to(torch.bfloat16)
         s_ref = stem.stem_bwd_sums_reference(y_ref, g, inv, shift, mean, rstd)
         c1, c2 = inv * s_ref[0] / n, inv * s_ref[1] / n
-        vec = 32 * 4
+        bounds = _stem_bounds(img, w, y_ref, sums_ref, pooled_ref, g, s_ref)
         calls = {
             "stem_conv_stats": (
                 lambda: stem.stem_conv_stats(img, w),
-                lambda: stem.stem_conv_stats_reference(img, w),
-                _nbytes(img, w, y_ref, sums_ref), 2 * 27 * 32 * B * H * W,
-                BF16_FLOPS),
+                lambda: stem.stem_conv_stats_reference(img, w)),
             "stem_bn_pool": (
                 lambda: stem.stem_bn_pool(y_ref, inv, shift),
-                lambda: stem.stem_bn_pool_reference(y_ref, inv, shift),
-                _nbytes(y_ref, pooled_ref) + 2 * vec, 6 * y_ref.numel(),
-                F32_FLOPS),
+                lambda: stem.stem_bn_pool_reference(y_ref, inv, shift)),
             "stem_bwd_sums": (
                 lambda: stem.stem_bwd_sums(y_ref, g, inv, shift, mean, rstd),
                 lambda: stem.stem_bwd_sums_reference(y_ref, g, inv, shift,
-                                                     mean, rstd),
-                _nbytes(y_ref, g, s_ref) + 4 * vec, 16 * y_ref.numel(),
-                F32_FLOPS),
+                                                     mean, rstd)),
             "stem_bwd_dw": (
                 lambda: stem.stem_bwd_dw(y_ref, g, img, inv, shift, mean,
                                          rstd, c1, c2),
                 lambda: stem.stem_bwd_dw_reference(y_ref, g, img, inv, shift,
-                                                   mean, rstd, c1, c2),
-                _nbytes(y_ref, g, img) + 6 * vec + 27 * 32 * 4,
-                2 * 27 * 32 * B * H * W, BF16_FLOPS)}
+                                                   mean, rstd, c1, c2))}
         for tag, name, _ in _STEM_KERNELS:
-            kernel, plain, nbytes, flops, peak = calls[name]
+            kernel, plain = calls[name]
             got, ref = kernel(), plain()
             torch.cuda.synchronize()
             if name == "stem_conv_stats":
@@ -357,8 +389,7 @@ def phase_train_stem(dev, card: str):
             _check(ok, f"{tag} {name} off its plain version at ({B},{H},{W})")
             if name not in results:
                 results[name] = {"max_abs_err": err, "ms": ms,
-                                 "plain_ms": plain_ms,
-                                 **_bound(nbytes, flops, peak)}
+                                 "plain_ms": plain_ms, **bounds[name]}
     return results
 
 
@@ -953,22 +984,32 @@ def phase_profile_stem(dev, card: str, out_dir: str) -> None:
     of each wrapper (its kernel and, for K3, K5 and K6, the partial-sum
     pass) from a trace of PROFILE_CALLS calls at its main path's shape
     (K1 the serve's batch 8, 672²; K3–K6 the train step's batch 8, 416²),
-    and the same for the plain version."""
+    beside the kernel's bound and the share of it reached, and the same for
+    the plain version."""
     os.makedirs(out_dir, exist_ok=True)
     g0 = torch.Generator(device=dev).manual_seed(21)
+
+    def report(tag, name, which, shape, fn, bound):
+        fn()
+        torch.cuda.synchronize()
+        path = os.path.join(out_dir, f"{name}_{which}.json")
+        by_family, busy, _ = _profile(fn, PROFILE_CALLS, path)
+        us = sum(by_family.values()) / PROFILE_CALLS
+        print(f"[profile] {tag} {name} {which} {shape}: device {us:.2f} "
+              f"µs/call in kernels, busy {busy / PROFILE_CALLS:.2f} µs/call; "
+              f"bound {bound['bound_ms'] * 1e3:.2f} µs ({bound['bound_by']}),"
+              f" {bound['bound_ms'] * 1e3 / us:.2%} of it [{card}]")
+
     B, H, W = STEM_SHAPES[-1]
     args = (torch.rand((B, H, W, 3), generator=g0, device=dev),
             torch.randn((32, 3, 3, 3), generator=g0, device=dev) * 0.2,
             torch.randn((32,), generator=g0, device=dev) * 0.2)
+    out = stem.stem_conv_pool_infer(*args)
+    bound = _bound(_nbytes(*args, out), 2 * 27 * 32 * B * H * W, BF16_FLOPS)
     for which, fn in (("kernel", stem.stem_conv_pool_infer),
                       ("plain", stem.stem_conv_pool_infer_reference)):
-        fn(*args)
-        torch.cuda.synchronize()
-        path = os.path.join(out_dir, f"stem_conv_pool_infer_{which}.json")
-        by_family, busy, _ = _profile(lambda: fn(*args), PROFILE_CALLS, path)
-        print(f"[profile] K1 stem_conv_pool_infer {which} ({B},{H},{W}): "
-              f"device {sum(by_family.values()) / PROFILE_CALLS:.2f} µs/call "
-              f"in kernels, busy {busy / PROFILE_CALLS:.2f} µs/call [{card}]")
+        report("K1", "stem_conv_pool_infer", which, (B, H, W),
+               functools.partial(fn, *args), bound)
     B, H, W = TRAIN_STEM_SHAPES[0]
     img = torch.rand((B, H, W, 3), generator=g0, device=dev)
     w = torch.randn((32, 3, 3, 3), generator=g0, device=dev) * 0.3
@@ -982,6 +1023,8 @@ def phase_profile_stem(dev, card: str, out_dir: str) -> None:
         .to(torch.bfloat16)
     s = stem.stem_bwd_sums(y, g, inv, shift, mean, inv)
     c1, c2 = inv * s[0] / n, inv * s[1] / n
+    bounds = _stem_bounds(img, w, y, sums, stem.stem_bn_pool(y, inv, shift),
+                          g, s)
     for tag, name, _ in _STEM_KERNELS:
         args = {"stem_conv_stats": (img, w), "stem_bn_pool": (y, inv, shift),
                 "stem_bwd_sums": (y, g, inv, shift, mean, inv),
@@ -989,14 +1032,8 @@ def phase_profile_stem(dev, card: str, out_dir: str) -> None:
                                 c2)}[name]
         for which, fn in (("kernel", getattr(stem, name)),
                           ("plain", getattr(stem, name + "_reference"))):
-            fn(*args)
-            torch.cuda.synchronize()
-            path = os.path.join(out_dir, f"{name}_{which}.json")
-            by_family, busy, _ = _profile(lambda: fn(*args), PROFILE_CALLS,
-                                          path)
-            print(f"[profile] {tag} {name} {which} ({B},{H},{W}): device "
-                  f"{sum(by_family.values()) / PROFILE_CALLS:.2f} µs/call in "
-                  f"kernels, busy {busy / PROFILE_CALLS:.2f} µs/call [{card}]")
+            report(tag, name, which, (B, H, W), functools.partial(fn, *args),
+                   bounds[name])
 
 
 def phase_profile_gate(spec, dev, card: str) -> None:

@@ -37,6 +37,9 @@
 // fmaf there is a product and one rounded add.  The kernels allocate
 // nothing: the wrappers in ops/stem.py allocate outputs and partials.
 
+#include <cuda_bf16.h>
+#include <mma.h>
+
 #include "stem_common.cuh"
 
 namespace {
@@ -228,24 +231,24 @@ __device__ __forceinline__ void load_params(BnParams& bp, int q,
   }
 }
 
-__device__ __forceinline__ void grad_z(const __nv_bfloat16* __restrict__ y,
-                                       const __nv_bfloat16* __restrict__ g,
-                                       long long pix, int q,
-                                       const BnParams& bp,
-                                       float (&gz)[kPhases][8],
-                                       float (&xhat)[kPhases][8]) {
-  const uint4* src = reinterpret_cast<const uint4*>(y) + pix * kPhases * kGroups;
-  float gv[8], yv[kPhases][8], z[kPhases][8], a[kPhases][8];
-  unpack8(reinterpret_cast<const uint4*>(g)[pix * kGroups + q], gv);
+// For N channels of one pooled pixel: y at the window's positions, g, and
+// the channels' BN vectors -> gz and xhat at the window's positions.
+template <int N>
+__device__ __forceinline__ void route(const float (&yv)[kPhases][N],
+                                      const float (&gv)[N],
+                                      const float (&inv)[N],
+                                      const float (&shift)[N],
+                                      const float (&mean)[N],
+                                      const float (&rstd)[N],
+                                      float (&gz)[kPhases][N],
+                                      float (&xhat)[kPhases][N]) {
+  float z[kPhases][N], a[kPhases][N];
 #pragma unroll
-  for (int p = 0; p < kPhases; ++p) unpack8(src[p * kGroups + q], yv[p]);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N; ++j) {
     float best = -__int_as_float(0x7f800000);
 #pragma unroll
     for (int p = 0; p < kPhases; ++p) {
-      z[p][j] = round_bf16(__fadd_rn(__fmul_rn(yv[p][j], bp.inv[j]),
-                                     bp.shift[j]));
+      z[p][j] = round_bf16(__fadd_rn(__fmul_rn(yv[p][j], inv[j]), shift[j]));
       a[p][j] = round_bf16(z[p][j] >= 0.0f ? z[p][j]
                                            : __fmul_rn(kSlope, z[p][j]));
       best = fmaxf(best, a[p][j]);
@@ -257,9 +260,23 @@ __device__ __forceinline__ void grad_z(const __nv_bfloat16* __restrict__ y,
       taken = taken || hit;
       gz[p][j] = __fmul_rn(hit ? gv[j] : 0.0f,
                            z[p][j] >= 0.0f ? 1.0f : kSlope);
-      xhat[p][j] = __fmul_rn(__fsub_rn(yv[p][j], bp.mean[j]), bp.rstd[j]);
+      xhat[p][j] = __fmul_rn(__fsub_rn(yv[p][j], mean[j]), rstd[j]);
     }
   }
+}
+
+__device__ __forceinline__ void grad_z(const __nv_bfloat16* __restrict__ y,
+                                       const __nv_bfloat16* __restrict__ g,
+                                       long long pix, int q,
+                                       const BnParams& bp,
+                                       float (&gz)[kPhases][8],
+                                       float (&xhat)[kPhases][8]) {
+  const uint4* src = reinterpret_cast<const uint4*>(y) + pix * kPhases * kGroups;
+  float gv[8], yv[kPhases][8];
+  unpack8(reinterpret_cast<const uint4*>(g)[pix * kGroups + q], gv);
+#pragma unroll
+  for (int p = 0; p < kPhases; ++p) unpack8(src[p * kGroups + q], yv[p]);
+  route(yv, gv, bp.inv, bp.shift, bp.mean, bp.rstd, gz, xhat);
 }
 
 // K5.  Sum gz and sum gz * xhat per channel.  Grid-stride over (pooled
@@ -318,20 +335,155 @@ stem_bwd_sums_kernel(const __nv_bfloat16* __restrict__ y,
 }
 
 // K6.  dW[tap][co] = sum over conv pixels of bf16(x)[tap] * bf16(dy)[co],
-// dy = inv * gz - c1 - xhat * c2 (stem.py:321), a (27 x N) by (N x 32)
-// product over N = B*H*W.  Each block walks chunks of kChunk pooled pixels
-// (4 * kChunk conv pixels, the rows): half its threads compute the chunk's
-// dy rows, half its im2col rows, both into shared memory; then every
-// thread adds the chunk's rows into its (up to 4) outputs m = tap * 32 + co
-// with m = threadIdx.x + 256 k, so a warp reads one x value (a broadcast)
-// and 32 consecutive dy values per row.  Block partials partials[block][864].
-constexpr int kChunk = 32;                       // pooled pixels per chunk
-constexpr int kRows = kChunk * kPhases;          // 128 conv pixels
-constexpr int kDyStride = kCout + 1;             // no bank conflicts on stores
+// dy = inv * gz - c1 - xhat * c2 (stem.py:321): a (27 x N) by (N x 32)
+// product over the N = B*H*W conv pixels.
+//
+// What bounds it.  It reads y, g and x once (88.6 + 22.2 + 16.6 = 127.4 MB
+// at batch 8, 416^2): >= 38.0 us at 3.35 TB/s.  The product is 2.39 GFLOP,
+// 2.4 us on the bf16 tensor cores, and the per-element BN backward that
+// makes dy is the same work as K5's.  So the design moves each byte once
+// and keeps the product off the CUDA cores:
+//
+// Tiles.  A tile is kTileRows x kTileCols pooled pixels of one image (2 x
+// 16: 128 conv pixels, the product's K); the blocks walk the tiles with a
+// grid-stride loop over a grid that depends on the shape alone.  Missing
+// pixels of a tile at a ragged edge get dy = 0 (and x = 0 outside the
+// image, the conv's padding).
+//
+// Staging.  The tile's y (32 x 256 B), g (32 x 64 B) and x halo (6 image
+// rows x 34 columns x 3 channels, f32, zeros outside the image) are copied
+// into shared memory once, y and g in 16-byte chunks, the halo in 4-byte
+// words along its rows, each row segment contiguous in (B, H, W, 3).
+//
+// Operands.  Every thread computes dy for one pooled pixel and 4 channels
+// (the routing of K5, route<4>) and writes it as bf16 into sB[k][co], k =
+// the tile's conv pixel (pooled pixel * 4 + window position); then every
+// thread writes half of one im2col row, bf16(x) from the halo, into
+// sA[k][tap] (taps padded to 32 with zeros).  Both have a row stride of
+// kLd = 40 bf16 (80 B), so the rows that one ldmatrix phase reads, and the
+// rows that 8 threads store, fall in distinct banks.
+//
+// Product.  nvcuda::wmma 16x16x16 bf16 fragments with f32 sums (mma.sync
+// on this card): sA is the col_major A (taps x K), sB the row_major B (K x
+// co).  Warp w takes the tile's conv pixels 16w .. 16w + 15 and adds its
+// four 16x16 products (dW is 32 x 32) into four accumulators that it keeps
+// in registers across its tiles: each tile's product first into a zeroed
+// fragment, then added, so the f32 chains are as long as the block's tile
+// count, not its pixel count.  At the end the warps' accumulators go
+// through shared memory and are summed in warp order into the block's row
+// of partials[block][864].  wgmma is not used: a 27-row A fills less than
+// half of its 64-row tile, and the product is 2.4 us of tensor-core time
+// under a 38 us byte bound.
+constexpr int kTileRows = 2;                     // pooled rows of a tile
+constexpr int kTileCols = 16;                    // pooled columns of a tile
+constexpr int kTilePix = kTileRows * kTileCols;  // 32 pooled pixels
+constexpr int kTileK = kTilePix * kPhases;       // 128 conv pixels
+constexpr int kTapsPad = 32;                     // 27 taps + 5 zero rows
+constexpr int kLd = 40;                          // sA, sB row stride, bf16
+constexpr int kHaloRows = 2 * kTileRows + 2;     // 6 image rows
+constexpr int kHaloWords = (2 * kTileCols + 2) * kCin;   // 102 f32 a row
+constexpr int kHaloStride = 112;   // words: = 16 mod 32, so a warp's two
+                                   // conv rows read distinct banks
 constexpr int kOut = kTaps * kCout;              // 864
+constexpr int kDwBlocksPerSm = 2;                // the grid: 264 blocks
 constexpr int kOutPerThread = (kOut + kThreads - 1) / kThreads;   // 4
+// shared memory, in bytes: the staged tile (y, g, halo), then sA and sB;
+// after the loop the warps' accumulators reuse it from the start
+constexpr int kStageY = kTilePix * kPhases * kCout * 2;           // 8192
+constexpr int kStageG = kTilePix * kCout * 2;                     // 2048
+constexpr int kStageBytes = kStageY + kStageG + kHaloRows * kHaloStride * 4;
+constexpr int kOperandBytes = kTileK * kLd * 2;                   // 10240
+constexpr int kDwSmem = kStageBytes + 2 * kOperandBytes;
+static_assert(kStageBytes % 128 == 0 && kOperandBytes % 128 == 0,
+              "wmma and 16-byte copies need aligned pieces");
+static_assert(kWarps * kTapsPad * kCout * 4 <= kDwSmem,
+              "the accumulators must fit in the reused shared memory");
+static_assert(kWarps * 16 == kTileK && kThreads == 2 * kTileK &&
+              kThreads == kTilePix * 8, "one thread a (pixel, 4 channels)");
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void unpack4(const uint2& v, float (&out)[4]) {
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  out[0] = lo.x;
+  out[1] = lo.y;
+  out[2] = hi.x;
+  out[3] = hi.y;
+}
+
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  const __nv_bfloat162 two = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&two);
+}
+
+// 16 and 4 bytes from global to shared memory, or zeros when !in.
+__device__ __forceinline__ void copy16(void* dst, const void* src, bool in) {
+  *reinterpret_cast<uint4*>(dst) =
+      in ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
+}
+
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool in) {
+  *dst = in ? *src : 0.0f;
+}
+
+// The tile's y, g and x halo into `stage`.  y's pixels sit 256 B apart
+// with their 16-byte chunks XOR-swizzled by the pixel's parity, so that
+// the two pixels of a half-warp's 8-byte reads fall in distinct banks.
+__device__ __forceinline__ void load_tile(unsigned char* stage,
+                                          const __nv_bfloat16* __restrict__ y,
+                                          const __nv_bfloat16* __restrict__ g,
+                                          const float* __restrict__ x, int b,
+                                          int py0, int px0, int H, int W) {
+  const int Hp = H / 2, Wp = W / 2;
+  const uint4* ysrc = reinterpret_cast<const uint4*>(y);
+  const uint4* gsrc = reinterpret_cast<const uint4*>(g);
+  for (int i = threadIdx.x; i < kTilePix * 16; i += kThreads) {
+    const int jp = i / 16, sub = i % 16;
+    const int py = py0 + jp / kTileCols, px = px0 + jp % kTileCols;
+    const bool in = py < Hp && px < Wp;
+    const long long pix = ((long long)b * Hp + py) * Wp + px;
+    copy16(stage + jp * 256 + (sub ^ ((jp & 1) << 2)) * 16,
+           in ? ysrc + pix * 16 + sub : ysrc, in);
+  }
+  for (int i = threadIdx.x; i < kTilePix * 4; i += kThreads) {
+    const int jp = i / 4, sub = i % 4;
+    const int py = py0 + jp / kTileCols, px = px0 + jp % kTileCols;
+    const bool in = py < Hp && px < Wp;
+    const long long pix = ((long long)b * Hp + py) * Wp + px;
+    copy16(stage + kStageY + jp * 64 + sub * 16,
+           in ? gsrc + pix * 4 + sub : gsrc, in);
+  }
+  float* halo = reinterpret_cast<float*>(stage + kStageY + kStageG);
+  for (int i = threadIdx.x; i < kHaloRows * kHaloWords; i += kThreads) {
+    const int hr = i / kHaloWords, rem = i % kHaloWords;
+    const int iy = 2 * py0 - 1 + hr, ix = 2 * px0 - 1 + rem / kCin;
+    const bool in = iy >= 0 && iy < H && ix >= 0 && ix < W;
+    copy4(halo + hr * kHaloStride + rem,
+          in ? x + (((long long)b * H + iy) * W + 2 * px0 - 1) * kCin + rem
+             : x, in);
+  }
+}
+
+// Taps T0 .. T0 + 15 of one im2col row: bf16(x) from the halo at the conv
+// pixel's top-left tap `src`, zeros past the 27th tap.
+template <int T0>
+__device__ __forceinline__ void im2col_half(const float* src,
+                                            __nv_bfloat16* dst) {
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int t0 = T0 + 2 * i, t1 = t0 + 1;   // tap = ky * 9 + kx * 3 + ci
+    const float v0 = t0 < kTaps ? src[(t0 / 9) * kHaloStride + t0 % 9] : 0.0f;
+    const float v1 = t1 < kTaps ? src[(t1 / 9) * kHaloStride + t1 % 9] : 0.0f;
+    w[i] = pack2(v0, v1);
+  }
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  d[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  d[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+__global__ void __launch_bounds__(kThreads, kDwBlocksPerSm)
 stem_bwd_dw_kernel(const __nv_bfloat16* __restrict__ y,
                    const __nv_bfloat16* __restrict__ g,
                    const float* __restrict__ x,
@@ -342,101 +494,133 @@ stem_bwd_dw_kernel(const __nv_bfloat16* __restrict__ y,
                    const float* __restrict__ c1,
                    const float* __restrict__ c2,
                    float* __restrict__ partials, int B, int H, int W) {
-  __shared__ float sdy[kRows * kDyStride];
-  __shared__ float sx[kRows * kTaps];
+  using namespace nvcuda;
+  __shared__ __align__(128) unsigned char smem[kDwSmem];
+  unsigned char* stage = smem;
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem + kStageBytes);
+  __nv_bfloat16* sB =
+      reinterpret_cast<__nv_bfloat16*>(smem + kStageBytes + kOperandBytes);
   const int Hp = H / 2, Wp = W / 2;
-  const long long total = (long long)B * Hp * Wp;
-  const long long nchunks = (total + kChunk - 1) / kChunk;
+  const int tiles_x = (Wp + kTileCols - 1) / kTileCols;
+  const int tiles_y = (Hp + kTileRows - 1) / kTileRows;
+  const long long ntiles = (long long)B * tiles_y * tiles_x;
+  const int warp = threadIdx.x / 32;
 
-  // the dy half: thread (j, q) of the first 128 threads
-  const int tq = threadIdx.x % kGroups;
-  BnParams bp;
-  float c1v[8], c2v[8];
-  load_params(bp, tq, inv, shift, mean, rstd);
+  // dy: pooled pixel jp of the tile, channels 4h .. 4h + 3
+  const int jp = threadIdx.x / 8, h = threadIdx.x % 8;
+  float iv[4], sh[4], mu[4], rs[4], c1v[4], c2v[4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    c1v[j] = c1[tq * 8 + j];
-    c2v[j] = c2[tq * 8 + j];
+  for (int j = 0; j < 4; ++j) {
+    iv[j] = inv[4 * h + j];
+    sh[j] = shift[4 * h + j];
+    mu[j] = mean[4 * h + j];
+    rs[j] = rstd[4 * h + j];
+    c1v[j] = c1[4 * h + j];
+    c2v[j] = c2[4 * h + j];
   }
+  // im2col: conv pixel k of the tile, taps 16 * half .. 16 * half + 15
+  const int k = threadIdx.x % kTileK, half = threadIdx.x / kTileK;
+  const int kp = k / kPhases, kw = k % kPhases;
+  const int cy = 2 * (kp / kTileCols) + kw / 2;
+  const int cx = 2 * (kp % kTileCols) + kw % 2;
 
-  float acc[kOutPerThread];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
-  for (int k = 0; k < kOutPerThread; ++k) acc[k] = 0.0f;
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
-  for (long long chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
-    if (threadIdx.x < kChunk * kGroups) {
-      const int jp = threadIdx.x / kGroups;
-      const long long pix = chunk * kChunk + jp;
-      float gz[kPhases][8], xhat[kPhases][8];
-      if (pix < total) {
-        grad_z(y, g, pix, tq, bp, gz, xhat);
-      } else {
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int tx = (int)(t % tiles_x);
+    const long long r = t / tiles_x;
+    const int ty = (int)(r % tiles_y), b = (int)(r / tiles_y);
+    const int py0 = ty * kTileRows, px0 = tx * kTileCols;
+    load_tile(stage, y, g, x, b, py0, px0, H, W);
+    __syncthreads();
+
+    {  // dy -> sB
+      const bool valid = py0 + jp / kTileCols < Hp && px0 + jp % kTileCols < Wp;
+      float yv[kPhases][4], gv[4], gz[kPhases][4], xhat[kPhases][4];
 #pragma unroll
-        for (int p = 0; p < kPhases; ++p)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) gz[p][j] = xhat[p][j] = 0.0f;
+      for (int p = 0; p < kPhases; ++p) {
+        const int sub = (p * 4 + h / 2) ^ ((jp & 1) << 2);
+        unpack4(*reinterpret_cast<const uint2*>(
+                    stage + jp * 256 + sub * 16 + (h % 2) * 8), yv[p]);
       }
+      unpack4(*reinterpret_cast<const uint2*>(stage + kStageY + jp * 64 + h * 8),
+              gv);
+      route(yv, gv, iv, sh, mu, rs, gz, xhat);
 #pragma unroll
-      for (int p = 0; p < kPhases; ++p)
+      for (int p = 0; p < kPhases; ++p) {
+        float d[4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float dy = __fsub_rn(
-              __fsub_rn(__fmul_rn(bp.inv[j], gz[p][j]), c1v[j]),
-              __fmul_rn(xhat[p][j], c2v[j]));
-          sdy[(jp * kPhases + p) * kDyStride + tq * 8 + j] =
-              pix < total ? round_bf16(dy) : 0.0f;
-        }
-    } else {
-      // the im2col half: row r = (pooled pixel jp, window position p)
-      const int r = threadIdx.x - kChunk * kGroups;
-      const int jp = r / kPhases, p = r % kPhases;
-      const long long pix = chunk * kChunk + jp;
-      float* row = sx + r * kTaps;
-      if (pix < total) {
-        const int px = (int)(pix % Wp);
-        const long long t = pix / Wp;
-        const int py = (int)(t % Hp), b = (int)(t / Hp);
-        const int cy = 2 * py + p / 2, cx = 2 * px + p % 2;
-#pragma unroll
-        for (int ky = 0; ky < 3; ++ky) {
-          const int iy = cy + ky - 1;
-#pragma unroll
-          for (int kx = 0; kx < 3; ++kx) {
-            const int ix = cx + kx - 1;
-            const bool in = iy >= 0 && iy < H && ix >= 0 && ix < W;
-            const float* src = x + (((long long)b * H + iy) * W + ix) * kCin;
-#pragma unroll
-            for (int ci = 0; ci < kCin; ++ci)
-              row[(ky * 3 + kx) * kCin + ci] = in ? round_bf16(src[ci]) : 0.0f;
-          }
-        }
-      } else {
-        for (int i = 0; i < kTaps; ++i) row[i] = 0.0f;
+        for (int j = 0; j < 4; ++j)
+          d[j] = valid ? __fsub_rn(__fsub_rn(__fmul_rn(iv[j], gz[p][j]),
+                                             c1v[j]),
+                                   __fmul_rn(xhat[p][j], c2v[j]))
+                       : 0.0f;
+        *reinterpret_cast<uint2*>(sB + (jp * kPhases + p) * kLd + 4 * h) =
+            make_uint2(pack2(d[0], d[1]), pack2(d[2], d[3]));
       }
     }
-    __syncthreads();
-    // the chunk's rows summed apart, then added to the block's running
-    // sums: f32 chains of kRows + chunks, not kRows * chunks, additions
-    const int co = threadIdx.x % 32;
-    float part[kOutPerThread];
-#pragma unroll
-    for (int k = 0; k < kOutPerThread; ++k) part[k] = 0.0f;
-    for (int r = 0; r < kRows; ++r) {
-      const float d = sdy[r * kDyStride + co];
-#pragma unroll
-      for (int k = 0; k < kOutPerThread; ++k) {
-        const int tap = (threadIdx.x + k * kThreads) / kCout;
-        if (tap < kTaps) part[k] = fmaf(sx[r * kTaps + tap], d, part[k]);
-      }
+    {  // im2col -> sA
+      const float* src = reinterpret_cast<const float*>(
+                             stage + kStageY + kStageG) +
+                         cy * kHaloStride + cx * kCin;
+      if (half == 0)
+        im2col_half<0>(src, sA + k * kLd);
+      else
+        im2col_half<16>(src, sA + k * kLd + 16);
     }
-#pragma unroll
-    for (int k = 0; k < kOutPerThread; ++k) acc[k] = __fadd_rn(acc[k], part[k]);
     __syncthreads();
-  }
+
+    {  // the product of the warp's 16 conv pixels on the tensor cores
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::col_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> bm[2];
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> part;
 #pragma unroll
-  for (int k = 0; k < kOutPerThread; ++k) {
-    const int m = threadIdx.x + k * kThreads;
-    if (m < kOut) partials[(long long)blockIdx.x * kOut + m] = acc[k];
+      for (int i = 0; i < 2; ++i) {
+        wmma::load_matrix_sync(a[i], sA + warp * 16 * kLd + 16 * i, kLd);
+        wmma::load_matrix_sync(bm[i], sB + warp * 16 * kLd + 16 * i, kLd);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          wmma::fill_fragment(part, 0.0f);
+          wmma::mma_sync(part, a[i], bm[j], part);
+#pragma unroll
+          for (int e = 0; e < part.num_elements; ++e)
+            acc[i][j].x[e] = __fadd_rn(acc[i][j].x[e], part.x[e]);
+        }
+    }
+    // no barrier here: the next tile's copies write only the staged tile,
+    // read before the barrier above, and its sA and sB come after the
+    // next barrier
+  }
+  __syncthreads();   // the accumulators reuse sA and sB
+
+  // the warps' 32 x 32 sums, [warp][tap][co], summed in warp order
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(red + warp * kTapsPad * kCout + 16 * i * kCout +
+                                  16 * j,
+                              acc[i][j], kCout, wmma::mem_row_major);
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kOutPerThread; ++q) {
+    const int m = threadIdx.x + q * kThreads;
+    if (m < kOut) {
+      float s = 0.0f;
+      for (int v = 0; v < kWarps; ++v)
+        s = __fadd_rn(s, red[v * kTapsPad * kCout + m]);
+      partials[(long long)blockIdx.x * kOut + m] = s;
+    }
   }
 }
 
@@ -493,9 +677,11 @@ extern "C" long long stem_bwd_sums_blocks(long long total) {
   return need < 1056 ? need : 1056;              // 8 blocks per SM
 }
 
-extern "C" long long stem_bwd_dw_blocks(long long total) {
-  const long long need = (total + kChunk - 1) / kChunk;
-  return need < 528 ? need : 528;                // 4 blocks per SM
+// Blocks of K6: one per tile up to kDwBlocksPerSm on each of the 132 SMs.
+extern "C" long long stem_bwd_dw_blocks(int B, int H, int W) {
+  const long long tiles = (long long)B * ((H / 2 + kTileRows - 1) / kTileRows) *
+                          ((W / 2 + kTileCols - 1) / kTileCols);
+  return tiles < 132 * kDwBlocksPerSm ? tiles : 132 * kDwBlocksPerSm;
 }
 
 // y, g (B, H/2, W/2, 32) bf16 and the (32,) f32 vectors -> sums (2, 32) f32
@@ -526,8 +712,7 @@ extern "C" int stem_bwd_dw_launch(const void* y, const void* g, const float* x,
                                   const float* c1, const float* c2,
                                   float* partials, float* dw, int B, int H,
                                   int W, void* stream) {
-  const long long blocks =
-      stem_bwd_dw_blocks((long long)B * (H / 2) * (W / 2));
+  const long long blocks = stem_bwd_dw_blocks(B, H, W);
   if (blocks == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   stem_bwd_dw_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(

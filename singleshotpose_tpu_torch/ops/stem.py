@@ -205,12 +205,12 @@ def _train_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    lib.stem_conv_stats_blocks.argtypes = [i, i, i]
     for name in ("stem_conv_stats_blocks", "stem_bwd_sums_blocks",
                  "stem_bwd_dw_blocks"):
         getattr(lib, name).restype = ll
+    lib.stem_conv_stats_blocks.argtypes = [i, i, i]
     lib.stem_bwd_sums_blocks.argtypes = [ll]
-    lib.stem_bwd_dw_blocks.argtypes = [ll]
+    lib.stem_bwd_dw_blocks.argtypes = [i, i, i]
     return lib
 
 
@@ -407,9 +407,8 @@ def stem_bwd_dw(y, g, images, inv, shift, mean, rstd, c1, c2) -> torch.Tensor:
                 ("c2", c2))
     B, H, W, _ = images.shape
     lib = _train_library()
-    partials = torch.empty(
-        (lib.stem_bwd_dw_blocks(B * (H // 2) * (W // 2)), 27 * _CO),
-        dtype=torch.float32, device=y.device)
+    partials = torch.empty((lib.stem_bwd_dw_blocks(B, H, W), 27 * _CO),
+                           dtype=torch.float32, device=y.device)
     dw = torch.empty((27, _CO), dtype=torch.float32, device=y.device)
     _launch("stem_bwd_dw", y, lib.stem_bwd_dw_launch,
             y.data_ptr(), g.data_ptr(), images.data_ptr(), inv.data_ptr(),

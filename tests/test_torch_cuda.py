@@ -196,8 +196,11 @@ def _glue(sums, n, scale, bias):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,W", [(2, 32, 64), (8, 416, 416), (8, 832, 832)])
+@pytest.mark.parametrize("B,H,W", [(2, 32, 64), (8, 416, 416), (8, 832, 832),
+                                   (3, 34, 70)])
 def test_train_stem_kernels_match_plain_versions(dev, B, H, W):
+    """(3, 34, 70): a pooled grid of 17 x 35, odd and not a multiple of K6's
+    2 x 16 tiles, so every edge tile is ragged."""
     img, w, scale, bias = _stem_inputs(dev, B, H, W, seed=B + H)
     n = torch.full((), float(B * H * W), device=dev)
     before = [stem.stem_conv_stats.launches, stem.stem_bn_pool.launches,
@@ -231,6 +234,38 @@ def test_train_stem_kernels_match_plain_versions(dev, B, H, W):
     # the same bits from run to run: no float atomics in the sums
     assert torch.equal(stem.stem_conv_stats(img, w)[1], sums)
     assert torch.equal(stem.stem_bwd_dw(y_ref, g, img, inv, shift, mean, rstd,
+                                        c1, c2), dw)
+
+
+@pytest.mark.cuda
+def test_train_stem_dw_kernel_on_a_flat_image(dev):
+    """K6 on a flat image: every inner pool window is tied and routes its
+    gradient to the first position.  g grows across the image and x differs
+    by channel, so dW's (tap, co) entries are all distinct and a tap or
+    channel mixed up in the kernel's operands shows."""
+    B, H, W = 2, 64, 96
+    _, w, scale, bias = _stem_inputs(dev, B, H, W, seed=6)
+    img = torch.tensor([0.25, 0.5, 0.75], device=dev).expand(B, H, W, 3) \
+        .contiguous()
+    n = torch.full((), float(B * H * W), device=dev)
+    y, sums = stem.stem_conv_stats_reference(img, w)
+    mean, var, inv, shift = _glue(sums, n, scale, bias)
+    rstd = torch.rsqrt(var + 1e-4)
+    Hp, Wp = H // 2, W // 2
+    ramp = (1 + 3 * torch.arange(Hp, device=dev)[:, None, None] / Hp) \
+        * (1 + 2 * torch.arange(Wp, device=dev)[None, :, None] / Wp)
+    g = (torch.randn((B, Hp, Wp, 32), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+         * ramp).to(torch.bfloat16)
+    s = stem.stem_bwd_sums_reference(y, g, inv, shift, mean, rstd)
+    c1, c2 = inv * s[0] / n, inv * s[1] / n
+    dw = stem.stem_bwd_dw(y, g, img, inv, shift, mean, rstd, c1, c2)
+    dw_ref = stem.stem_bwd_dw_reference(y, g, img, inv, shift, mean, rstd,
+                                        c1, c2)
+    torch.cuda.synchronize()
+    assert torch.unique(dw_ref).numel() == dw_ref.numel()
+    assert _rel(dw, dw_ref) <= 1e-4
+    assert torch.equal(stem.stem_bwd_dw(y, g, img, inv, shift, mean, rstd,
                                         c1, c2), dw)
 
 
