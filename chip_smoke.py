@@ -995,10 +995,11 @@ def phase_profile_stem(dev, card: str, out_dir: str) -> None:
         path = os.path.join(out_dir, f"{name}_{which}.json")
         by_family, busy, _ = _profile(fn, PROFILE_CALLS, path)
         us = sum(by_family.values()) / PROFILE_CALLS
+        share = f"{bound['bound_ms'] * 1e3 / us:.2%}" if us else "not measured"
         print(f"[profile] {tag} {name} {which} {shape}: device {us:.2f} "
               f"µs/call in kernels, busy {busy / PROFILE_CALLS:.2f} µs/call; "
               f"bound {bound['bound_ms'] * 1e3:.2f} µs ({bound['bound_by']}),"
-              f" {bound['bound_ms'] * 1e3 / us:.2%} of it [{card}]")
+              f" {share} of it [{card}]")
 
     B, H, W = STEM_SHAPES[-1]
     args = (torch.rand((B, H, W, 3), generator=g0, device=dev),

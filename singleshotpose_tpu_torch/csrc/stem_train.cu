@@ -20,9 +20,9 @@
 // K4 (88.6 MB y in + 22.2 MB pooled out) >= 33.1 us, K5 (88.6 + 22.2 MB
 // in) >= 33.1 us, K6 (88.6 + 22.2 + 16.6 MB in) >= 38.0 us.  The conv
 // (2.39 GFLOP forward in K3, the same again for dW in K6) would take 2.4 us
-// on the bf16 tensor cores; this simple version runs it as f32 FMAs on the
-// CUDA cores, K3 with one thread per pooled pixel as K1 does (the conv is
-// stem_common.cuh, shared with K1), K6 as a product over shared memory.
+// on the bf16 tensor cores.  K3 runs it as f32 FMAs on the CUDA cores, one
+// thread per pooled pixel as K1 does (the conv is stem_common.cuh, shared
+// with K1); K6 runs dW's product on the tensor cores (see K6).
 //
 // Reductions.  The TPU kernels carry their sums across a sequential grid.
 // Here blocks run in any order, so every kernel that sums (K3: sum y and
@@ -34,11 +34,9 @@
 // Rounding.  The BN arithmetic uses explicitly rounded intrinsics
 // (__fmul_rn, __fadd_rn, __fsub_rn) so nvcc contracts no FMA the plain
 // PyTorch version does not; bf16 products in the convs are exact in f32, so
-// fmaf there is a product and one rounded add.  The kernels allocate
+// fmaf there is a product and one rounded add, and K6's tensor cores only
+// sum them in another order.  The kernels allocate
 // nothing: the wrappers in ops/stem.py allocate outputs and partials.
-
-#include <cuda_bf16.h>
-#include <mma.h>
 
 #include "stem_common.cuh"
 
@@ -352,8 +350,11 @@ stem_bwd_sums_kernel(const __nv_bfloat16* __restrict__ y,
 //
 // Staging.  The tile's y (32 x 256 B), g (32 x 64 B) and x halo (6 image
 // rows x 34 columns x 3 channels, f32, zeros outside the image) are copied
-// into shared memory once, y and g in 16-byte chunks, the halo in 4-byte
-// words along its rows, each row segment contiguous in (B, H, W, 3).
+// into shared memory once with cp.async, y and g in 16-byte chunks, the
+// halo in 4-byte words along its rows (each row segment is contiguous in
+// (B, H, W, 3)), into one of two stages: the next tile's copies are in
+// flight while this tile computes.  TMA is not needed: a tile is ~13 KB
+// in 45 pieces of at most 4 KB, and cp.async overlaps them as well.
 //
 // Operands.  Every thread computes dy for one pooled pixel and 4 channels
 // (the routing of K5, route<4>) and writes it as bf16 into sB[k][co], k =
@@ -363,15 +364,17 @@ stem_bwd_sums_kernel(const __nv_bfloat16* __restrict__ y,
 // kLd = 40 bf16 (80 B), so the rows that one ldmatrix phase reads, and the
 // rows that 8 threads store, fall in distinct banks.
 //
-// Product.  nvcuda::wmma 16x16x16 bf16 fragments with f32 sums (mma.sync
-// on this card): sA is the col_major A (taps x K), sB the row_major B (K x
-// co).  Warp w takes the tile's conv pixels 16w .. 16w + 15 and adds its
-// four 16x16 products (dW is 32 x 32) into four accumulators that it keeps
-// in registers across its tiles: each tile's product first into a zeroed
-// fragment, then added, so the f32 chains are as long as the block's tile
-// count, not its pixel count.  At the end the warps' accumulators go
-// through shared memory and are summed in warp order into the block's row
-// of partials[block][864].  wgmma is not used: a 27-row A fills less than
+// Product.  mma.sync m16n8k16 (bf16 products, f32 sums) on operands read
+// with ldmatrix .trans: sA holds A transposed (K x taps), sB holds B (K x
+// co).  dW is 32 x 32, four 16 x 16 tiles; warp w takes tile w % 4 over
+// the conv pixels 64 (w / 4) .. 64 (w / 4) + 63, 16 at a time.  Each 16 x
+// 8 product starts from zero on the tensor cores, whose sums truncate, and
+// is added to the warp's accumulator (8 registers a lane, kept across its
+// tiles) with f32 round-to-nearest: the hardware's rounding reaches 16
+// products only, and the f32 chains are as long as the block's tile count.
+// At the end the accumulators go through shared memory and the two warps
+// of each output tile are summed in warp order into the block's row of
+// partials[block][864].  wgmma is not used: a 27-row A fills less than
 // half of its 64-row tile, and the product is 2.4 us of tensor-core time
 // under a 38 us byte bound.
 constexpr int kTileRows = 2;                     // pooled rows of a tile
@@ -385,21 +388,21 @@ constexpr int kHaloWords = (2 * kTileCols + 2) * kCin;   // 102 f32 a row
 constexpr int kHaloStride = 112;   // words: = 16 mod 32, so a warp's two
                                    // conv rows read distinct banks
 constexpr int kOut = kTaps * kCout;              // 864
-constexpr int kDwBlocksPerSm = 2;                // the grid: 264 blocks
+constexpr int kDwBlocksPerSm = 3;                // the grid: 396 blocks
 constexpr int kOutPerThread = (kOut + kThreads - 1) / kThreads;   // 4
-// shared memory, in bytes: the staged tile (y, g, halo), then sA and sB;
-// after the loop the warps' accumulators reuse it from the start
+// shared memory, in bytes: two stages of the staged tile (y, g, halo),
+// then sA and sB; after the loop the warps' accumulators reuse it
 constexpr int kStageY = kTilePix * kPhases * kCout * 2;           // 8192
 constexpr int kStageG = kTilePix * kCout * 2;                     // 2048
 constexpr int kStageBytes = kStageY + kStageG + kHaloRows * kHaloStride * 4;
-constexpr int kOperandBytes = kTileK * kLd * 2;                   // 10240
-constexpr int kDwSmem = kStageBytes + 2 * kOperandBytes;
-static_assert(kStageBytes % 128 == 0 && kOperandBytes % 128 == 0,
-              "wmma and 16-byte copies need aligned pieces");
-static_assert(kWarps * kTapsPad * kCout * 4 <= kDwSmem,
-              "the accumulators must fit in the reused shared memory");
-static_assert(kWarps * 16 == kTileK && kThreads == 2 * kTileK &&
-              kThreads == kTilePix * 8, "one thread a (pixel, 4 channels)");
+constexpr int kStages = 2;
+static_assert(kStageBytes % 128 == 0, "16-byte copies need aligned stages");
+static_assert(kWarps == 8 && kTileK == 128 && kTapsPad == kCout,
+              "8 warps: 4 output tiles x 2 halves of the tile's 128 pixels");
+static_assert(kWarps * 256 * 4 <= kStages * kStageBytes,
+              "the accumulators must fit in the reused stages");
+static_assert(kThreads == 2 * kTileK && kThreads == kTilePix * 8,
+              "one thread a (pixel, 4 channels) and half an im2col row");
 
 __device__ __forceinline__ void unpack4(const uint2& v, float (&out)[4]) {
   const float2 lo = __bfloat1622float2(
@@ -412,58 +415,163 @@ __device__ __forceinline__ void unpack4(const uint2& v, float (&out)[4]) {
   out[3] = hi.y;
 }
 
+__device__ __forceinline__ void to4(const float4& f, float (&out)[4]) {
+  out[0] = f.x;
+  out[1] = f.y;
+  out[2] = f.z;
+  out[3] = f.w;
+}
+
 __device__ __forceinline__ uint32_t pack2(float a, float b) {
   const __nv_bfloat162 two = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<const uint32_t*>(&two);
 }
 
-// 16 and 4 bytes from global to shared memory, or zeros when !in.
+// Asynchronous copies of 16 and 4 bytes from global to shared memory;
+// zeros when !in (a source size of 0 reads nothing).
 __device__ __forceinline__ void copy16(void* dst, const void* src, bool in) {
-  *reinterpret_cast<uint4*>(dst) =
-      in ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0) : "memory");
 }
 
 __device__ __forceinline__ void copy4(float* dst, const float* src, bool in) {
-  *dst = in ? *src : 0.0f;
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0) : "memory");
 }
 
-// The tile's y, g and x halo into `stage`.  y's pixels sit 256 B apart
-// with their 16-byte chunks XOR-swizzled by the pixel's parity, so that
-// the two pixels of a half-warp's 8-byte reads fall in distinct banks.
-__device__ __forceinline__ void load_tile(unsigned char* stage,
-                                          const __nv_bfloat16* __restrict__ y,
-                                          const __nv_bfloat16* __restrict__ g,
-                                          const float* __restrict__ x, int b,
-                                          int py0, int px0, int H, int W) {
-  const int Hp = H / 2, Wp = W / 2;
-  const uint4* ysrc = reinterpret_cast<const uint4*>(y);
-  const uint4* gsrc = reinterpret_cast<const uint4*>(g);
-  for (int i = threadIdx.x; i < kTilePix * 16; i += kThreads) {
-    const int jp = i / 16, sub = i % 16;
-    const int py = py0 + jp / kTileCols, px = px0 + jp % kTileCols;
-    const bool in = py < Hp && px < Wp;
-    const long long pix = ((long long)b * Hp + py) * Wp + px;
-    copy16(stage + jp * 256 + (sub ^ ((jp & 1) << 2)) * 16,
-           in ? ysrc + pix * 16 + sub : ysrc, in);
-  }
-  for (int i = threadIdx.x; i < kTilePix * 4; i += kThreads) {
-    const int jp = i / 4, sub = i % 4;
-    const int py = py0 + jp / kTileCols, px = px0 + jp % kTileCols;
-    const bool in = py < Hp && px < Wp;
-    const long long pix = ((long long)b * Hp + py) * Wp + px;
-    copy16(stage + kStageY + jp * 64 + sub * 16,
-           in ? gsrc + pix * 4 + sub : gsrc, in);
-  }
-  float* halo = reinterpret_cast<float*>(stage + kStageY + kStageG);
-  for (int i = threadIdx.x; i < kHaloRows * kHaloWords; i += kThreads) {
-    const int hr = i / kHaloWords, rem = i % kHaloWords;
-    const int iy = 2 * py0 - 1 + hr, ix = 2 * px0 - 1 + rem / kCin;
-    const bool in = iy >= 0 && iy < H && ix >= 0 && ix < W;
-    copy4(halo + hr * kHaloStride + rem,
-          in ? x + (((long long)b * H + iy) * W + 2 * px0 - 1) * kCin + rem
-             : x, in);
-  }
+__device__ __forceinline__ void copies_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ldmatrix .x4 .trans: four 8 x 8 bf16 blocks, transposed, lane L giving
+// the address of row L % 8 of block L / 8.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const __nv_bfloat16* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// d = A (16 x 16, row) * B (16 x 8, col) + 0 on the tensor cores: bf16
+// products, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.0f));
+}
+
+// The tiles a block walks: t = blockIdx.x, + gridDim.x, ..., as (image b,
+// tile row ty, tile column tx), advanced without a division.
+struct TileCursor {
+  int b, ty, tx, step_b, step_y, step_x, tiles_y, tiles_x;
+
+  __device__ TileCursor(int t, int tiles_y_, int tiles_x_)
+      : tiles_y(tiles_y_), tiles_x(tiles_x_) {
+    tx = t % tiles_x;
+    ty = t / tiles_x % tiles_y;
+    b = t / tiles_x / tiles_y;
+    step_x = gridDim.x % tiles_x;
+    step_y = gridDim.x / tiles_x % tiles_y;
+    step_b = gridDim.x / tiles_x / tiles_y;
+  }
+
+  __device__ __forceinline__ int py0() const { return ty * kTileRows; }
+  __device__ __forceinline__ int px0() const { return tx * kTileCols; }
+
+  __device__ __forceinline__ void advance() {
+    tx += step_x;
+    const int cx = tx >= tiles_x;
+    tx -= cx ? tiles_x : 0;
+    ty += step_y + cx;
+    const int cy = ty >= tiles_y;
+    ty -= cy ? tiles_y : 0;
+    b += step_b + cy;
+  }
+};
+
+// This thread's copies of a tile, their offsets fixed for the kernel: y's
+// chunk `sub` of pooled column c in both tile rows; one chunk of g
+// (threads < 128); up to three words of the halo.  y's pixels sit 256 B
+// apart with their 16-byte chunks XOR-swizzled by the pixel's parity, so
+// that the two pixels of a half-warp's 8-byte reads fall in distinct banks.
+struct TileCopies {
+  static constexpr int kHaloCopies =
+      (kHaloRows * kHaloWords + kThreads - 1) / kThreads;   // 3
+  int H, W, Hp, Wp;
+  int c, y_dst, y_off, g_r, g_c, g_dst, g_off;
+  int h_row[kHaloCopies], h_col[kHaloCopies], h_dst[kHaloCopies],
+      h_off[kHaloCopies];
+
+  __device__ TileCopies(int H_, int W_) : H(H_), W(W_), Hp(H_ / 2), Wp(W_ / 2) {
+    const int t = threadIdx.x;
+    c = t / 16 % kTileCols;
+    const int sub = t % 16;
+    y_dst = c * 256 + (sub ^ ((c & 1) << 2)) * 16;
+    y_off = c * 16 + sub;
+    const int jp = t / 4 % kTilePix;
+    g_r = jp / kTileCols;
+    g_c = jp % kTileCols;
+    g_dst = kStageY + jp * 64 + t % 4 * 16;
+    g_off = (g_r * Wp + g_c) * 4 + t % 4;
+#pragma unroll
+    for (int q = 0; q < kHaloCopies; ++q) {
+      const int i = t + q * kThreads;
+      const int rem = i % kHaloWords;
+      h_row[q] = i < kHaloRows * kHaloWords ? i / kHaloWords : -1;
+      h_col[q] = rem / kCin;
+      h_dst[q] = h_row[q] * kHaloStride + rem;
+      h_off[q] = h_row[q] * W * kCin + rem;
+    }
+  }
+
+  // Starts the copies of the tile at (b, py0, px0) into `stage`; zeros
+  // for its pixels outside the image.
+  __device__ __forceinline__ void start(unsigned char* stage,
+                                        const __nv_bfloat16* __restrict__ y,
+                                        const __nv_bfloat16* __restrict__ g,
+                                        const float* __restrict__ x, int b,
+                                        int py0, int px0) const {
+    const long long base = ((long long)b * Hp + py0) * Wp + px0;
+    const uint4* ys = reinterpret_cast<const uint4*>(y);
+    const uint4* gs = reinterpret_cast<const uint4*>(g);
+    const bool col_in = px0 + c < Wp;
+#pragma unroll
+    for (int r = 0; r < kTileRows; ++r) {
+      const bool in = col_in && py0 + r < Hp;
+      copy16(stage + r * kTileCols * 256 + y_dst,
+             ys + (in ? base * 16 + r * Wp * 16 + y_off : 0), in);
+    }
+    if (threadIdx.x < kTilePix * 4) {
+      const bool in = px0 + g_c < Wp && py0 + g_r < Hp;
+      copy16(stage + g_dst, gs + (in ? base * 4 + g_off : 0), in);
+    }
+    float* halo = reinterpret_cast<float*>(stage + kStageY + kStageG);
+    const long long xb =
+        (((long long)b * H + 2 * py0 - 1) * W + 2 * px0 - 1) * kCin;
+#pragma unroll
+    for (int q = 0; q < kHaloCopies; ++q) {
+      if (h_row[q] < 0) continue;
+      const bool in = (unsigned)(2 * py0 - 1 + h_row[q]) < (unsigned)H &&
+                      (unsigned)(2 * px0 - 1 + h_col[q]) < (unsigned)W;
+      copy4(halo + h_dst[q], x + (in ? xb + h_off[q] : 0), in);
+    }
+  }
+};
 
 // Taps T0 .. T0 + 15 of one im2col row: bf16(x) from the halo at the conv
 // pixel's top-left tap `src`, zeros past the 27th tap.
@@ -494,52 +602,65 @@ stem_bwd_dw_kernel(const __nv_bfloat16* __restrict__ y,
                    const float* __restrict__ c1,
                    const float* __restrict__ c2,
                    float* __restrict__ partials, int B, int H, int W) {
-  using namespace nvcuda;
-  __shared__ __align__(128) unsigned char smem[kDwSmem];
-  unsigned char* stage = smem;
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem + kStageBytes);
-  __nv_bfloat16* sB =
-      reinterpret_cast<__nv_bfloat16*>(smem + kStageBytes + kOperandBytes);
+  __shared__ __align__(128) unsigned char stages[kStages * kStageBytes];
+  __shared__ __align__(128) __nv_bfloat16 sA[kTileK * kLd];
+  __shared__ __align__(128) __nv_bfloat16 sB[kTileK * kLd];
+  __shared__ float4 vecs[6][kCout / 4];   // inv, shift, mean, rstd, c1, c2
   const int Hp = H / 2, Wp = W / 2;
   const int tiles_x = (Wp + kTileCols - 1) / kTileCols;
   const int tiles_y = (Hp + kTileRows - 1) / kTileRows;
-  const long long ntiles = (long long)B * tiles_y * tiles_x;
-  const int warp = threadIdx.x / 32;
+  const int ntiles = B * tiles_y * tiles_x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x < 6 * kCout) {          // read after the loop's barrier
+    const int v = threadIdx.x / kCout, c = threadIdx.x % kCout;
+    const float* src = v == 0 ? inv : v == 1 ? shift : v == 2 ? mean
+                     : v == 3 ? rstd : v == 4 ? c1 : c2;
+    reinterpret_cast<float*>(vecs)[threadIdx.x] = src[c];
+  }
+  const TileCopies copies(H, W);
 
   // dy: pooled pixel jp of the tile, channels 4h .. 4h + 3
   const int jp = threadIdx.x / 8, h = threadIdx.x % 8;
-  float iv[4], sh[4], mu[4], rs[4], c1v[4], c2v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    iv[j] = inv[4 * h + j];
-    sh[j] = shift[4 * h + j];
-    mu[j] = mean[4 * h + j];
-    rs[j] = rstd[4 * h + j];
-    c1v[j] = c1[4 * h + j];
-    c2v[j] = c2[4 * h + j];
-  }
   // im2col: conv pixel k of the tile, taps 16 * half .. 16 * half + 15
   const int k = threadIdx.x % kTileK, half = threadIdx.x / kTileK;
   const int kp = k / kPhases, kw = k % kPhases;
   const int cy = 2 * (kp / kTileCols) + kw / 2;
   const int cx = 2 * (kp % kTileCols) + kw % 2;
+  // the product: dW rows 16 ti .. 16 ti + 15, columns 16 tj .. 16 tj + 15,
+  // over the tile's conv pixels k0 .. k0 + 63; each lane's ldmatrix rows
+  const int ti = warp % 4 / 2, tj = warp % 2, k0 = warp / 4 * (kTileK / 2);
+  const __nv_bfloat16* a_row =
+      sA + (k0 + lane / 16 * 8 + lane % 8) * kLd + 16 * ti + lane / 8 % 2 * 8;
+  const __nv_bfloat16* b_row =
+      sB + (k0 + lane / 8 % 2 * 8 + lane % 8) * kLd + 16 * tj + lane / 16 * 8;
+  float acc[2][4] = {};   // the two 16 x 8 halves of the warp's output tile
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int tx = (int)(t % tiles_x);
-    const long long r = t / tiles_x;
-    const int ty = (int)(r % tiles_y), b = (int)(r / tiles_y);
-    const int py0 = ty * kTileRows, px0 = tx * kTileCols;
-    load_tile(stage, y, g, x, b, py0, px0, H, W);
-    __syncthreads();
+  TileCursor tile(blockIdx.x, tiles_y, tiles_x), next = tile;
+  if ((int)blockIdx.x < ntiles)
+    copies.start(stages, y, g, x, tile.b, tile.py0(), tile.px0());
+  copies_commit();
+  for (int t = blockIdx.x, s = 0; t < ntiles;
+       t += gridDim.x, s ^= 1, tile = next) {
+    next.advance();
+    if (t + (int)gridDim.x < ntiles)   // the other stage was read before
+      copies.start(stages + (s ^ 1) * kStageBytes, y, g, x, next.b,
+                   next.py0(), next.px0());     // the last barrier
+    copies_commit();
+    copies_wait<1>();      // this thread's copies of tile t have landed,
+    __syncthreads();       // and every thread's
+    const unsigned char* stage = stages + s * kStageBytes;
+    const int py0 = tile.py0(), px0 = tile.px0();
 
     {  // dy -> sB
-      const bool valid = py0 + jp / kTileCols < Hp && px0 + jp % kTileCols < Wp;
+      const bool valid = py0 + jp / kTileCols < Hp &&
+                         px0 + jp % kTileCols < Wp;
+      float iv[4], sh[4], mu[4], rs[4], c1v[4], c2v[4];
+      to4(vecs[0][h], iv);
+      to4(vecs[1][h], sh);
+      to4(vecs[2][h], mu);
+      to4(vecs[3][h], rs);
+      to4(vecs[4][h], c1v);
+      to4(vecs[5][h], c2v);
       float yv[kPhases][4], gv[4], gz[kPhases][4], xhat[kPhases][4];
 #pragma unroll
       for (int p = 0; p < kPhases; ++p) {
@@ -574,52 +695,48 @@ stem_bwd_dw_kernel(const __nv_bfloat16* __restrict__ y,
     }
     __syncthreads();
 
-    {  // the product of the warp's 16 conv pixels on the tensor cores
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> bm[2];
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> part;
+    // the warp's output tile over its 64 conv pixels, 16 at a time: each
+    // 16 x 8 product summed from zero on the tensor cores, then added here
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(a[i], sA + warp * 16 * kLd + 16 * i, kLd);
-        wmma::load_matrix_sync(bm[i], sB + warp * 16 * kLd + 16 * i, kLd);
-      }
+    for (int kk = 0; kk < kTileK / 2; kk += 16) {
+      uint32_t a[4], b[4];
+      ldmatrix_x4_trans(a, a_row + kk * kLd);
+      ldmatrix_x4_trans(b, b_row + kk * kLd);
+      float d[2][4];
+      mma_bf16(d[0], a, b[0], b[1]);
+      mma_bf16(d[1], a, b[2], b[3]);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int n = 0; n < 2; ++n)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fill_fragment(part, 0.0f);
-          wmma::mma_sync(part, a[i], bm[j], part);
-#pragma unroll
-          for (int e = 0; e < part.num_elements; ++e)
-            acc[i][j].x[e] = __fadd_rn(acc[i][j].x[e], part.x[e]);
-        }
+        for (int e = 0; e < 4; ++e) acc[n][e] = __fadd_rn(acc[n][e], d[n][e]);
     }
-    // no barrier here: the next tile's copies write only the staged tile,
-    // read before the barrier above, and its sA and sB come after the
-    // next barrier
+    // no barrier here: the next tile's copies go to the other stage, and
+    // its sA and sB are written after the next barrier
   }
-  __syncthreads();   // the accumulators reuse sA and sB
+  copies_wait<0>();
+  __syncthreads();   // the accumulators reuse the stages
 
-  // the warps' 32 x 32 sums, [warp][tap][co], summed in warp order
-  float* red = reinterpret_cast<float*>(smem);
+  // red[warp][16][16] (mma's layout: lane holds rows lane / 4 and + 8,
+  // columns 2 (lane % 4) and + 1 of each 16 x 8 half); output (tap, co) is
+  // in warps u and u + 4 of its tile u, summed in that order
+  float* red = reinterpret_cast<float*>(stages);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(red + warp * kTapsPad * kCout + 16 * i * kCout +
-                                  16 * j,
-                              acc[i][j], kCout, wmma::mem_row_major);
+  for (int n = 0; n < 2; ++n) {
+    float* o = red + warp * 256 + lane / 4 * 16 + n * 8 + lane % 4 * 2;
+    o[0] = acc[n][0];
+    o[1] = acc[n][1];
+    o[8 * 16] = acc[n][2];
+    o[8 * 16 + 1] = acc[n][3];
+  }
   __syncthreads();
 #pragma unroll
   for (int q = 0; q < kOutPerThread; ++q) {
     const int m = threadIdx.x + q * kThreads;
     if (m < kOut) {
-      float s = 0.0f;
-      for (int v = 0; v < kWarps; ++v)
-        s = __fadd_rn(s, red[v * kTapsPad * kCout + m]);
-      partials[(long long)blockIdx.x * kOut + m] = s;
+      const int tap = m / kCout, co = m % kCout;
+      const int u = tap / 16 * 2 + co / 16, e = tap % 16 * 16 + co % 16;
+      partials[(long long)blockIdx.x * kOut + m] =
+          __fadd_rn(red[u * 256 + e], red[(u + 4) * 256 + e]);
     }
   }
 }
