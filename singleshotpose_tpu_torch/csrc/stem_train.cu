@@ -229,24 +229,24 @@ __device__ __forceinline__ void load_params(BnParams& bp, int q,
   }
 }
 
-// For N channels of one pooled pixel: y at the window's positions, g, and
-// the channels' BN vectors -> gz and xhat at the window's positions.
-template <int N>
-__device__ __forceinline__ void route(const float (&yv)[kPhases][N],
-                                      const float (&gv)[N],
-                                      const float (&inv)[N],
-                                      const float (&shift)[N],
-                                      const float (&mean)[N],
-                                      const float (&rstd)[N],
-                                      float (&gz)[kPhases][N],
-                                      float (&xhat)[kPhases][N]) {
-  float z[kPhases][N], a[kPhases][N];
+__device__ __forceinline__ void grad_z(const __nv_bfloat16* __restrict__ y,
+                                       const __nv_bfloat16* __restrict__ g,
+                                       long long pix, int q,
+                                       const BnParams& bp,
+                                       float (&gz)[kPhases][8],
+                                       float (&xhat)[kPhases][8]) {
+  const uint4* src = reinterpret_cast<const uint4*>(y) + pix * kPhases * kGroups;
+  float gv[8], yv[kPhases][8], z[kPhases][8], a[kPhases][8];
+  unpack8(reinterpret_cast<const uint4*>(g)[pix * kGroups + q], gv);
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
+  for (int p = 0; p < kPhases; ++p) unpack8(src[p * kGroups + q], yv[p]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
     float best = -__int_as_float(0x7f800000);
 #pragma unroll
     for (int p = 0; p < kPhases; ++p) {
-      z[p][j] = round_bf16(__fadd_rn(__fmul_rn(yv[p][j], inv[j]), shift[j]));
+      z[p][j] = round_bf16(__fadd_rn(__fmul_rn(yv[p][j], bp.inv[j]),
+                                     bp.shift[j]));
       a[p][j] = round_bf16(z[p][j] >= 0.0f ? z[p][j]
                                            : __fmul_rn(kSlope, z[p][j]));
       best = fmaxf(best, a[p][j]);
@@ -258,23 +258,9 @@ __device__ __forceinline__ void route(const float (&yv)[kPhases][N],
       taken = taken || hit;
       gz[p][j] = __fmul_rn(hit ? gv[j] : 0.0f,
                            z[p][j] >= 0.0f ? 1.0f : kSlope);
-      xhat[p][j] = __fmul_rn(__fsub_rn(yv[p][j], mean[j]), rstd[j]);
+      xhat[p][j] = __fmul_rn(__fsub_rn(yv[p][j], bp.mean[j]), bp.rstd[j]);
     }
   }
-}
-
-__device__ __forceinline__ void grad_z(const __nv_bfloat16* __restrict__ y,
-                                       const __nv_bfloat16* __restrict__ g,
-                                       long long pix, int q,
-                                       const BnParams& bp,
-                                       float (&gz)[kPhases][8],
-                                       float (&xhat)[kPhases][8]) {
-  const uint4* src = reinterpret_cast<const uint4*>(y) + pix * kPhases * kGroups;
-  float gv[8], yv[kPhases][8];
-  unpack8(reinterpret_cast<const uint4*>(g)[pix * kGroups + q], gv);
-#pragma unroll
-  for (int p = 0; p < kPhases; ++p) unpack8(src[p * kGroups + q], yv[p]);
-  route(yv, gv, bp.inv, bp.shift, bp.mean, bp.rstd, gz, xhat);
 }
 
 // K5.  Sum gz and sum gz * xhat per channel.  Grid-stride over (pooled
@@ -357,7 +343,7 @@ stem_bwd_sums_kernel(const __nv_bfloat16* __restrict__ y,
 // in 45 pieces of at most 4 KB, and cp.async overlaps them as well.
 //
 // Operands.  Every thread computes dy for one pooled pixel and 4 channels
-// (the routing of K5, route<4>) and writes it as bf16 into sB[k][co], k =
+// (window_dy: K5's routing) and writes it as bf16 into sB[k][co], k =
 // the tile's conv pixel (pooled pixel * 4 + window position); then every
 // thread writes half of one im2col row, bf16(x) from the halo, into
 // sA[k][tap] (taps padded to 32 with zeros).  Both have a row stride of
@@ -413,6 +399,52 @@ __device__ __forceinline__ void unpack4(const uint2& v, float (&out)[4]) {
   out[1] = lo.y;
   out[2] = hi.x;
   out[3] = hi.y;
+}
+
+// dy = bf16(inv * gz - c1 - xhat * c2) at the window's four positions, for
+// 4 channels of one pooled pixel, with grad_z's routing and the plain
+// version's roundings: z and the rounded leaky output recomputed, g routed
+// to the first maximum in window order (a strict > scan) times leaky'(z).
+// The rounded leaky output of a bf16 z is max(z, bf16(slope * z)), since
+// rounding is monotonic and z is representable.  Off the first maximum gz
+// = 0, where inv * gz - c1 is -c1 exactly, so the routed term is formed
+// once per channel.
+__device__ __forceinline__ void window_dy(const float (&yv)[kPhases][4],
+                                          const float (&gv)[4],
+                                          const float (&inv)[4],
+                                          const float (&shift)[4],
+                                          const float (&mean)[4],
+                                          const float (&rstd)[4],
+                                          const float (&c1)[4],
+                                          const float (&c2)[4],
+                                          float (&dy)[kPhases][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float z[kPhases], a[kPhases];
+#pragma unroll
+    for (int p = 0; p < kPhases; ++p) {
+      z[p] = round_bf16(__fadd_rn(__fmul_rn(yv[p][j], inv[j]), shift[j]));
+      a[p] = fmaxf(z[p], round_bf16(__fmul_rn(kSlope, z[p])));
+    }
+    int first = 0;
+    float best = a[0], z_first = z[0];
+#pragma unroll
+    for (int p = 1; p < kPhases; ++p) {
+      const bool more = a[p] > best;
+      best = more ? a[p] : best;
+      z_first = more ? z[p] : z_first;
+      first = more ? p : first;
+    }
+    const float routed = __fsub_rn(
+        __fmul_rn(inv[j], __fmul_rn(gv[j], z_first >= 0.0f ? 1.0f : kSlope)),
+        c1[j]);
+#pragma unroll
+    for (int p = 0; p < kPhases; ++p)
+      dy[p][j] = __fsub_rn(p == first ? routed : -c1[j],
+                           __fmul_rn(__fmul_rn(__fsub_rn(yv[p][j], mean[j]),
+                                               rstd[j]),
+                                     c2[j]));
+  }
 }
 
 __device__ __forceinline__ void to4(const float4& f, float (&out)[4]) {
@@ -661,28 +693,22 @@ stem_bwd_dw_kernel(const __nv_bfloat16* __restrict__ y,
       to4(vecs[3][h], rs);
       to4(vecs[4][h], c1v);
       to4(vecs[5][h], c2v);
-      float yv[kPhases][4], gv[4], gz[kPhases][4], xhat[kPhases][4];
+      float yv[kPhases][4], gv[4], d[kPhases][4] = {};
+      if (valid) {
 #pragma unroll
-      for (int p = 0; p < kPhases; ++p) {
-        const int sub = (p * 4 + h / 2) ^ ((jp & 1) << 2);
+        for (int p = 0; p < kPhases; ++p) {
+          const int sub = (p * 4 + h / 2) ^ ((jp & 1) << 2);
+          unpack4(*reinterpret_cast<const uint2*>(
+                      stage + jp * 256 + sub * 16 + (h % 2) * 8), yv[p]);
+        }
         unpack4(*reinterpret_cast<const uint2*>(
-                    stage + jp * 256 + sub * 16 + (h % 2) * 8), yv[p]);
+                    stage + kStageY + jp * 64 + h * 8), gv);
+        window_dy(yv, gv, iv, sh, mu, rs, c1v, c2v, d);
       }
-      unpack4(*reinterpret_cast<const uint2*>(stage + kStageY + jp * 64 + h * 8),
-              gv);
-      route(yv, gv, iv, sh, mu, rs, gz, xhat);
 #pragma unroll
-      for (int p = 0; p < kPhases; ++p) {
-        float d[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          d[j] = valid ? __fsub_rn(__fsub_rn(__fmul_rn(iv[j], gz[p][j]),
-                                             c1v[j]),
-                                   __fmul_rn(xhat[p][j], c2v[j]))
-                       : 0.0f;
+      for (int p = 0; p < kPhases; ++p)
         *reinterpret_cast<uint2*>(sB + (jp * kPhases + p) * kLd + 4 * h) =
-            make_uint2(pack2(d[0], d[1]), pack2(d[2], d[3]));
-      }
+            make_uint2(pack2(d[p][0], d[p][1]), pack2(d[p][2], d[p][3]));
     }
     {  // im2col -> sA
       const float* src = reinterpret_cast<const float*>(
