@@ -168,9 +168,10 @@ def phase_device() -> str:
 
 
 def _sass_report(lib: str, kernel: str):
-    """(the number of HMMA instructions, the resource usage line) of
-    ``kernel`` in the built library ``lib``, read with the toolkit's
-    cuobjdump."""
+    """For each compiled instance of ``kernel`` in the built library
+    ``lib`` (a template has one for each of its arguments): the start of its
+    mangled name, its number of HMMA instructions and its resource usage
+    line, read with the toolkit's cuobjdump."""
     tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
 
     def dump(flag):
@@ -178,12 +179,14 @@ def _sass_report(lib: str, kernel: str):
                               text=True, check=True).stdout
 
     sections = dump("--dump-sass").split("Function : ")[1:]
-    hmma = sum(sec.count("HMMA") for sec in sections
-               if kernel in sec.split("\n", 1)[0])
+    hmma = {sec.split("\n", 1)[0].strip(): sec.count("HMMA")
+            for sec in sections if kernel in sec.split("\n", 1)[0]}
     lines = dump("--dump-resource-usage").splitlines()
-    usage = next((lines[i + 1].strip() for i, line in enumerate(lines[:-1])
-                  if "Function" in line and kernel in line), "not found")
-    return hmma, usage
+    usage = {line.split("Function", 1)[1].strip(" :"): lines[i + 1].strip()
+             for i, line in enumerate(lines[:-1])
+             if "Function" in line and kernel in line}
+    return [(name[name.index(kernel):][:len(kernel) + 8], hmma[name],
+             usage.get(name, "not found")) for name in sorted(hmma)]
 
 
 def phase_build() -> None:
@@ -195,10 +198,12 @@ def phase_build() -> None:
     stem._train_library()
     print(f"[build] {', '.join(paths)} in {time.perf_counter() - t0:.2f} s "
           "(one nvcc per source, in parallel)")
-    hmma, usage = _sass_report(paths[2], "stem_bwd_dw_kernel")
-    print(f"[build] K6 stem_bwd_dw_kernel: {hmma} HMMA instructions in its "
-          f"SASS; {usage}")
-    _check(hmma > 0, "K6's product does not run on the tensor cores")
+    report = _sass_report(paths[2], "stem_bwd_dw_kernel")
+    for name, hmma, usage in report:
+        print(f"[build] K6 {name}: {hmma} HMMA instructions in its SASS; "
+              f"{usage}")
+    _check(report and all(hmma > 0 for _, hmma, _ in report),
+           "K6's product does not run on the tensor cores")
 
 
 def phase_kernel(dev, card: str):

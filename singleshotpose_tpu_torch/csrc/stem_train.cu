@@ -538,15 +538,26 @@ struct TileCursor {
 
 // This thread's copies of a tile, their offsets fixed for the kernel: y's
 // chunk `sub` of pooled column c in both tile rows; one chunk of g
-// (threads < 128); up to three words of the halo.  y's pixels sit 256 B
-// apart with their 16-byte chunks XOR-swizzled by the pixel's parity, so
-// that the two pixels of a half-warp's 8-byte reads fall in distinct banks.
+// (threads < 128); the halo's rows.  y's pixels sit 256 B apart with their
+// 16-byte chunks XOR-swizzled by the pixel's parity, so that the two
+// pixels of a half-warp's 8-byte reads fall in distinct banks.
+//
+// The halo: when W is a multiple of 4 (kWide), a row of (B, H, W, 3) f32
+// starts on a 16-byte boundary, so the 102 words of a halo row, which
+// start one word past one, are covered by 26 16-byte chunks, each wholly
+// inside or outside the image row: 156 copies of 16 bytes, the word
+// (column, channel) at 1 + 3 column + channel of the staged row.
+// Otherwise 612 copies of 4 bytes, the word at 3 column + channel.
+template <bool kWide>
 struct TileCopies {
+  static constexpr int kChunks = kWide ? 26 : kHaloWords;   // a halo row
+  static constexpr int kChunkWords = kWide ? 4 : 1;
+  static constexpr int kLead = kWide ? 1 : 0;   // staged word of column 0
   static constexpr int kHaloCopies =
-      (kHaloRows * kHaloWords + kThreads - 1) / kThreads;   // 3
+      (kHaloRows * kChunks + kThreads - 1) / kThreads;   // 1 or 3
   int H, W, Hp, Wp;
   int c, y_dst, y_off, g_r, g_c, g_dst, g_off;
-  int h_row[kHaloCopies], h_col[kHaloCopies], h_dst[kHaloCopies],
+  int h_row[kHaloCopies], h_word[kHaloCopies], h_dst[kHaloCopies],
       h_off[kHaloCopies];
 
   __device__ TileCopies(int H_, int W_) : H(H_), W(W_), Hp(H_ / 2), Wp(W_ / 2) {
@@ -562,12 +573,13 @@ struct TileCopies {
     g_off = (g_r * Wp + g_c) * 4 + t % 4;
 #pragma unroll
     for (int q = 0; q < kHaloCopies; ++q) {
-      const int i = t + q * kThreads;
-      const int rem = i % kHaloWords;
-      h_row[q] = i < kHaloRows * kHaloWords ? i / kHaloWords : -1;
-      h_col[q] = rem / kCin;
-      h_dst[q] = h_row[q] * kHaloStride + rem;
-      h_off[q] = h_row[q] * W * kCin + rem;
+      // the last threads take the halo, the first ones g
+      const int i = kThreads - 1 - t + q * kThreads;
+      const int ch = i % kChunks;
+      h_row[q] = i < kHaloRows * kChunks ? i / kChunks : -1;
+      h_word[q] = ch * kChunkWords - kLead;   // from column 0, channel 0
+      h_dst[q] = h_row[q] * kHaloStride + ch * kChunkWords;
+      h_off[q] = h_row[q] * W * kCin + h_word[q];
     }
   }
 
@@ -593,14 +605,18 @@ struct TileCopies {
       copy16(stage + g_dst, gs + (in ? base * 4 + g_off : 0), in);
     }
     float* halo = reinterpret_cast<float*>(stage + kStageY + kStageG);
-    const long long xb =
-        (((long long)b * H + 2 * py0 - 1) * W + 2 * px0 - 1) * kCin;
+    // word 0 of the halo's first row: (2 py0 - 1, 2 px0 - 1, channel 0)
+    const int w0 = (2 * px0 - 1) * kCin;
+    const long long xb = ((long long)b * H + 2 * py0 - 1) * W * kCin + w0;
 #pragma unroll
     for (int q = 0; q < kHaloCopies; ++q) {
       if (h_row[q] < 0) continue;
       const bool in = (unsigned)(2 * py0 - 1 + h_row[q]) < (unsigned)H &&
-                      (unsigned)(2 * px0 - 1 + h_col[q]) < (unsigned)W;
-      copy4(halo + h_dst[q], x + (in ? xb + h_off[q] : 0), in);
+                      (unsigned)(w0 + h_word[q]) < (unsigned)(W * kCin);
+      if (kWide)
+        copy16(halo + h_dst[q], x + (in ? xb + h_off[q] : 0), in);
+      else
+        copy4(halo + h_dst[q], x + (in ? xb + h_off[q] : 0), in);
     }
   }
 };
@@ -623,6 +639,7 @@ __device__ __forceinline__ void im2col_half(const float* src,
   d[1] = make_uint4(w[4], w[5], w[6], w[7]);
 }
 
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads, kDwBlocksPerSm)
 stem_bwd_dw_kernel(const __nv_bfloat16* __restrict__ y,
                    const __nv_bfloat16* __restrict__ g,
@@ -649,7 +666,7 @@ stem_bwd_dw_kernel(const __nv_bfloat16* __restrict__ y,
                      : v == 3 ? rstd : v == 4 ? c1 : c2;
     reinterpret_cast<float*>(vecs)[threadIdx.x] = src[c];
   }
-  const TileCopies copies(H, W);
+  const TileCopies<kWide> copies(H, W);
 
   // dy: pooled pixel jp of the tile, channels 4h .. 4h + 3
   const int jp = threadIdx.x / 8, h = threadIdx.x % 8;
@@ -713,7 +730,8 @@ stem_bwd_dw_kernel(const __nv_bfloat16* __restrict__ y,
     {  // im2col -> sA
       const float* src = reinterpret_cast<const float*>(
                              stage + kStageY + kStageG) +
-                         cy * kHaloStride + cx * kCin;
+                         cy * kHaloStride + cx * kCin +
+                         TileCopies<kWide>::kLead;
       if (half == 0)
         im2col_half<0>(src, sA + k * kLd);
       else
@@ -858,7 +876,11 @@ extern "C" int stem_bwd_dw_launch(const void* y, const void* g, const float* x,
   const long long blocks = stem_bwd_dw_blocks(B, H, W);
   if (blocks == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  stem_bwd_dw_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
+  // 16-byte halo copies when every image row starts 16-byte aligned
+  const bool wide =
+      W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto kernel = wide ? stem_bwd_dw_kernel<true> : stem_bwd_dw_kernel<false>;
+  kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
       reinterpret_cast<const __nv_bfloat16*>(y),
       reinterpret_cast<const __nv_bfloat16*>(g), x, inv, shift, mean, rstd,
       c1, c2, partials, B, H, W);
