@@ -13,10 +13,12 @@ and the exit code is nonzero:
   1. device: the card's name and power limit; TF32 off for convs and matmuls;
   2. build: the three CUDA sources, one nvcc each, started together
      (``csrc/stem_serve.cu``, ``csrc/max_corner_confidence.cu``,
-     ``csrc/stem_train.cu``);
+     ``csrc/stem_train.cu``); K6's SASS holds HMMA instructions (its
+     product runs on the tensor cores);
   3. kernels against plain: each kernel (K1 the serving stem, K2 the max
      corner confidence, K3–K6 the train stem) vs its plain PyTorch version
-     at the main paths' shapes, error and time of both, and its bound;
+     at the main paths' shapes (K3–K6 also at a ragged one), error and
+     time of both, and its bound;
   4. model: fold BN, bf16 forward at batch 8, 672²; the stem went through
      the kernel, and the head equals the forward with the plain stem;
   5. serve: ``make_serving_fn`` behind a ``MicroBatcher`` answering 16

@@ -326,7 +326,10 @@ stem_bwd_sums_kernel(const __nv_bfloat16* __restrict__ y,
 // at batch 8, 416^2): >= 38.0 us at 3.35 TB/s.  The product is 2.39 GFLOP,
 // 2.4 us on the bf16 tensor cores, and the per-element BN backward that
 // makes dy is the same work as K5's.  So the design moves each byte once
-// and keeps the product off the CUDA cores:
+// and keeps the product off the CUDA cores.  What is left bounds it by
+// instruction issue: dy costs ~20 instructions a conv pixel and channel,
+// and neither a third stage of copies nor more blocks per SM moved its
+// time.
 //
 // Tiles.  A tile is kTileRows x kTileCols pooled pixels of one image (2 x
 // 16: 128 conv pixels, the product's K); the blocks walk the tiles with a
@@ -337,10 +340,11 @@ stem_bwd_sums_kernel(const __nv_bfloat16* __restrict__ y,
 // Staging.  The tile's y (32 x 256 B), g (32 x 64 B) and x halo (6 image
 // rows x 34 columns x 3 channels, f32, zeros outside the image) are copied
 // into shared memory once with cp.async, y and g in 16-byte chunks, the
-// halo in 4-byte words along its rows (each row segment is contiguous in
-// (B, H, W, 3)), into one of two stages: the next tile's copies are in
-// flight while this tile computes.  TMA is not needed: a tile is ~13 KB
-// in 45 pieces of at most 4 KB, and cp.async overlaps them as well.
+// halo along its rows (each row segment is contiguous in (B, H, W, 3)) in
+// 16-byte chunks when W is a multiple of 4, else in 4-byte words, into one
+// of two stages: the next tile's copies are in flight while this tile
+// computes.  TMA is not needed: a tile is ~13 KB in 10 contiguous pieces
+// of at most 4 KB, and cp.async overlaps them as well.
 //
 // Operands.  Every thread computes dy for one pooled pixel and 4 channels
 // (window_dy: K5's routing) and writes it as bf16 into sB[k][co], k =
@@ -367,7 +371,6 @@ constexpr int kTileRows = 2;                     // pooled rows of a tile
 constexpr int kTileCols = 16;                    // pooled columns of a tile
 constexpr int kTilePix = kTileRows * kTileCols;  // 32 pooled pixels
 constexpr int kTileK = kTilePix * kPhases;       // 128 conv pixels
-constexpr int kTapsPad = 32;                     // 27 taps + 5 zero rows
 constexpr int kLd = 40;                          // sA, sB row stride, bf16
 constexpr int kHaloRows = 2 * kTileRows + 2;     // 6 image rows
 constexpr int kHaloWords = (2 * kTileCols + 2) * kCin;   // 102 f32 a row
@@ -376,14 +379,14 @@ constexpr int kHaloStride = 112;   // words: = 16 mod 32, so a warp's two
 constexpr int kOut = kTaps * kCout;              // 864
 constexpr int kDwBlocksPerSm = 3;                // the grid: 396 blocks
 constexpr int kOutPerThread = (kOut + kThreads - 1) / kThreads;   // 4
-// shared memory, in bytes: two stages of the staged tile (y, g, halo),
-// then sA and sB; after the loop the warps' accumulators reuse it
+// a stage of the staged tile (y, g, halo), in bytes; after the loop the
+// warps' accumulators reuse the stages
 constexpr int kStageY = kTilePix * kPhases * kCout * 2;           // 8192
 constexpr int kStageG = kTilePix * kCout * 2;                     // 2048
 constexpr int kStageBytes = kStageY + kStageG + kHaloRows * kHaloStride * 4;
 constexpr int kStages = 2;
 static_assert(kStageBytes % 128 == 0, "16-byte copies need aligned stages");
-static_assert(kWarps == 8 && kTileK == 128 && kTapsPad == kCout,
+static_assert(kWarps == 8 && kTileK == 128,
               "8 warps: 4 output tiles x 2 halves of the tile's 128 pixels");
 static_assert(kWarps * 256 * 4 <= kStages * kStageBytes,
               "the accumulators must fit in the reused stages");
