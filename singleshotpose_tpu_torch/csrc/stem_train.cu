@@ -558,6 +558,9 @@ struct TileCopies {
   static constexpr int kLead = kWide ? 1 : 0;   // staged word of column 0
   static constexpr int kHaloCopies =
       (kHaloRows * kChunks + kThreads - 1) / kThreads;   // 1 or 3
+  static_assert(kChunks * kChunkWords >= kLead + kHaloWords &&
+                    kChunks * kChunkWords <= kHaloStride,
+                "the chunks cover a halo row and fit in a staged one");
   int H, W, Hp, Wp;
   int c, y_dst, y_off, g_r, g_c, g_dst, g_off;
   int h_row[kHaloCopies], h_word[kHaloCopies], h_dst[kHaloCopies],
