@@ -13,12 +13,13 @@ and the exit code is nonzero:
   1. device: the card's name and power limit; TF32 off for convs and matmuls;
   2. build: the three CUDA sources, one nvcc each, started together
      (``csrc/stem_serve.cu``, ``csrc/max_corner_confidence.cu``,
-     ``csrc/stem_train.cu``); K6's SASS holds HMMA instructions (its
-     product runs on the tensor cores);
+     ``csrc/stem_train.cu``); K1's and K6's SASS hold HMMA instructions
+     (their products run on the tensor cores);
   3. kernels against plain: each kernel (K1 the serving stem, K2 the max
      corner confidence, K3–K6 the train stem) vs its plain PyTorch version
      at the main paths' shapes (K3–K6 also at a ragged one), error and
-     time of both, and its bound;
+     time of both, and its bound; K1's share of outputs equal to the plain
+     version's and its largest difference in bf16 ulps;
   4. model: fold BN, bf16 forward at batch 8, 672²; the stem went through
      the kernel, and the head equals the forward with the plain stem;
   5. serve: ``make_serving_fn`` behind a ``MicroBatcher`` answering 16
@@ -200,12 +201,24 @@ def phase_build() -> None:
     stem._train_library()
     print(f"[build] {', '.join(paths)} in {time.perf_counter() - t0:.2f} s "
           "(one nvcc per source, in parallel)")
-    report = _sass_report(paths[2], "stem_bwd_dw_kernel")
-    for name, hmma, usage in report:
-        print(f"[build] K6 {name}: {hmma} HMMA instructions in its SASS; "
-              f"{usage}")
-    _check(report and all(hmma > 0 for _, hmma, _ in report),
-           "K6's product does not run on the tensor cores")
+    for tag, lib, kernel in (("K1", paths[0], "stem_serve_kernel"),
+                             ("K6", paths[2], "stem_bwd_dw_kernel")):
+        report = _sass_report(lib, kernel)
+        for name, hmma, usage in report:
+            print(f"[build] {tag} {name}: {hmma} HMMA instructions in its "
+                  f"SASS; {usage}")
+        _check(report and all(hmma > 0 for _, hmma, _ in report),
+               f"{tag}'s product does not run on the tensor cores")
+
+
+def _bf16_ulps(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """|got - ref| in ulps of the bf16 reference: a reference value in
+    [2^(e-1), 2^e) has a bf16 ulp of 2^(e-8) (0 takes the smallest, 2^-133).
+    A conv output one ulp off becomes many ulps of a small biased output."""
+    ref = ref.float()
+    _, e = torch.frexp(ref)
+    e = torch.where(ref == 0, -125, e.clamp_min(-125))
+    return (got.double() - ref.double()).abs() * torch.exp2(8.0 - e.double())
 
 
 def phase_kernel(dev, card: str):
@@ -224,11 +237,15 @@ def phase_kernel(dev, card: str):
         max_d = float(d.max())
         bound = 1e-2 * float(ref.float().abs().max()) + 1e-3
         exact = float((d == 0).float().mean())
+        ulps = _bf16_ulps(got, ref)
         ms = _time_ms(lambda: stem.stem_conv_pool_infer(img, w, b))
         plain_ms = _time_ms(lambda: stem.stem_conv_pool_infer_reference(img, w, b))
         print(f"[kernel] stem ({B},{H},{W}): max|d|={max_d:.6g} "
-              f"(bound {bound:.6g}), exactly equal {exact:.6%}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+              f"(bound {bound:.6g}), exactly equal {exact:.6%} "
+              f"({int((d > 0).sum())} of {d.numel()} differ, "
+              f"{int((ulps > 1).sum())} by more than one ulp of the "
+              f"reference; at most {float(ulps.max()):.6g} ulps); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
         _check(max_d <= bound, f"stem kernel max|d| {max_d} > {bound}")
         _check(exact >= 0.99, f"stem kernel exact share {exact} < 0.99")
         # conv MACs on bf16 operands: the tensor cores' rate

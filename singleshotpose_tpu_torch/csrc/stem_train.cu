@@ -21,8 +21,8 @@
 // in) >= 33.1 us, K6 (88.6 + 22.2 + 16.6 MB in) >= 38.0 us.  The conv
 // (2.39 GFLOP forward in K3, the same again for dW in K6) would take 2.4 us
 // on the bf16 tensor cores.  K3 runs it as f32 FMAs on the CUDA cores, one
-// thread per pooled pixel as K1 does (the conv is stem_common.cuh, shared
-// with K1); K6 runs dW's product on the tensor cores (see K6).
+// thread per pooled pixel (stem_common.cuh's conv_at; K1 has moved to the
+// tensor cores); K6 runs dW's product on the tensor cores (see K6).
 //
 // Reductions.  The TPU kernels carry their sums across a sequential grid.
 // Here blocks run in any order, so every kernel that sums (K3: sum y and
@@ -42,10 +42,17 @@
 
 namespace {
 
+using stem::copies_commit;
+using stem::copies_wait;
+using stem::copy16;
+using stem::copy4;
 using stem::kCin;
 using stem::kCout;
 using stem::kSlope;
 using stem::kTaps;
+using stem::ldmatrix_x4_trans;
+using stem::mma_bf16;
+using stem::pack2;
 using stem::round_bf16;
 
 constexpr int kThreads = 256;
@@ -81,8 +88,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// K3.  One thread per pooled pixel: its window's 4 x 32 conv outputs, as K1
-// computes them, rounded to bf16 and stored; per channel, the sum and the
+// K3.  One thread per pooled pixel: its window's 4 x 32 conv outputs
+// (stem_common.cuh's conv_at), rounded to bf16 and stored; per channel, the sum and the
 // sum of squares of those rounded values (the TPU kernel's statistics are
 // of the bf16 y too, stem.py:200-204), reduced over the block in a fixed
 // order into partials[block][2][32].
@@ -455,59 +462,6 @@ __device__ __forceinline__ void to4(const float4& f, float (&out)[4]) {
   out[1] = f.y;
   out[2] = f.z;
   out[3] = f.w;
-}
-
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  const __nv_bfloat162 two = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&two);
-}
-
-// Asynchronous copies of 16 and 4 bytes from global to shared memory;
-// zeros when !in (a source size of 0 reads nothing).
-__device__ __forceinline__ void copy16(void* dst, const void* src, bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void copy4(float* dst, const float* src, bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void copies_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void copies_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// ldmatrix .x4 .trans: four 8 x 8 bf16 blocks, transposed, lane L giving
-// the address of row L % 8 of block L / 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// d = A (16 x 16, row) * B (16 x 8, col) + 0 on the tensor cores: bf16
-// products, f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.0f));
 }
 
 // The tiles a block walks: t = blockIdx.x, + gridDim.x, ..., as (image b,

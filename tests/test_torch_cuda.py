@@ -9,7 +9,9 @@ no jax, so it runs on the card's machine, which has none:
 (``--noconftest``: tests/conftest.py sets up the JAX package's CPU tests and
 imports jax.)  Bounds, as for the CPU parity of each plain version: the
 serving stem max|d| ≤ 1e-2·max|ref| + 1e-3 with at least 99% of elements
-exactly equal; the max corner confidence rtol 1e-5, atol 1e-6, with the
+exactly equal (its tensor cores sum the conv in another order than
+``F.conv2d``, so an output near a bf16 rounding boundary may round the
+other way); the max corner confidence rtol 1e-5, atol 1e-6, with the
 same cells above the 0.6 silencing threshold.  The train stem's kernels
 (K3–K6) and their plain versions use the same formulas with f32 sums in
 another order: y and pooled as the serving stem; the sums of K3 and K5
@@ -54,10 +56,19 @@ def _check(got, ref):
     assert float((d == 0).float().mean()) >= 0.99
 
 
+def _serve_weights(dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((32, 3, 3, 3), generator=g, device=dev) * 0.3,
+            torch.randn((32,), generator=g, device=dev) * 0.3)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,W", [(1, 32, 32), (2, 64, 96), (3, 34, 18),
-                                   (1, 416, 416)])
+                                   (1, 416, 416), (2, 36, 40)])
 def test_stem_kernel_matches_plain_version(dev, B, H, W):
+    """(3, 34, 18): odd pooled rows, W % 4 != 0 (the 4-byte halo copies);
+    (2, 36, 40): a pooled grid of 18 x 20, no multiple of K1's 8 x 16 tiles
+    in either dimension, with the 16-byte copies."""
     g = torch.Generator(device=dev).manual_seed(B * H + W)
     img = torch.rand((B, H, W, 3), generator=g, device=dev)
     w = torch.randn((32, 3, 3, 3), generator=g, device=dev) * 0.3
@@ -68,6 +79,46 @@ def test_stem_kernel_matches_plain_version(dev, B, H, W):
     assert stem.stem_conv_pool_infer.launches == before + 1
     assert got.shape == (B, H // 2, W // 2, 32) and got.dtype == torch.bfloat16
     _check(got, stem.stem_conv_pool_infer_reference(img, w, b))
+
+
+@pytest.mark.cuda
+def test_stem_kernel_on_a_misaligned_image(dev):
+    """A contiguous view one float into its storage: W % 4 == 0, but the
+    image is not 16-byte aligned, so the kernel takes the 4-byte copies."""
+    B, H, W = 2, 64, 96
+    flat = torch.rand(1 + B * H * W * 3, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(11))
+    img = flat[1:].view(B, H, W, 3)
+    assert img.is_contiguous() and img.data_ptr() % 16 != 0
+    w, b = _serve_weights(dev, 12)
+    got = stem.stem_conv_pool_infer(img, w, b)
+    _check(got, stem.stem_conv_pool_infer_reference(img, w, b))
+
+
+@pytest.mark.cuda
+def test_stem_kernel_on_a_flat_image(dev):
+    """A flat image: every inner pool window ties.  Its values and weights
+    on a grid of 1/64 make every conv sum exact in f32, whatever its order,
+    so the kernel must give the plain version's bits everywhere."""
+    B, H, W = 2, 64, 96
+    img = torch.tensor([0.25, 0.5, 0.75], device=dev).expand(B, H, W, 3) \
+        .contiguous()
+    w, b = _serve_weights(dev, 13)
+    w = torch.round(w * 64) / 64
+    got = stem.stem_conv_pool_infer(img, w, b)
+    ref = stem.stem_conv_pool_infer_reference(img, w, b)
+    _check(got, ref)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_stem_kernel_gives_the_same_bits_twice(dev):
+    """(8, 416, 416): 2,704 tiles, several a block of the persistent grid."""
+    img = torch.rand((8, 416, 416, 3), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(14))
+    w, b = _serve_weights(dev, 15)
+    first = stem.stem_conv_pool_infer(img, w, b)
+    assert torch.equal(stem.stem_conv_pool_infer(img, w, b), first)
 
 
 @pytest.mark.cuda
