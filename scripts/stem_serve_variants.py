@@ -14,7 +14,8 @@ turns (forward, then backward through the list).  The variants that drop
 part of the work (``copies_stores``, ``no_copies``, ``no_stores``) say what
 the rest costs.  Last, a device-to-device copy of the same byte count
 (``copy_``) gives the memory rate this card reaches on plain streaming.
-Needs one CUDA card and nvcc; imports no jax.
+Needs one CUDA card and nvcc; imports no jax.  ``scripts/
+stem_train_variants.py`` does the same for K3 with this script's helpers.
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ SHAPE = (8, 672, 672)
 LAUNCHES, ROUNDS = 50, 3
 
 
-def _sub(old: str, new: str, where: str = "serve"):
-    """A change: replace ``old`` (which must occur once) in one source."""
+def _sub(old: str, new: str, where: str = "main"):
+    """A change: replace ``old`` (which must occur once) in one source,
+    ``"main"`` (the kernel's ``.cu``) or ``"common"`` (``stem_common.cuh``)."""
     def change(srcs):
         assert srcs[where].count(old) == 1, old
         return {**srcs, where: srcs[where].replace(old, new)}
@@ -88,7 +90,7 @@ _NO_COMPUTE = _sub(
     "      uint32_t best[4];\n#pragma unroll\n"
     "      for (int dy = 0; dy < 2; ++dy) {",
     "      uint32_t best[4];\n"
-    "      for (int n = 0; n < 4; ++n) best[n] = __float_as_uint(p0[n * kS]);\n"
+    "      for (int n = 0; n < 4; ++n) best[n] = __float_as_uint(group[n * kS]);\n"
     "#pragma unroll\n      for (int dy = 0; dy < 0; ++dy) {")
 
 # name: (change, computes the kernel's function)
@@ -113,45 +115,60 @@ VARIANTS = {
 }
 
 
-def _build(out_dir: str):
-    """Writes and builds every variant; returns {name: (launch fn, ptxas
-    registers, spill stores)}."""
-    with open(os.path.join(cuda_build.CSRC_DIR, "stem_serve.cu")) as f:
-        serve = f.read()
+def build_variants(out_dir: str, source: str, variants: dict, entry: str,
+                   argtypes: list):
+    """Writes ``csrc/<source>.cu`` and ``csrc/stem_common.cuh`` with each
+    variant's change (``variants``: {name: (change or None, ...)}) into
+    ``out_dir/<name>/`` and builds them, one nvcc each, started together;
+    returns {name: (library, ptxas log)} with ``entry`` bound to
+    ``argtypes`` (returning an int)."""
+    with open(os.path.join(cuda_build.CSRC_DIR, f"{source}.cu")) as f:
+        main = f.read()
     with open(os.path.join(cuda_build.CSRC_DIR, "stem_common.cuh")) as f:
         common = f.read()
     nvcc = cuda_build._nvcc()
     procs = {}
-    for name, (change, _) in VARIANTS.items():
-        srcs = {"serve": serve, "common": common}
+    for name, (change, *_) in variants.items():
+        srcs = {"main": main, "common": common}
         if change is not None:
             srcs = change(srcs)
         d = os.path.join(out_dir, name)
         os.makedirs(d, exist_ok=True)
-        with open(os.path.join(d, "stem_serve.cu"), "w") as f:
-            f.write(srcs["serve"])
+        with open(os.path.join(d, f"{source}.cu"), "w") as f:
+            f.write(srcs["main"])
         with open(os.path.join(d, "stem_common.cuh"), "w") as f:
             f.write(srcs["common"])
         procs[name] = subprocess.Popen(
             [nvcc, *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             os.path.join(d, "lib.so"), os.path.join(d, "stem_serve.cu")],
+             os.path.join(d, "lib.so"), os.path.join(d, f"{source}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     built = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
-        fn = ctypes.CDLL(os.path.join(out_dir, name, "lib.so")) \
-            .stem_conv_pool_infer_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
-            [ctypes.c_void_p]
+        lib = ctypes.CDLL(os.path.join(out_dir, name, "lib.so"))
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        built[name] = (fn, re.findall(r"Used (\d+) registers", log),
-                       re.findall(r"(\d+) bytes spill stores", log))
+        built[name] = (lib, log)
     return built
 
 
-def _per_launch_us(fn) -> float:
+def ptxas_usage(log: str, kernel: str) -> str:
+    """Registers and spill stores of each compiled instance of ``kernel``
+    in a ``-Xptxas -v`` log, in the log's order, as "registers a/b, spill
+    stores c/d"."""
+    regs, spills = [], []
+    for entry in log.split("Compiling entry function '")[1:]:
+        if kernel in entry.split("'", 1)[0]:
+            regs += re.findall(r"Used (\d+) registers", entry)[:1]
+            spills += re.findall(r"(\d+) bytes spill stores", entry)[:1]
+    return f"registers {'/'.join(regs)}, spill stores {'/'.join(spills)}"
+
+
+def per_launch_us(fn) -> float:
+    """CUDA events around LAUNCHES back-to-back calls of ``fn``, per call."""
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -164,15 +181,41 @@ def _per_launch_us(fn) -> float:
     return start.elapsed_time(end) / LAUNCHES * 1e3
 
 
-def main() -> int:
+def card() -> str:
+    """The card's name and power limit; fails without a card."""
     if not torch.cuda.is_available():
-        raise SystemExit("stem_serve_variants: needs a CUDA card")
-    smi = subprocess.run(
+        raise SystemExit(f"{os.path.basename(sys.argv[0])}: needs a CUDA card")
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def time_in_turns(runs: dict, nbytes: int, smi: str, label: str = "") -> None:
+    """Times each of ``runs`` ({name: fn}, ``copy_`` among them) with
+    :func:`per_launch_us` in ROUNDS rounds of turns, forward then backward
+    through the list, and prints the median and range of each after
+    ``label``; ``copy_`` also as the rate of its ``nbytes``."""
+    times = {name: [] for name in runs}
+    order = list(runs) + list(reversed(list(runs)))
+    for _ in range(ROUNDS):
+        for name in order:
+            times[name].append(per_launch_us(runs[name]))
+    for name, ts in times.items():
+        extra = f" ({nbytes / statistics.median(ts) / 1e6:.3f} TB/s)" \
+            if name == "copy_" else ""
+        print(f"[variants] {label}{name}: {statistics.median(ts):.2f} µs a launch "
+              f"(median of {len(ts)}; {min(ts):.2f}-{max(ts):.2f}){extra} "
+              f"[{smi}]")
+
+
+def main() -> int:
+    smi = card()
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    built = _build(os.path.join(cuda_build.BUILD_DIR, "variants"))
+    built = build_variants(
+        os.path.join(cuda_build.BUILD_DIR, "variants"), "stem_serve",
+        VARIANTS, "stem_conv_pool_infer_launch",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     g = torch.Generator(device=dev).manual_seed(0)
     B, H, W = SHAPE
     img = torch.rand((B, H, W, 3), generator=g, device=dev)
@@ -190,31 +233,23 @@ def main() -> int:
                 raise RuntimeError(f"launch failed: CUDA error {err}")
         return launch
 
-    runs = {name: launcher(fn) for name, (fn, _, _) in built.items()}
+    runs = {name: launcher(lib.stem_conv_pool_infer_launch)
+            for name, (lib, _) in built.items()}
     nbytes = img.numel() * 4 + ref.numel() * 2
     src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
     dst = torch.empty_like(src)
     runs["copy_"] = lambda: dst.copy_(src)
-    for name, (_, regs, spills) in built.items():
+    for name, (_, log) in built.items():
         out.zero_()
         runs[name]()
         torch.cuda.synchronize()
         exact = float((out.float() == ref.float()).float().mean())
         what = f"{exact:.6%} equal to the plain version" \
             if VARIANTS[name][1] else "drops work: not compared"
-        print(f"[variants] {name}: registers {'/'.join(regs)}, spill stores "
-              f"{'/'.join(spills)} (4-byte / 16-byte copies); {what}")
-    times = {name: [] for name in runs}
-    order = list(runs) + list(reversed(list(runs)))
-    for _ in range(ROUNDS):
-        for name in order:
-            times[name].append(_per_launch_us(runs[name]))
-    for name, ts in times.items():
-        extra = f" ({nbytes / statistics.median(ts) / 1e6:.3f} TB/s)" \
-            if name == "copy_" else ""
-        print(f"[variants] {name}: {statistics.median(ts):.2f} µs a launch "
-              f"(median of {len(ts)}; {min(ts):.2f}-{max(ts):.2f}){extra} "
-              f"[{smi}]")
+        print(f"[variants] {name}: "
+              f"{ptxas_usage(log, 'stem_serve_kernel')} (4-byte / 16-byte "
+              f"copies); {what}")
+    time_in_turns(runs, nbytes, smi)
     return 0
 
 

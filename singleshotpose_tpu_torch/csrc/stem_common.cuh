@@ -1,23 +1,21 @@
 // Device code shared by the serving stem (stem_serve.cu, K1) and the train
 // stem (stem_train.cu, K3-K6): conv 3x3 s1 p1, 3 -> 32 channels, on
-// bf16-rounded operands with f32 sums, and the PTX one-liners both use.
+// bf16-rounded operands with f32 sums, on the tensor cores; and the PTX
+// one-liners the kernels use.
 //
 // Which kernel uses which routine:
-//   - K3 runs the CUDA-core conv (stage_weights, load_patch, conv_at): a
-//     thread owns one pooled pixel, holds the 4x4x3 input patch that its 2x2
-//     window's four conv outputs read (rows 2py-1 .. 2py+2, columns 2px-1
-//     .. 2px+2 of the zero-padded image), and reads the weights from shared
-//     memory as ws[tap][co], tap = (ky * 3 + kx) * 3 + ci, the order of the
-//     TPU kernels' weight matrix (singleshotpose_tpu/ops/stem.py:_wmat).
-//   - K1 runs the tensor-core conv (TileWalk, HaloCopies, load_tc_weights,
-//     gather_a, conv_mtile): a block stages a tile's image halo in shared
-//     memory with cp.async, and a warp computes 8 pooled pixels' 4 x 32 conv
-//     outputs as mma.sync products.  K3's redesign is meant to reuse it.
-//   - K6 runs its own product (stem_train.cu) on the PTX one-liners below
-//     (copy16, copy4, copies_commit, copies_wait, ldmatrix_x4_trans,
-//     mma_bf16, pack2), which K1 uses too.
-// The two convs sum the same exact bf16 products in different orders, so a
-// conv output rounded to bf16 can differ by one step between them.
+//   - K1 and K3 run the tensor-core conv (TileWalk, HaloCopies, GatherLane,
+//     load_tc_weights, conv_row): a block stages a tile's image halo in
+//     shared memory with cp.async, and a warp computes 8 pooled pixels' 4 x
+//     32 conv outputs as mma.sync products.  K1 pools them; K3 stores them
+//     and sums them.
+//   - K6 walks its tiles with TileWalk, stages its x halo with HaloCopies at
+//     a row stride of its own, and runs its own product (stem_train.cu) on
+//     the PTX one-liners (copy16, copy4, copies_commit, copies_wait,
+//     ldmatrix_x4_trans, mma_bf16, pack2).
+// The tensor cores sum the same exact bf16 products in another order than
+// F.conv2d, so a conv output rounded to bf16 can differ from the plain
+// versions': mostly by one step, by more where the sum cancels to near 0.
 
 #pragma once
 
@@ -34,54 +32,6 @@ constexpr float kSlope = 0.10009765625f;   // bf16(0.1)
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// ws[tap][co] <- bf16(w[co][ci][ky][kx]) for OIHW w; the block's threads
-// share the work; the caller synchronises before reading ws.
-__device__ __forceinline__ void stage_weights(float* ws,
-                                              const float* __restrict__ w) {
-  for (int i = threadIdx.x; i < kTaps * kCout; i += blockDim.x) {
-    const int co = i / kTaps, rem = i % kTaps;
-    const int ci = rem / 9, ky = (rem % 9) / 3, kx = rem % 3;
-    ws[((ky * 3 + kx) * kCin + ci) * kCout + co] = round_bf16(w[i]);
-  }
-}
-
-// The bf16-rounded 4x4x3 patch of pooled pixel (b, py, px) of the
-// (B, H, W, 3) f32 image x; zeros outside the image (the conv's padding).
-__device__ __forceinline__ void load_patch(float (&patch)[4][4][kCin],
-                                           const float* __restrict__ x,
-                                           int b, int py, int px, int H,
-                                           int W) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int iy = 2 * py - 1 + r;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int ix = 2 * px - 1 + c;
-      const bool in = iy >= 0 && iy < H && ix >= 0 && ix < W;
-      const float* src = x + (((long long)b * H + iy) * W + ix) * kCin;
-#pragma unroll
-      for (int ci = 0; ci < kCin; ++ci)
-        patch[r][c][ci] = in ? round_bf16(src[ci]) : 0.0f;
-    }
-  }
-}
-
-// The f32 conv output of channel o at window position (dy, dx).
-__device__ __forceinline__ float conv_at(const float (&patch)[4][4][kCin],
-                                         const float* ws, int dy, int dx,
-                                         int o) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-    for (int kx = 0; kx < 3; ++kx)
-#pragma unroll
-      for (int ci = 0; ci < kCin; ++ci)
-        acc = fmaf(patch[dy + ky][dx + kx][ci],
-                   ws[((ky * 3 + kx) * kCin + ci) * kCout + o], acc);
-  return acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -219,19 +169,20 @@ struct TileWalk {
 };
 
 // This thread's copies of a tile's halo, the block's kThreads threads
-// sharing them.  With kWide, each thread's (at most kPer = 2) 16-byte
-// chunks keep their offsets for the kernel's life; the 4-byte copies (kPer
-// = 8) are laid out on the fly.
-template <bool kWide, int kRows, int kThreads>
+// sharing them, into 2 kRows + 2 staged rows of kStride words (K1 and K3:
+// kTcStride; K6 its own).  With kWide, each thread's (at most kPer = 2)
+// 16-byte chunks keep their offsets for the kernel's life; the 4-byte
+// copies (kPer = 8 at 8-row tiles) are laid out on the fly.
+template <bool kWide, int kRows, int kThreads, int kStride>
 struct HaloCopies {
   static constexpr int kChunks = kWide ? 26 : kTcHaloWords;   // a halo row
   static constexpr int kChunkWords = kWide ? 4 : 1;
   static constexpr int kLead = kWide ? 1 : 0;    // staged word of column 0
-  static constexpr int kCopies = HaloTile<kRows>::kRowsStaged * kChunks;
+  static constexpr int kCopies = (2 * kRows + 2) * kChunks;
   static constexpr int kPer = (kCopies + kThreads - 1) / kThreads;
   static constexpr int kKept = kWide ? kPer : 1;
   static_assert(kChunks * kChunkWords >= kLead + kTcHaloWords &&
-                    kChunks * kChunkWords <= kTcStride,
+                    kChunks * kChunkWords <= kStride && kStride % 4 == 0,
                 "the chunks cover a halo row and fit in a staged one");
   int H, W;
   // copy q: its halo row (-1: none), its first word from the halo row's
@@ -249,7 +200,7 @@ struct HaloCopies {
     const int ch = i % kChunks;
     r = i < kCopies ? i / kChunks : -1;
     wd = ch * kChunkWords - kLead;
-    d = r * kTcStride + ch * kChunkWords;
+    d = r * kStride + ch * kChunkWords;
     o = r * W * kCin + wd;
   }
 
@@ -345,6 +296,38 @@ __device__ __forceinline__ void conv_mtile(float (&acc)[4][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = __fadd_rn(d0[e], d1[e]);
   }
+}
+
+// This lane's gather offsets, in words from the staged halo word where a
+// group's pooled row and first column start (row 2 pr of the halo, word 48
+// half: pooled row pr of the tile, columns 8 half .. 8 half + 7): `col0` for
+// rows g of the m-tiles (window column dx0 = (g >= 4)), `col1` for rows g +
+// 8 (the other column), each at the lane's taps o = 2t, 2t + 1; `mix` from
+// those to word 8 of halo row min(t, 2); `keep` as gather_a takes it.
+// `lead` is HaloCopies' kLead.
+struct GatherLane {
+  int col0, col1, mix;
+  uint32_t keep;
+
+  __device__ GatherLane(int lane, int lead) {
+    const int g = lane / 4, t = lane % 4, dx0 = g >= 4;
+    col0 = lead + 3 * (2 * g + dx0) + 2 * t;
+    col1 = lead + 3 * (2 * g + 1 - dx0) + 2 * t;
+    mix = (t < 2 ? t : 2) * kTcStride + 8 - 2 * t;
+    keep = t == 3 ? 0u : ~0u;
+  }
+};
+
+// The f32 conv outputs of window row DY of the group whose staged halo
+// starts at `group` (see GatherLane), in conv_mtile's layout.
+template <int DY>
+__device__ __forceinline__ void conv_row(float (&acc)[4][4], const float* group,
+                                         const GatherLane& l,
+                                         const uint32_t (&b)[2][4][2]) {
+  uint32_t a[2][4];
+  gather_a<DY>(a, group + l.col0, group + l.col1, group + l.col0 + l.mix,
+               group + l.col1 + l.mix, l.keep);
+  conv_mtile(acc, a, b);
 }
 
 }  // namespace stem

@@ -119,19 +119,13 @@ stem_serve_kernel(const float* __restrict__ x, const float* __restrict__ w,
     bs[n][0] = bias[8 * n + 2 * t];
     bs[n][1] = bias[8 * n + 2 * t + 1];
   }
-  // the lane's gather offsets from its group's first conv pixel: rows g at
-  // window column dx0, rows g + 8 at the other (see stem_common.cuh)
-  const int lead = kWide ? 1 : 0, dx0 = g >= 4;
-  const int col0 = lead + 3 * (2 * g + dx0) + 2 * t;
-  const int col1 = lead + 3 * (2 * g + 1 - dx0) + 2 * t;
-  const int mix = (t < 2 ? t : 2) * kS + 8 - 2 * t;
-  const uint32_t keep = t == 3 ? 0u : ~0u;
+  const stem::GatherLane gl(lane, kWide ? 1 : 0);
   // the regrouped pixel's 16 words, its 16-byte chunks XOR-swizzled so that
   // neither the 4-byte writes nor the 16-byte reads conflict
   uint32_t* rg = regroup[warp] + 16 * g;
   const int swz = (g >> 1) & 3;
 
-  const stem::HaloCopies<kWide, kTileRows, kThreads> copies(H, W);
+  const stem::HaloCopies<kWide, kTileRows, kThreads, kS> copies(H, W);
   stem::TileWalk tile(blockIdx.x, tiles_y, tiles_x), ahead = tile;
   const int grid = gridDim.x;
 #pragma unroll
@@ -163,18 +157,15 @@ stem_serve_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int pr = grp / 2, half = grp % 2;
       const int py = py0 + pr;
       if (py >= Hp) continue;             // the same for the whole warp
-      const float* p0 = halo + 2 * pr * kS + 48 * half + col0;
-      const float* p1 = halo + 2 * pr * kS + 48 * half + col1;
+      const float* group = halo + 2 * pr * kS + 48 * half;
       uint32_t best[4];
 #pragma unroll
       for (int dy = 0; dy < 2; ++dy) {
-        uint32_t a[2][4];
-        if (dy == 0)
-          stem::gather_a<0>(a, p0, p1, p0 + mix, p1 + mix, keep);
-        else
-          stem::gather_a<1>(a, p0, p1, p0 + mix, p1 + mix, keep);
         float acc[4][4];
-        stem::conv_mtile(acc, a, bw);
+        if (dy == 0)
+          stem::conv_row<0>(acc, group, gl, bw);
+        else
+          stem::conv_row<1>(acc, group, gl, bw);
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
           const uint32_t m = bf16x2_max(

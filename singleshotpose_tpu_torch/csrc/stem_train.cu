@@ -19,10 +19,8 @@
 // card: at 3.35 TB/s, K3 (16.6 MB image in + 88.6 MB y out) >= 31.4 us,
 // K4 (88.6 MB y in + 22.2 MB pooled out) >= 33.1 us, K5 (88.6 + 22.2 MB
 // in) >= 33.1 us, K6 (88.6 + 22.2 + 16.6 MB in) >= 38.0 us.  The conv
-// (2.39 GFLOP forward in K3, the same again for dW in K6) would take 2.4 us
-// on the bf16 tensor cores.  K3 runs it as f32 FMAs on the CUDA cores, one
-// thread per pooled pixel (stem_common.cuh's conv_at; K1 has moved to the
-// tensor cores); K6 runs dW's product on the tensor cores (see K6).
+// (2.39 GFLOP forward in K3, the same again for dW in K6) takes 2.4 us on
+// the bf16 tensor cores, where both run it (see K3 and K6).
 //
 // Reductions.  The TPU kernels carry their sums across a sequential grid.
 // Here blocks run in any order, so every kernel that sums (K3: sum y and
@@ -33,10 +31,11 @@
 //
 // Rounding.  The BN arithmetic uses explicitly rounded intrinsics
 // (__fmul_rn, __fadd_rn, __fsub_rn) so nvcc contracts no FMA the plain
-// PyTorch version does not; bf16 products in the convs are exact in f32, so
-// fmaf there is a product and one rounded add, and K6's tensor cores only
-// sum them in another order.  The kernels allocate
-// nothing: the wrappers in ops/stem.py allocate outputs and partials.
+// PyTorch version does not; bf16 products (the convs' operands, K3's bf16 y
+// squared) are exact in f32, so the tensor cores only sum them in another
+// order, and K3's fmaf is a product and one rounded add.  The kernels
+// allocate nothing: the wrappers in ops/stem.py allocate outputs and
+// partials.
 
 #include "stem_common.cuh"
 
@@ -45,7 +44,6 @@ namespace {
 using stem::copies_commit;
 using stem::copies_wait;
 using stem::copy16;
-using stem::copy4;
 using stem::kCin;
 using stem::kCout;
 using stem::kSlope;
@@ -81,82 +79,225 @@ __device__ __forceinline__ uint4 pack8(const float (&in)[8]) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2)
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// K3.  conv + the sums of y and y^2 per channel (replaces
+// singleshotpose_tpu/ops/stem.py:_k1_conv_stats, which runs the conv as a
+// bf16 dot_general with f32 sums on the MXU).
+//
+// What bounds it.  It reads the f32 image once and writes the bf16 y once:
+// at batch 8, 416^2, 16.6 MB + 88.6 MB, >= 31.4 us at 3.35 TB/s.  The conv
+// is 2.9 us on the bf16 tensor cores (27 taps padded to 32).  Measured on
+// an H100 SXM at 700 W (chip_smoke.py --profile): 38.6 us at that shape,
+// 81% of the bound, the rate of a device copy of the same bytes.  Without
+// its stores it takes 33 us, and its copies and stores alone take as long
+// as the whole kernel (scripts/stem_train_variants.py): it is bound by its
+// bytes, y's above all, and the compute hides under them.
+//
+// Design.  K1's conv (stem_common.cuh): a persistent grid (2 blocks an SM)
+// walks tiles of kConvRows x 16 pooled pixels of one image; each tile's
+// halo is staged with cp.async in three stages (16-byte chunks when W % 4
+// == 0 and x is 16-byte aligned, else 4-byte words: template kWide, picked
+// at launch), and each warp computes groups of 8 pooled pixels in a row
+// as mma.sync products.  The mma's C layout leaves lane (g, t) pixel g's
+// four window positions for channels 8 n + 2t, + 1: rows g at window
+// column dx0 = (g >= 4), rows g + 8 at the other.  Each pair is rounded to
+// bf16 once; the lane adds the rounded values and their squares to its 8
+// channels' sums, kept in registers across its tiles in a fixed order (a
+// bf16 square is exact in f32, so fmaf adds it with one rounding, as the
+// plain version's product and add), and writes the pair into its warp's 2
+// KB regroup buffer, laid out as y is, at the word of window position p =
+// 2 dy + dx: the dx swap of g >= 4 is undone by a per-lane address, not a
+// branch.  Then one lane copies the group's 2,048 contiguous bytes of y to
+// global memory with one bulk copy (cp.async.bulk, the async proxy) under
+// an L2 evict-first policy: y (88.6 MB) outgrows the 50 MB L2.  The copy
+// moves the buffer's bytes as they lie, so the buffer is not swizzled and
+// its 4-byte writes meet 4-way bank conflicts; even so it was the fastest
+// of the store routes timed at (8,416,416), against 16-byte stores through
+// a swizzled buffer with and without a streaming hint and the bulk copy
+// without the policy (scripts/stem_train_variants.py, PERF.md §6).  Pixels
+// past the last pooled column are neither stored nor summed (their conv
+// outputs are not zero: column W's neighbourhood reaches the image's last
+// column); groups wholly past the last pooled row or column are skipped.
+// At the end the sums are reduced over g by shuffles and over the warps in
+// order into partials[block][2][32]; the grid depends on the shape alone,
+// so the sums are the same bits from run to run.
+constexpr int kConvRows = 8;                         // pooled rows of a tile
+constexpr int kConvCols = stem::kTcCols;             // pooled columns, 16
+constexpr int kConvGroups = kConvRows * kConvCols / 8;   // of 8 pixels a tile
+constexpr int kConvStages = 3;
+constexpr int kConvBlocksPerSm = 2;
+constexpr int kPixWords = kPhases * kCout / 2;       // 64: a pooled pixel's y
+using ConvHalo = stem::HaloTile<kConvRows>;
+static_assert(kConvGroups % kWarps == 0, "every warp takes as many groups");
+
+// The bulk copy of `bytes` (a multiple of 16) from shared memory at `src`
+// to global memory at `dst`, both 16-byte aligned, by the async proxy,
+// evict-first in L2; committed as one bulk group of this thread.
+__device__ __forceinline__ void bulk_store_evict_first(void* dst,
+                                                       const void* src,
+                                                       unsigned bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(src));
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0], [%1], %2, %3;\n" ::"l"(dst), "r"(s), "r"(bytes), "l"(policy)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// K3.  One thread per pooled pixel: its window's 4 x 32 conv outputs
-// (stem_common.cuh's conv_at), rounded to bf16 and stored; per channel, the sum and the
-// sum of squares of those rounded values (the TPU kernel's statistics are
-// of the bf16 y too, stem.py:200-204), reduced over the block in a fixed
-// order into partials[block][2][32].
-__global__ void __launch_bounds__(kThreads)
+// Wait until none of this thread's bulk groups still reads its source.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Wait until all of this thread's bulk groups are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Makes this thread's writes to shared memory visible to the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// s1 += v and s2 += v^2 for the two bf16 halves of the pair v, channels j
+// and j + 1 of the lane's 8.
+__device__ __forceinline__ void add_pair(float (&s1)[8], float (&s2)[8], int j,
+                                         uint32_t v) {
+  const float lo = __uint_as_float(v << 16);
+  const float hi = __uint_as_float(v & 0xffff0000u);
+  s1[j] = __fadd_rn(s1[j], lo);
+  s2[j] = fmaf(lo, lo, s2[j]);
+  s1[j + 1] = __fadd_rn(s1[j + 1], hi);
+  s2[j + 1] = fmaf(hi, hi, s2[j + 1]);
+}
+
+template <bool kWide>
+__global__ void __launch_bounds__(kThreads, kConvBlocksPerSm)
 stem_conv_stats_kernel(const float* __restrict__ x,
                        const float* __restrict__ w,
                        __nv_bfloat16* __restrict__ y,
                        float* __restrict__ partials, int B, int H, int W) {
-  __shared__ float ws[kTaps * kCout];
+  constexpr int kS = stem::kTcStride;
+  __shared__ __align__(128) float stages[kConvStages][ConvHalo::kWords];
+  __shared__ __align__(16) uint32_t regroup[kWarps][8 * kPixWords];
   __shared__ float red[kWarps][2][kCout];
-  stem::stage_weights(ws, w);
-  __syncthreads();
-
   const int Hp = H / 2, Wp = W / 2;
-  const long long total = (long long)B * Hp * Wp;
-  const long long pix = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = pix < total;     // the rest add zeros to the sums
-  float patch[4][4][kCin];
-  if (valid) {
-    const int px = (int)(pix % Wp);
-    const long long t = pix / Wp;
-    stem::load_patch(patch, x, (int)(t / Hp), (int)(t % Hp), px, H, W);
-  } else {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int ci = 0; ci < kCin; ++ci) patch[r][c][ci] = 0.0f;
-  }
+  const int tiles_x = (Wp + kConvCols - 1) / kConvCols;
+  const int tiles_y = (Hp + kConvRows - 1) / kConvRows;
+  const int ntiles = B * tiles_y * tiles_x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  uint4* dst = reinterpret_cast<uint4*>(y + pix * kPhases * kCout);
-#pragma unroll 1
-  for (int q = 0; q < kGroups; ++q) {
-    float yv[kPhases][8];
+  uint32_t bw[2][4][2];
+  stem::load_tc_weights(bw, w, lane);
+  const stem::GatherLane gl(lane, kWide ? 1 : 0);
+  // pixel g's word of (position p, channels 8 n + 2t, + 1) is 16 p + 4 n +
+  // t; rows g hold p = 2 dy + dx0, rows g + 8 p = 2 dy + 1 - dx0
+  const int dx0 = g >= 4;
+  uint32_t* const rg0 = regroup[warp] + g * kPixWords + 16 * dx0 + t;
+  uint32_t* const rg1 = regroup[warp] + g * kPixWords + 16 * (1 - dx0) + t;
+  // the sums of y and y^2 of channel 8 (j / 2) + 2t + j % 2
+  float s1[8], s2[8];
 #pragma unroll
-    for (int p = 0; p < kPhases; ++p)
+  for (int j = 0; j < 8; ++j) s1[j] = s2[j] = 0.0f;
+
+  const stem::HaloCopies<kWide, kConvRows, kThreads, kS> copies(H, W);
+  stem::TileWalk tile(blockIdx.x, tiles_y, tiles_x), ahead = tile;
+  const int grid = gridDim.x;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        yv[p][j] = round_bf16(stem::conv_at(patch, ws, p / 2, p % 2, q * 8 + j));
-    if (valid) {
+  for (int k = 0; k < kConvStages - 1; ++k) {   // the first kStages - 1 tiles
+    if ((int)blockIdx.x + k * grid < ntiles)
+      copies.start(stages[k], x, ahead.b, ahead.ty * kConvRows,
+                   ahead.tx * kConvCols);
+    stem::copies_commit();
+    ahead.advance();
+  }
+  for (int i = blockIdx.x, s = 0; i < ntiles; i += grid) {
+    // this thread's copies of tile i have landed; past the barrier every
+    // thread's have, and no warp still reads the stage of tile i - grid,
+    // which tile i + (kStages - 1) grid now takes
+    stem::copies_wait<kConvStages - 2>();
+    __syncthreads();
+    const int s_ahead = s == 0 ? kConvStages - 1 : s - 1;
+    if (i + (kConvStages - 1) * grid < ntiles)
+      copies.start(stages[s_ahead], x, ahead.b, ahead.ty * kConvRows,
+                   ahead.tx * kConvCols);
+    stem::copies_commit();
+    ahead.advance();
+
+    const float* halo = stages[s];
+    const int py0 = tile.ty * kConvRows, px0 = tile.tx * kConvCols;
 #pragma unroll
-      for (int p = 0; p < kPhases; ++p) dst[p * kGroups + q] = pack8(yv[p]);
+    for (int q = 0; q < kConvGroups / kWarps; ++q) {
+      const int grp = warp + q * kWarps;
+      const int pr = grp / 2, half = grp % 2;
+      // the group's first pooled pixel; the tests hold for the whole warp
+      const int py = py0 + pr, px = px0 + 8 * half;
+      if (py >= Hp || px >= Wp) continue;
+      const uint32_t valid = px + g < Wp ? ~0u : 0u;
+      const float* group = halo + 2 * pr * kS + 48 * half;
+      // the buffer is free once the warp's last bulk copy has read it
+      if (lane == 0) bulk_wait_read();
+      __syncwarp();
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy) {
+        float acc[4][4];
+        if (dy == 0)
+          stem::conv_row<0>(acc, group, gl, bw);
+        else
+          stem::conv_row<1>(acc, group, gl, bw);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const uint32_t v0 = stem::pack2(acc[n][0], acc[n][1]) & valid;
+          const uint32_t v1 = stem::pack2(acc[n][2], acc[n][3]) & valid;
+          const int c = 32 * dy + 4 * n;
+          rg0[c] = v0;
+          rg1[c] = v1;
+          add_pair(s1, s2, 2 * n, v0);
+          add_pair(s1, s2, 2 * n, v1);
+        }
+      }
+      // every lane's writes reach the async proxy; then one lane copies the
+      // group's pixels up to the last pooled column
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        const int npix = Wp - px < 8 ? Wp - px : 8;
+        bulk_store_evict_first(
+            y + (((long long)tile.b * Hp + py) * Wp + px) * 2 * kPixWords,
+            regroup[warp], npix * 4 * kPixWords);
+      }
     }
+    s = s == kConvStages - 1 ? 0 : s + 1;
+    tile.advance();
+  }
+  stem::copies_wait<0>();
+  if (lane == 0) bulk_wait();
+
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int off = 4; off < 32; off *= 2) {
+      s1[j] = __fadd_rn(s1[j], __shfl_xor_sync(0xffffffffu, s1[j], off));
+      s2[j] = __fadd_rn(s2[j], __shfl_xor_sync(0xffffffffu, s2[j], off));
+    }
+  }
+  if (g == 0) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-      for (int p = 0; p < kPhases; ++p) {
-        s1 = __fadd_rn(s1, yv[p][j]);
-        s2 = __fadd_rn(s2, __fmul_rn(yv[p][j], yv[p][j]));
-      }
-      s1 = warp_sum(s1);
-      s2 = warp_sum(s2);
-      if (lane == 0) {
-        red[warp][0][q * 8 + j] = s1;
-        red[warp][1][q * 8 + j] = s2;
-      }
+      const int co = 8 * (j / 2) + 2 * t + j % 2;
+      red[warp][0][co] = s1[j];
+      red[warp][1][co] = s2[j];
     }
   }
   __syncthreads();
   if (threadIdx.x < 2 * kCout) {
     const int k = threadIdx.x / kCout, o = threadIdx.x % kCout;
-    float s = 0.0f;
-    for (int v = 0; v < kWarps; ++v) s = __fadd_rn(s, red[v][k][o]);
-    partials[(long long)blockIdx.x * 2 * kCout + threadIdx.x] = s;
+    float sum = 0.0f;
+    for (int v = 0; v < kWarps; ++v) sum = __fadd_rn(sum, red[v][k][o]);
+    partials[(long long)blockIdx.x * 2 * kCout + threadIdx.x] = sum;
   }
 }
 
@@ -380,7 +521,6 @@ constexpr int kTilePix = kTileRows * kTileCols;  // 32 pooled pixels
 constexpr int kTileK = kTilePix * kPhases;       // 128 conv pixels
 constexpr int kLd = 40;                          // sA, sB row stride, bf16
 constexpr int kHaloRows = 2 * kTileRows + 2;     // 6 image rows
-constexpr int kHaloWords = (2 * kTileCols + 2) * kCin;   // 102 f32 a row
 constexpr int kHaloStride = 112;   // words: = 16 mod 32, so a warp's two
                                    // conv rows read distinct banks
 constexpr int kOut = kTaps * kCout;              // 864
@@ -464,63 +604,21 @@ __device__ __forceinline__ void to4(const float4& f, float (&out)[4]) {
   out[3] = f.w;
 }
 
-// The tiles a block walks: t = blockIdx.x, + gridDim.x, ..., as (image b,
-// tile row ty, tile column tx), advanced without a division.
-struct TileCursor {
-  int b, ty, tx, step_b, step_y, step_x, tiles_y, tiles_x;
-
-  __device__ TileCursor(int t, int tiles_y_, int tiles_x_)
-      : tiles_y(tiles_y_), tiles_x(tiles_x_) {
-    tx = t % tiles_x;
-    ty = t / tiles_x % tiles_y;
-    b = t / tiles_x / tiles_y;
-    step_x = gridDim.x % tiles_x;
-    step_y = gridDim.x / tiles_x % tiles_y;
-    step_b = gridDim.x / tiles_x / tiles_y;
-  }
-
-  __device__ __forceinline__ int py0() const { return ty * kTileRows; }
-  __device__ __forceinline__ int px0() const { return tx * kTileCols; }
-
-  __device__ __forceinline__ void advance() {
-    tx += step_x;
-    const int cx = tx >= tiles_x;
-    tx -= cx ? tiles_x : 0;
-    ty += step_y + cx;
-    const int cy = ty >= tiles_y;
-    ty -= cy ? tiles_y : 0;
-    b += step_b + cy;
-  }
-};
-
 // This thread's copies of a tile, their offsets fixed for the kernel: y's
 // chunk `sub` of pooled column c in both tile rows; one chunk of g
-// (threads < 128); the halo's rows.  y's pixels sit 256 B apart with their
-// 16-byte chunks XOR-swizzled by the pixel's parity, so that the two
-// pixels of a half-warp's 8-byte reads fall in distinct banks.
-//
-// The halo: when W is a multiple of 4 (kWide), a row of (B, H, W, 3) f32
-// starts on a 16-byte boundary, so the 102 words of a halo row, which
-// start one word past one, are covered by 26 16-byte chunks, each wholly
-// inside or outside the image row: 156 copies of 16 bytes, the word
-// (column, channel) at 1 + 3 column + channel of the staged row.
-// Otherwise 612 copies of 4 bytes, the word at 3 column + channel.
+// (threads < 128); the x halo's rows (stem::HaloCopies at K6's row stride,
+// the word (column, channel) at kLead + 3 column + channel of a staged
+// row).  y's pixels sit 256 B apart with their 16-byte chunks XOR-swizzled
+// by the pixel's parity, so that the two pixels of a half-warp's 8-byte
+// reads fall in distinct banks.
 template <bool kWide>
 struct TileCopies {
-  static constexpr int kChunks = kWide ? 26 : kHaloWords;   // a halo row
-  static constexpr int kChunkWords = kWide ? 4 : 1;
-  static constexpr int kLead = kWide ? 1 : 0;   // staged word of column 0
-  static constexpr int kHaloCopies =
-      (kHaloRows * kChunks + kThreads - 1) / kThreads;   // 1 or 3
-  static_assert(kChunks * kChunkWords >= kLead + kHaloWords &&
-                    kChunks * kChunkWords <= kHaloStride,
-                "the chunks cover a halo row and fit in a staged one");
-  int H, W, Hp, Wp;
+  using Halo = stem::HaloCopies<kWide, kTileRows, kThreads, kHaloStride>;
+  int Hp, Wp;
   int c, y_dst, y_off, g_r, g_c, g_dst, g_off;
-  int h_row[kHaloCopies], h_word[kHaloCopies], h_dst[kHaloCopies],
-      h_off[kHaloCopies];
+  Halo halo;
 
-  __device__ TileCopies(int H_, int W_) : H(H_), W(W_), Hp(H_ / 2), Wp(W_ / 2) {
+  __device__ TileCopies(int H, int W) : Hp(H / 2), Wp(W / 2), halo(H, W) {
     const int t = threadIdx.x;
     c = t / 16 % kTileCols;
     const int sub = t % 16;
@@ -531,16 +629,6 @@ struct TileCopies {
     g_c = jp % kTileCols;
     g_dst = kStageY + jp * 64 + t % 4 * 16;
     g_off = (g_r * Wp + g_c) * 4 + t % 4;
-#pragma unroll
-    for (int q = 0; q < kHaloCopies; ++q) {
-      // the last threads take the halo, the first ones g
-      const int i = kThreads - 1 - t + q * kThreads;
-      const int ch = i % kChunks;
-      h_row[q] = i < kHaloRows * kChunks ? i / kChunks : -1;
-      h_word[q] = ch * kChunkWords - kLead;   // from column 0, channel 0
-      h_dst[q] = h_row[q] * kHaloStride + ch * kChunkWords;
-      h_off[q] = h_row[q] * W * kCin + h_word[q];
-    }
   }
 
   // Starts the copies of the tile at (b, py0, px0) into `stage`; zeros
@@ -564,20 +652,8 @@ struct TileCopies {
       const bool in = px0 + g_c < Wp && py0 + g_r < Hp;
       copy16(stage + g_dst, gs + (in ? base * 4 + g_off : 0), in);
     }
-    float* halo = reinterpret_cast<float*>(stage + kStageY + kStageG);
-    // word 0 of the halo's first row: (2 py0 - 1, 2 px0 - 1, channel 0)
-    const int w0 = (2 * px0 - 1) * kCin;
-    const long long xb = ((long long)b * H + 2 * py0 - 1) * W * kCin + w0;
-#pragma unroll
-    for (int q = 0; q < kHaloCopies; ++q) {
-      if (h_row[q] < 0) continue;
-      const bool in = (unsigned)(2 * py0 - 1 + h_row[q]) < (unsigned)H &&
-                      (unsigned)(w0 + h_word[q]) < (unsigned)(W * kCin);
-      if (kWide)
-        copy16(halo + h_dst[q], x + (in ? xb + h_off[q] : 0), in);
-      else
-        copy4(halo + h_dst[q], x + (in ? xb + h_off[q] : 0), in);
-    }
+    halo.start(reinterpret_cast<float*>(stage + kStageY + kStageG), x, b, py0,
+               px0);
   }
 };
 
@@ -644,21 +720,23 @@ stem_bwd_dw_kernel(const __nv_bfloat16* __restrict__ y,
       sB + (k0 + lane / 8 % 2 * 8 + lane % 8) * kLd + 16 * tj + lane / 16 * 8;
   float acc[2][4] = {};   // the two 16 x 8 halves of the warp's output tile
 
-  TileCursor tile(blockIdx.x, tiles_y, tiles_x), next = tile;
+  stem::TileWalk tile(blockIdx.x, tiles_y, tiles_x), next = tile;
   if ((int)blockIdx.x < ntiles)
-    copies.start(stages, y, g, x, tile.b, tile.py0(), tile.px0());
+    copies.start(stages, y, g, x, tile.b, tile.ty * kTileRows,
+                 tile.tx * kTileCols);
   copies_commit();
   for (int t = blockIdx.x, s = 0; t < ntiles;
        t += gridDim.x, s ^= 1, tile = next) {
     next.advance();
-    if (t + (int)gridDim.x < ntiles)   // the other stage was read before
+    // the other stage was read before the last barrier
+    if (t + (int)gridDim.x < ntiles)
       copies.start(stages + (s ^ 1) * kStageBytes, y, g, x, next.b,
-                   next.py0(), next.px0());     // the last barrier
+                   next.ty * kTileRows, next.tx * kTileCols);
     copies_commit();
     copies_wait<1>();      // this thread's copies of tile t have landed,
     __syncthreads();       // and every thread's
     const unsigned char* stage = stages + s * kStageBytes;
-    const int py0 = tile.py0(), px0 = tile.px0();
+    const int py0 = tile.ty * kTileRows, px0 = tile.tx * kTileCols;
 
     {  // dy -> sB
       const bool valid = py0 + jp / kTileCols < Hp &&
@@ -691,7 +769,7 @@ stem_bwd_dw_kernel(const __nv_bfloat16* __restrict__ y,
       const float* src = reinterpret_cast<const float*>(
                              stage + kStageY + kStageG) +
                          cy * kHaloStride + cx * kCin +
-                         TileCopies<kWide>::kLead;
+                         TileCopies<kWide>::Halo::kLead;
       if (half == 0)
         im2col_half<0>(src, sA + k * kLd);
       else
@@ -756,10 +834,15 @@ int reduce(const float* partials, float* out, int P, int M,
 // Plain C entry points for ctypes.  Each launches on `stream` and returns
 // cudaGetLastError() (0 = launched); the wrappers check every argument.
 
-// Blocks of K3 (= the rows of its partials) for a (B, H, W) image.
+// Blocks of K3 (= the rows of its partials) for a (B, H, W) image: one per
+// tile up to kConvBlocksPerSm on each of the H100's 132 SMs (the walk is
+// right for any grid, so another card only loses balance).
 extern "C" long long stem_conv_stats_blocks(int B, int H, int W) {
-  const long long n = (long long)B * (H / 2) * (W / 2);
-  return (n + kThreads - 1) / kThreads;
+  const long long tiles = (long long)B *
+                          ((H / 2 + kConvRows - 1) / kConvRows) *
+                          ((W / 2 + kConvCols - 1) / kConvCols);
+  const long long most = 132 * kConvBlocksPerSm;
+  return tiles < most ? tiles : most;
 }
 
 // x (B, H, W, 3) f32, w (32, 3, 3, 3) f32 -> y (B, H/2, W/2, 4, 32) bf16 and
@@ -770,7 +853,11 @@ extern "C" int stem_conv_stats_launch(const float* x, const float* w, void* y,
   const long long blocks = stem_conv_stats_blocks(B, H, W);
   if (blocks == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  stem_conv_stats_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
+  // 16-byte halo copies when every image row starts 16-byte aligned
+  const bool wide = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto kernel =
+      wide ? stem_conv_stats_kernel<true> : stem_conv_stats_kernel<false>;
+  kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
       x, w, reinterpret_cast<__nv_bfloat16*>(y), partials, B, H, W);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;

@@ -14,8 +14,9 @@ exactly equal (its tensor cores sum the conv in another order than
 other way); the max corner confidence rtol 1e-5, atol 1e-6, with the
 same cells above the 0.6 silencing threshold.  The train stem's kernels
 (K3–K6) and their plain versions use the same formulas with f32 sums in
-another order: y and pooled as the serving stem; the sums of K3 and K5
-rel 1e-5 of max|ref|; K6's dW rel 1e-4 of max|ref|.
+another order: y and pooled as the serving stem (K3 runs the serving
+stem's tensor-core conv); the sums of K3 and K5 rel 1e-5 of max|ref|; K6's
+dW rel 1e-4 of max|ref|.
 """
 
 import pytest
@@ -248,10 +249,12 @@ def _glue(sums, n, scale, bias):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,W", [(2, 32, 64), (8, 416, 416), (8, 832, 832),
-                                   (3, 34, 70)])
+                                   (3, 34, 70), (2, 36, 40)])
 def test_train_stem_kernels_match_plain_versions(dev, B, H, W):
     """(3, 34, 70): a pooled grid of 17 x 35, odd and not a multiple of K6's
-    2 x 16 tiles, so every edge tile is ragged."""
+    2 x 16 tiles, so every edge tile is ragged; K3 takes its 4-byte halo
+    copies (W % 4 != 0).  (2, 36, 40): 18 x 20, no multiple of K3's 8 x 16
+    tiles in either dimension, with K3's 16-byte copies."""
     img, w, scale, bias = _stem_inputs(dev, B, H, W, seed=B + H)
     n = torch.full((), float(B * H * W), device=dev)
     before = [stem.stem_conv_stats.launches, stem.stem_bn_pool.launches,
@@ -283,9 +286,41 @@ def test_train_stem_kernels_match_plain_versions(dev, B, H, W):
              stem.stem_bwd_sums.launches, stem.stem_bwd_dw.launches]
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
     # the same bits from run to run: no float atomics in the sums
-    assert torch.equal(stem.stem_conv_stats(img, w)[1], sums)
+    y2, sums2 = stem.stem_conv_stats(img, w)
+    assert torch.equal(y2, y) and torch.equal(sums2, sums)
     assert torch.equal(stem.stem_bwd_dw(y_ref, g, img, inv, shift, mean, rstd,
                                         c1, c2), dw)
+
+
+@pytest.mark.cuda
+def test_train_stem_conv_kernel_on_a_misaligned_image(dev):
+    """K3 on a contiguous view one float into its storage: W % 4 == 0, but
+    the image is not 16-byte aligned, so K3 takes its 4-byte copies."""
+    B, H, W = 2, 64, 96
+    flat = torch.rand(1 + B * H * W * 3, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(16))
+    img = flat[1:].view(B, H, W, 3)
+    assert img.is_contiguous() and img.data_ptr() % 16 != 0
+    w = _stem_inputs(dev, B, H, W, seed=17)[1]
+    y, sums = stem.stem_conv_stats(img, w)
+    y_ref, sums_ref = stem.stem_conv_stats_reference(img, w)
+    _check(y, y_ref)
+    assert _rel(sums, sums_ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_train_stem_conv_kernel_on_a_flat_image(dev):
+    """K3 on a flat image with weights on a grid of 1/64: every conv sum is
+    exact in f32, whatever its order, so y must be the plain version's bits
+    everywhere (the sums still add in another order: rel 1e-5)."""
+    B, H, W = 2, 64, 96
+    img = torch.tensor([0.25, 0.5, 0.75], device=dev).expand(B, H, W, 3) \
+        .contiguous()
+    w = torch.round(_stem_inputs(dev, B, H, W, seed=18)[1] * 64) / 64
+    y, sums = stem.stem_conv_stats(img, w)
+    y_ref, sums_ref = stem.stem_conv_stats_reference(img, w)
+    assert torch.equal(y, y_ref)
+    assert _rel(sums, sums_ref) <= 1e-5
 
 
 @pytest.mark.cuda
