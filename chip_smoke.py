@@ -17,9 +17,12 @@ and the exit code is nonzero:
      instructions (their products run on the tensor cores);
   3. kernels against plain: each kernel (K1 the serving stem, K2 the max
      corner confidence, K3–K6 the train stem) vs its plain PyTorch version
-     at the main paths' shapes (K3–K6 also at a ragged one), error and
-     time of both, and its bound; K1's and K3's share of outputs equal to
-     the plain version's and their largest difference in bf16 ulps;
+     at the main paths' shapes (K3–K6 also at a ragged one; K2 on the train
+     step's own labels, one valid slot an image, then with 1..50 at three
+     shapes), error and time of both, and its bound; K1's and K3's share of
+     outputs equal to the plain version's and their largest difference in
+     bf16 ulps; K2's share of outputs with the plain version's bits and a
+     SHA-256 of its output;
   4. model: fold BN, bf16 forward at batch 8, 672²; the stem went through
      the kernel, and the head equals the forward with the plain stem;
   5. serve: ``make_serving_fn`` behind a ``MicroBatcher`` answering 16
@@ -52,6 +55,7 @@ import argparse
 import collections
 import contextlib
 import functools
+import hashlib
 import itertools
 import json
 import os
@@ -93,8 +97,10 @@ SIZE = 672            # yolo_pose_single's test size
 MODEL_BATCH = 8
 N_FRAMES, N_CLIENTS, BUCKETS = 16, 4, (1, 2, 4, 8)
 N_POSES = 64
-# K2 (B, G, S): the batch-8 416² train step (13² cells), the 832² bucket of
-# multi-scale training (26²), the multi-object batch-32 step (13²·5 anchors)
+# K2 (B, G, S) with n uniform in 1..G valid slots an image, after the main
+# path's own row (_k2_rows): the batch-8 416² train step (13² cells), the
+# 832² bucket of multi-scale training (26²), the multi-object batch-32 step
+# (13²·5 anchors)
 K2_SHAPES = ((8, 50, 169), (8, 50, 676), (32, 50, 845))
 TRAIN_SIZE, TRAIN_BATCH = 416, 8      # yolo-pose.cfg's width and batch
 TRAIN_STEPS, OVERFIT_STEPS, UNFUSED_STEPS = 20, 30, 5
@@ -269,13 +275,54 @@ def _corners_near_gt(dev, B, G, S, gen):
     return gt, valid, pred
 
 
-def phase_k2(dev, card: str):
-    """K2 vs its plain version.  Returns the numbers of the first shape
-    (the main path's batch-8 416² train step)."""
+def _k2_rows(dev):
+    """K2's inputs, (label, gt, valid, pred) a row.  First the main path's
+    own: the batch-8 416² train step's labels, one LINEMOD object a frame
+    (:func:`_linemod_labels`, one valid slot an image, a prefix as
+    ``build_targets`` reads it), each of the 13² cells' predictions that GT
+    plus noise; then K2_SHAPES with n uniform in 1..G (seed 7)."""
+    lab = torch.from_numpy(_linemod_labels(np.random.RandomState(16),
+                                           TRAIN_BATCH)).to(dev)
+    gt = lab[:, :, 1:19].contiguous()
+    valid = torch.cumprod((lab[:, :, 1] != 0).to(torch.int32), dim=1).bool()
+    S = (TRAIN_SIZE // 32) ** 2
+    g = torch.Generator(device=dev).manual_seed(17)
+    pred = gt[:, :1] + torch.randn((TRAIN_BATCH, S, 18), generator=g,
+                                   device=dev) * 0.03
+    rows = [("one slot an image", gt, valid, pred)]
     g = torch.Generator(device=dev).manual_seed(7)
-    result = None
     for B, G, S in K2_SHAPES:
-        gt, valid, pred = _corners_near_gt(dev, B, G, S, g)
+        rows.append(("n uniform in 1..G", *_corners_near_gt(dev, B, G, S, g)))
+    return rows
+
+
+def _k2_bound(gt, valid, pred, out) -> dict:
+    """K2's bound: ~16 f32 operations per (valid slot, cell, keypoint) —
+    the distance, its test, the confidence and the running sum — over
+    this run's valid slots, against its inputs' and output's bytes."""
+    flops = 16 * 9 * pred.shape[1] * float(valid.sum())
+    return _bound(_nbytes(gt, valid, pred, out), flops, F32_FLOPS)
+
+
+def phase_k2(dev, card: str):
+    """K2 vs its plain version on :func:`_k2_rows`: error, the silenced-cell
+    mask, the share of outputs with the plain version's bits, a SHA-256 of
+    the output's bytes (the same seed gives the same inputs in any tree, so
+    two trees' kernels compare by it), kernel and plain ms and the bound.
+    Returns the numbers of the first row (the main path's).  First, the
+    kernel's branch-free arithmetic against IEEE sqrtf and __fdiv_rn over
+    all 2^31 non-negative squared distances, at the defaults (th 80,
+    sharpness 2): no mismatch."""
+    t0 = time.perf_counter()
+    mismatches = mcc.arithmetic_mismatches(device=dev)
+    print(f"[kernel] K2 arithmetic at th 80, sharpness 2: {mismatches} of "
+          f"2^31 squared distances give other bits than IEEE sqrtf and "
+          f"__fdiv_rn ({time.perf_counter() - t0:.3f} s)")
+    _check(mismatches == 0, "K2's arithmetic departs from IEEE")
+    result = None
+    for label, gt, valid, pred in _k2_rows(dev):
+        B, G, _ = gt.shape
+        S = pred.shape[1]
         got = mcc.max_corner_confidence(gt, valid, pred)
         ref = mcc.max_corner_confidence_reference(gt, valid, pred)
         torch.cuda.synchronize()
@@ -284,23 +331,25 @@ def phase_k2(dev, card: str):
         within = bool((d <= 1e-6 + 1e-5 * ref.abs()).all())
         same_mask = bool(torch.equal(got > 0.6, ref > 0.6))
         spread = float(((ref > 0.05) & (ref < 0.95)).float().mean())
+        exact = float((got == ref).float().mean())
+        sha = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
         ms = _time_ms(lambda: mcc.max_corner_confidence(gt, valid, pred))
         plain_ms = _time_ms(
             lambda: mcc.max_corner_confidence_reference(gt, valid, pred))
-        print(f"[kernel] K2 ({B},{G},{S}): max|d|={max_d:.6g} (rtol 1e-5, "
-              f"atol 1e-6: {within}), silenced-cell mask (> 0.6) equal: "
-              f"{same_mask}, {float((ref > 0.6).float().mean()):.4f} of cells "
-              f"silenced, {spread:.4f} in (0.05, 0.95); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms [{card}]")
+        bound = _k2_bound(gt, valid, pred, got)
+        print(f"[kernel] K2 ({B},{G},{S}) {label}, {int(valid.sum())} valid "
+              f"slots: max|d|={max_d:.6g} (rtol 1e-5, atol 1e-6: {within}), "
+              f"silenced-cell mask (> 0.6) equal: {same_mask}, "
+              f"{float((ref > 0.6).float().mean()):.4f} of cells silenced, "
+              f"{spread:.4f} in (0.05, 0.95), {exact:.6%} with the plain "
+              f"version's bits; output sha256 {sha}; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms; bound {bound['bound_ms'] * 1e3:.4f} "
+              f"µs ({bound['bound_by']}) [{card}]")
         _check(within, f"K2 off its plain version by {max_d}")
         _check(same_mask, "K2 silences other cells than its plain version")
         if result is None:
-            # ~16 f32 operations per (valid slot, cell, keypoint): the
-            # distance, its test, the confidence and the running sum
-            flops = 16 * 9 * S * float(valid.sum())
             result = {"max_abs_err": max_d, "ms": ms, "plain_ms": plain_ms,
-                      **_bound(_nbytes(gt, valid, pred, got), flops,
-                               F32_FLOPS)}
+                      **bound}
     return result
 
 
@@ -577,28 +626,35 @@ def phase_pose(dev, served: np.ndarray) -> None:
     _check(finite, "metrics on the served boxes are not finite")
 
 
+def _linemod_labels(rng, batch: int) -> np.ndarray:
+    """Padded labels (batch, 50, 21): one object per frame, its 9 keypoints
+    projected from a pose drawn from ``rng`` with the LINEMOD camera,
+    normalized by 640×480; the other 49 slots empty."""
+    pts, _, _ = _box_points()
+    Rs = so3_exp(torch.from_numpy(rng.randn(batch, 3) * 0.8)).numpy()
+    ts = np.stack([rng.uniform(-0.1, 0.1, batch),
+                   rng.uniform(-0.1, 0.1, batch),
+                   rng.uniform(0.5, 1.5, batch)], axis=1)
+    cam = np.einsum("bij,nj->bni", Rs, pts.astype(np.float64)) + ts[:, None]
+    uvw = cam @ LINEMOD_K.T
+    px = uvw[..., :2] / uvw[..., 2:] / [IM_W, IM_H]              # (B, 9, 2)
+    lab = np.zeros((batch, 50, 21), np.float32)
+    lab[:, 0, 1:19] = px.reshape(batch, 18)
+    lab[:, 0, 19] = np.ptp(px[..., 0], axis=1)
+    lab[:, 0, 20] = np.ptp(px[..., 1], axis=1)
+    return lab
+
+
 def _train_batches(dev, n: int, seed: int, batch: Optional[int] = None):
     """``n`` batches of synthetic u8 frames (batch, 416, 416, 3) on the
-    card, with padded labels (batch, 50·21): one object per frame, its 9
-    keypoints projected from a seeded pose with the LINEMOD camera,
-    normalized by 640×480.  ``batch`` defaults to TRAIN_BATCH."""
+    card, with padded labels (batch, 50·21) from :func:`_linemod_labels`.
+    ``batch`` defaults to TRAIN_BATCH."""
     batch = batch or TRAIN_BATCH
     rng = np.random.RandomState(seed)
-    pts, _, _ = _box_points()
     gen = torch.Generator().manual_seed(seed)
     out = []
     for _ in range(n):
-        Rs = so3_exp(torch.from_numpy(rng.randn(batch, 3) * 0.8)).numpy()
-        ts = np.stack([rng.uniform(-0.1, 0.1, batch),
-                       rng.uniform(-0.1, 0.1, batch),
-                       rng.uniform(0.5, 1.5, batch)], axis=1)
-        cam = np.einsum("bij,nj->bni", Rs, pts.astype(np.float64)) + ts[:, None]
-        uvw = cam @ LINEMOD_K.T
-        px = uvw[..., :2] / uvw[..., 2:] / [IM_W, IM_H]          # (B, 9, 2)
-        lab = np.zeros((batch, 50, 21), np.float32)
-        lab[:, 0, 1:19] = px.reshape(batch, 18)
-        lab[:, 0, 19] = np.ptp(px[..., 0], axis=1)
-        lab[:, 0, 20] = np.ptp(px[..., 1], axis=1)
+        lab = _linemod_labels(rng, batch)
         frames = torch.randint(0, 256, (batch, TRAIN_SIZE, TRAIN_SIZE, 3),
                                generator=gen, dtype=torch.uint8)
         out.append((frames.to(dev), torch.from_numpy(
@@ -937,30 +993,36 @@ def phase_profile(spec, folded, dev, card: str, out_dir: str) -> None:
 
 
 def phase_profile_k2(dev, card: str, out_dir: str) -> None:
-    """K2 and its plain version on the device alone (``--profile``): the
-    device time per call from a trace of PROFILE_CALLS calls, beside the
-    CUDA-event time per call of phase 3, which also counts the host's work
-    when the host is the slower of the two."""
-    g = torch.Generator(device=dev).manual_seed(7)
+    """K2 and its plain version on the device alone (``--profile``), on
+    :func:`_k2_rows`: the device time per call from a trace of
+    PROFILE_CALLS calls and K2's share of its bound, beside the CUDA-event
+    time per call of phase 3, which also counts the host's work when the
+    host is the slower of the two."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     os.makedirs(out_dir, exist_ok=True)
-    for B, G, S in K2_SHAPES:
-        gt, valid, pred = _corners_near_gt(dev, B, G, S, g)
+    for i, (label, gt, valid, pred) in enumerate(_k2_rows(dev)):
+        B, G, _ = gt.shape
+        S = pred.shape[1]
         for name, fn in (("K2", mcc.max_corner_confidence),
                          ("plain", mcc.max_corner_confidence_reference)):
-            fn(gt, valid, pred)
+            out = fn(gt, valid, pred)
             torch.cuda.synchronize()
             with torch.profiler.profile(activities=acts) as prof:
                 for _ in range(PROFILE_CALLS):
                     fn(gt, valid, pred)
                 torch.cuda.synchronize()
-            path = os.path.join(out_dir, f"k2_{name}_{B}_{G}_{S}.json")
+            path = os.path.join(out_dir, f"k2_{name}_row{i}_{B}_{G}_{S}.json")
             prof.export_chrome_trace(path)
             by_family, busy = _device_time(path)
-            print(f"[profile] {name} ({B},{G},{S}): device "
-                  f"{sum(by_family.values()) / PROFILE_CALLS:.2f} µs/call in "
-                  f"kernels, busy {busy / PROFILE_CALLS:.2f} µs/call [{card}]")
+            us = sum(by_family.values()) / PROFILE_CALLS
+            bound = _k2_bound(gt, valid, pred, out)
+            share = f"{bound['bound_ms'] * 1e3 / us:.2%}" if us else \
+                "not measured"
+            print(f"[profile] {name} ({B},{G},{S}) {label}: device {us:.2f} "
+                  f"µs/call in kernels, busy {busy / PROFILE_CALLS:.2f} "
+                  f"µs/call; bound {bound['bound_ms'] * 1e3:.4f} µs "
+                  f"({bound['bound_by']}), {share} of it [{card}]")
 
 
 def _profile(fn, calls: int, path: str):

@@ -7,7 +7,9 @@ the valid ground-truth slots of the mean keypoint confidence
 
 On a CUDA tensor :func:`max_corner_confidence` launches the hand-written
 Hopper kernel in ``csrc/max_corner_confidence.cu``, which never writes the
-(B, G, S) confidences to memory; on a CPU tensor it runs
+(B, G, S) confidences to memory and packs the image's valid (slot, cell)
+pairs onto its threads, so its cost follows the valid slots, not G; on a
+CPU tensor it runs
 :func:`max_corner_confidence_reference`, the plain PyTorch form that
 ``build_targets`` uses off a TPU (``singleshotpose_tpu/ops/targets.py:113-117``).
 There is no fallback from the one to the other: a CUDA tensor runs the
@@ -24,7 +26,8 @@ import torch
 from . import cuda_build
 from .confidence import confidence_denominator, corner_confidences
 
-__all__ = ["max_corner_confidence", "max_corner_confidence_reference"]
+__all__ = ["max_corner_confidence", "max_corner_confidence_reference",
+           "arithmetic_mismatches"]
 
 _SOURCE = "max_corner_confidence"    # csrc/max_corner_confidence.cu
 _KERNEL_K = 9                        # the keypoint count the kernel is built for
@@ -55,9 +58,12 @@ def max_corner_confidence_reference(gt_corners: torch.Tensor,
                                     im_width: float = 640.0,
                                     im_height: float = 480.0) -> torch.Tensor:
     """Plain PyTorch version: :func:`corner_confidences` over every
-    (slot, cell) pair, (B, G, S), masked by ``valid``, then the max over G.
-    The value the kernel must reproduce."""
+    (slot, cell) pair, (B, G, S), masked by ``valid``, then the max over G,
+    which starts at 0 (so G = 0 gives zeros).  The value the kernel must
+    reproduce."""
     _check_args(gt_corners, valid, pred_corners)
+    if gt_corners.shape[1] == 0:
+        return gt_corners.new_zeros(pred_corners.shape[:2])
     confs = corner_confidences(gt_corners[:, :, None, :],
                                pred_corners[:, None, :, :], th=th,
                                sharpness=sharpness, im_width=im_width,
@@ -73,7 +79,33 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
         + [ctypes.c_float] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    check = lib.max_corner_confidence_check
+    check.argtypes = [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2
+    check.restype = ctypes.c_int
     return lib
+
+
+def arithmetic_mismatches(*, th: float = 80.0, sharpness: float = 2.0,
+                          device="cuda") -> int:
+    """The kernel's branch-free sqrt and divisions against IEEE ``sqrtf``
+    and ``__fdiv_rn``, on the card: of all 2^31 non-negative floats x, the
+    number whose keypoint confidence at squared distance x differs in any
+    bit between the two forms.  0 proves that, for this (th, sharpness),
+    the kernel gives the bits of the IEEE form.  Raises ``ValueError``
+    where th or the denominator lies outside [2^-20, 2^20]: the kernel then
+    runs the IEEE form itself."""
+    count = torch.zeros((), dtype=torch.int64, device=device)
+    with torch.cuda.device(count.device):
+        err = _library().max_corner_confidence_check(
+            th, sharpness, confidence_denominator(sharpness),
+            count.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err == 1:                                  # cudaErrorInvalidValue
+        raise ValueError(f"th {th} or the denominator of sharpness "
+                         f"{sharpness} lies outside [2^-20, 2^20]")
+    if err != 0:
+        raise RuntimeError(f"max_corner_confidence_check launch failed: "
+                           f"CUDA error {err}")
+    return int(count)
 
 
 def max_corner_confidence(gt_corners: torch.Tensor, valid: torch.Tensor,

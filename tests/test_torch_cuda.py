@@ -19,6 +19,7 @@ stem's tensor-core conv); the sums of K3 and K5 rel 1e-5 of max|ref|; K6's
 dW rel 1e-4 of max|ref|.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -31,7 +32,7 @@ from singleshotpose_tpu_torch.ops.targets import build_targets
 from singleshotpose_tpu_torch.training import init_train_state, make_train_step
 from singleshotpose_tpu_torch.ops.losses import RegionLossConfig
 
-from torch_port_helpers import TINY_BLOCKS
+from torch_port_helpers import K2_PATTERNS, TINY_BLOCKS, k2_inputs, k2_valid
 
 
 @pytest.fixture
@@ -176,8 +177,7 @@ def test_max_corner_confidence_kernel_matches_plain_version(dev, B, G, S):
     torch.cuda.synchronize()
     assert mcc.max_corner_confidence.launches == before + 1
     assert got.shape == (B, S) and got.dtype == torch.float32
-    ref = mcc.max_corner_confidence_reference(gt, valid, pred) if G else \
-        torch.zeros((B, S), device=dev)
+    ref = mcc.max_corner_confidence_reference(gt, valid, pred)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
     assert torch.equal(got > 0.6, ref > 0.6)
     none = mcc.max_corner_confidence(gt, torch.zeros_like(valid), pred)
@@ -185,6 +185,104 @@ def test_max_corner_confidence_kernel_matches_plain_version(dev, B, G, S):
     # a float validity takes the same path
     torch.testing.assert_close(
         mcc.max_corner_confidence(gt, valid.float(), pred), got, rtol=0, atol=0)
+
+
+def _k2_case(dev, pattern, B, G, S, seed):
+    """A pattern of tests/torch_port_helpers.py's K2_PATTERNS and its
+    inputs, on the card: (gt, valid, pred)."""
+    rng = np.random.RandomState(seed)
+    valid = k2_valid(pattern, B, G, rng)
+    gt, pred = k2_inputs(valid, S, rng)
+    return (torch.from_numpy(gt).to(dev), torch.from_numpy(valid).to(dev),
+            torch.from_numpy(pred).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,S", [(8, 50, 169), (2, 50, 676), (2, 300, 169),
+                                   (2, 600, 40), (3, 257, 7)])
+@pytest.mark.parametrize("pattern", K2_PATTERNS)
+def test_max_corner_confidence_kernel_on_valid_patterns(dev, pattern, B, G, S):
+    """The patterns the kernel packs differently (1, 8, all slots, no
+    prefix, an image with none), also past 256 slots, where the kernel takes
+    the flags in rounds of 256 and n > 256 gives one cell a block."""
+    gt, valid, pred = _k2_case(dev, pattern, B, G, S, seed=B * S + G)
+    got = mcc.max_corner_confidence(gt, valid, pred)
+    ref = mcc.max_corner_confidence_reference(gt, valid, pred)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got > 0.6, ref > 0.6)
+    assert not got[~valid.any(1)].any()
+    assert (got > 0.6).any()
+
+
+@pytest.mark.cuda
+def test_max_corner_confidence_kernel_packing_keeps_each_pairs_bits(dev):
+    """The max over all slots equals the max of the one-slot outputs, bit
+    for bit: a pair's mean does not depend on how many pairs share the
+    block."""
+    gt, valid, pred = _k2_case(dev, "all", 4, 50, 169, seed=9)
+    got = mcc.max_corner_confidence(gt, valid, pred)
+    one = torch.eye(50, dtype=torch.bool, device=dev)
+    each = torch.stack([mcc.max_corner_confidence(
+        gt, one[k].expand(4, 50).contiguous(), pred) for k in range(50)])
+    assert torch.equal(got, each.amax(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["at", "inside"])
+def test_max_corner_confidence_kernel_at_the_80px_threshold(dev, where):
+    """x 80 px from the GT at every keypoint (c = 0) or one ulp closer."""
+    gt = torch.full((1, 2, 18), 0.5, device=dev)
+    px = torch.tensor(0.375)
+    if where == "inside":
+        px = torch.nextafter(px, torch.tensor(1.0))
+    pred = torch.full((1, 2, 18), 0.5, device=dev)
+    pred[0, 0, 0::2] = px.to(dev)
+    valid = torch.tensor([[True, False]], device=dev)
+    got = mcc.max_corner_confidence(gt, valid, pred)
+    ref = mcc.max_corner_confidence_reference(gt, valid, pred)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+    assert (got[0, 0] == 0) if where == "at" else (0 < got[0, 0] < 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("th,sharpness", [(80.0, 2.0), (40.0, 1.0),
+                                          (120.0, 3.0)])
+def test_max_corner_confidence_arithmetic_holds_to_ieee(dev, th, sharpness):
+    """The kernel's branch-free sqrt and divisions give the bits of IEEE
+    sqrtf and __fdiv_rn at every one of the 2^31 non-negative squared
+    distances."""
+    assert mcc.arithmetic_mismatches(th=th, sharpness=sharpness,
+                                     device=dev) == 0
+
+
+@pytest.mark.cuda
+def test_max_corner_confidence_kernel_out_of_range_runs_ieee(dev):
+    """th = 2^21 lies outside the in-range instance's [2^-20, 2^20]: the
+    launcher runs the IEEE one, which the check refuses to compare."""
+    with pytest.raises(ValueError):
+        mcc.arithmetic_mismatches(th=2.0 ** 21, device=dev)
+    gt, valid, pred = _k2_case(dev, "scattered", 2, 50, 169, seed=12)
+    kw = dict(th=2.0 ** 21, im_width=2.0 ** 24, im_height=2.0 ** 24)
+    got = mcc.max_corner_confidence(gt, valid, pred, **kw)
+    ref = mcc.max_corner_confidence_reference(gt, valid, pred, **kw)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+    assert (got > 0.6).any()
+
+
+@pytest.mark.cuda
+def test_max_corner_confidence_kernel_with_two_slots_tied(dev):
+    valid = np.zeros((2, 8), bool)
+    valid[:, [2, 5]] = True                 # slots 2 and 5, holding one GT
+    gt, pred = k2_inputs(valid, 40, np.random.RandomState(3))
+    gt[:, 5] = gt[:, 2]
+    gt, valid, pred = (torch.from_numpy(a).to(dev) for a in (gt, valid, pred))
+    one = valid.clone()
+    one[:, 5] = False
+    got = mcc.max_corner_confidence(gt, valid, pred)
+    assert torch.equal(got, mcc.max_corner_confidence(gt, one, pred))
+    torch.testing.assert_close(
+        got, mcc.max_corner_confidence_reference(gt, valid, pred), rtol=1e-5,
+        atol=1e-6)
 
 
 @pytest.mark.cuda

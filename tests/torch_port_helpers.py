@@ -72,6 +72,43 @@ def jax_params(spec, seed=0):
     return params, stats
 
 
+# K2's valid-slot patterns: one slot (single-object LINEMOD), eight (about
+# an OCCLUSION frame), all of them, a scattered mask that is no prefix, and
+# one image with none beside full ones
+K2_PATTERNS = ["prefix1", "prefix8", "all", "scattered", "one_empty"]
+
+
+def k2_valid(pattern, B, G, rng):
+    """(B, G) bool slot validity of one of K2_PATTERNS."""
+    valid = np.zeros((B, G), bool)
+    if pattern.startswith("prefix"):
+        valid[:, :int(pattern[len("prefix"):])] = True
+    elif pattern == "all":
+        valid[:] = True
+    elif pattern == "scattered":
+        valid = rng.rand(B, G) < 0.3
+        valid[:, 0] = False                 # no prefix: slot 0 always empty
+        valid[:, 37 % G] = True
+    else:                                   # one_empty
+        valid[1:] = True
+    return valid
+
+
+def k2_inputs(valid, S, rng, K=9):
+    """f32 GT slots (B, G, 2K) and predictions (B, S, 2K) near one valid
+    slot of each cell's image (any slot where the image has none), so the
+    max spreads over (0, 1)."""
+    B, G = valid.shape
+    gt = rng.uniform(0.1, 0.9, (B, G, 2 * K)).astype(np.float32)
+    pick = np.empty((B, S), np.int64)
+    for b in range(B):
+        slots = np.flatnonzero(valid[b]) if valid[b].any() else np.arange(G)
+        pick[b] = rng.choice(slots, S)
+    near = gt[np.arange(B)[:, None], pick]
+    pred = (near + rng.randn(B, S, 2 * K) * 0.03).astype(np.float32)
+    return gt, pred
+
+
 def rel_err(got, ref):
     got = np.asarray(got, np.float32)
     ref = np.asarray(ref, np.float32)
