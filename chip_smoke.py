@@ -18,7 +18,8 @@ and the exit code is nonzero:
   3. kernels against plain: each kernel (K1 the serving stem, K2 the max
      corner confidence, K3–K6 the train stem) vs its plain PyTorch version
      at the main paths' shapes (K3–K6 also at a ragged one; K2 on the train
-     step's own labels, one valid slot an image, then with 1..50 at three
+     step's own labels, one valid slot an image, on eight valid slots an
+     image at the multi-object step's shape, then with 1..50 at three
      shapes), error and time of both, and its bound; K1's and K3's share of
      outputs equal to the plain version's and their largest difference in
      bf16 ulps; K2's share of outputs with the plain version's bits and a
@@ -32,8 +33,10 @@ and the exit code is nonzero:
   7. train: ``make_train_step`` at batch 8, 416², bf16, with the fused
      train stem resolved as ``drivers.run_training`` resolves it (on, on a
      card), 20 steps on synthetic frames with labels projected from seeded
-     poses; K2–K6 each ran once per step, the loss equals the loss with the
-     plain reduction and the loss through the unfused forward; 5 unfused
+     poses; K2–K6 each ran once per step; K2 on the inputs the last step
+     gave it against its plain version, as in phase 3; the loss equals the
+     loss with the plain reduction and the loss through the unfused
+     forward; 5 unfused
      steps (the stem's plain PyTorch path, no K3–K6); the fused and the
      unfused step timed in turns; one fixed batch overfits in 30 fused
      steps;
@@ -98,10 +101,13 @@ MODEL_BATCH = 8
 N_FRAMES, N_CLIENTS, BUCKETS = 16, 4, (1, 2, 4, 8)
 N_POSES = 64
 # K2 (B, G, S) with n uniform in 1..G valid slots an image, after the main
-# path's own row (_k2_rows): the batch-8 416² train step (13² cells), the
-# 832² bucket of multi-scale training (26²), the multi-object batch-32 step
-# (13²·5 anchors)
+# path's own row and the multi-object row (_k2_rows): the batch-8 416² train
+# step (13² cells), the 832² bucket of multi-scale training (26²), the
+# multi-object batch-32 step (13²·5 anchors)
 K2_SHAPES = ((8, 50, 169), (8, 50, 676), (32, 50, 845))
+# a multi-object frame's valid slots: its base object and the seven
+# companions of singleshotpose_tpu/data/synth_multi.py:ADD_OBJS
+MULTI_SLOTS = 8
 TRAIN_SIZE, TRAIN_BATCH = 416, 8      # yolo-pose.cfg's width and batch
 TRAIN_STEPS, OVERFIT_STEPS, UNFUSED_STEPS = 20, 30, 5
 # K3-K6 (B, H, W): the batch-8 416² train step, the 832² bucket (the
@@ -262,12 +268,13 @@ def phase_kernel(dev, card: str):
     return result
 
 
-def _corners_near_gt(dev, B, G, S, gen):
+def _corners_near_gt(dev, B, G, S, gen, n: Optional[int] = None):
     """GT slots (the first ``n`` of each image valid, as the break rule
-    reads them) and per-cell predictions = a slot's GT + noise, so the
-    confidences spread over (0, 1)."""
+    reads them; ``n`` uniform in 1..G where None) and per-cell predictions
+    = a slot's GT + noise, so the confidences spread over (0, 1)."""
     gt = torch.rand((B, G, 18), generator=gen, device=dev) * 0.8 + 0.1
-    n = torch.randint(1, G + 1, (B, 1), generator=gen, device=dev)
+    n = torch.randint(1, G + 1, (B, 1), generator=gen, device=dev) \
+        if n is None else torch.full((B, 1), n, device=dev)
     valid = torch.arange(G, device=dev)[None, :] < n
     pick = torch.randint(0, G, (B, S), generator=gen, device=dev) % n
     pred = torch.gather(gt, 1, pick[:, :, None].expand(B, S, 18)) \
@@ -280,7 +287,10 @@ def _k2_rows(dev):
     own: the batch-8 416² train step's labels, one LINEMOD object a frame
     (:func:`_linemod_labels`, one valid slot an image, a prefix as
     ``build_targets`` reads it), each of the 13² cells' predictions that GT
-    plus noise; then K2_SHAPES with n uniform in 1..G (seed 7)."""
+    plus noise; then the multi-object step's shape with MULTI_SLOTS valid
+    slots an image (seed 18); then K2_SHAPES with n uniform in 1..G
+    (seed 7).  The inputs the train step itself gives K2 come from
+    :func:`_k2_step_inputs`."""
     lab = torch.from_numpy(_linemod_labels(np.random.RandomState(16),
                                            TRAIN_BATCH)).to(dev)
     gt = lab[:, :, 1:19].contiguous()
@@ -290,6 +300,9 @@ def _k2_rows(dev):
     pred = gt[:, :1] + torch.randn((TRAIN_BATCH, S, 18), generator=g,
                                    device=dev) * 0.03
     rows = [("one slot an image", gt, valid, pred)]
+    g = torch.Generator(device=dev).manual_seed(18)
+    rows.append((f"{MULTI_SLOTS} slots an image",
+                 *_corners_near_gt(dev, *K2_SHAPES[-1], g, n=MULTI_SLOTS)))
     g = torch.Generator(device=dev).manual_seed(7)
     for B, G, S in K2_SHAPES:
         rows.append(("n uniform in 1..G", *_corners_near_gt(dev, B, G, S, g)))
@@ -304,53 +317,45 @@ def _k2_bound(gt, valid, pred, out) -> dict:
     return _bound(_nbytes(gt, valid, pred, out), flops, F32_FLOPS)
 
 
-def phase_k2(dev, card: str):
-    """K2 vs its plain version on :func:`_k2_rows`: error, the silenced-cell
-    mask, the share of outputs with the plain version's bits, a SHA-256 of
-    the output's bytes (the same seed gives the same inputs in any tree, so
-    two trees' kernels compare by it), kernel and plain ms and the bound.
-    Returns the numbers of the first row (the main path's).  First, the
-    kernel's branch-free arithmetic against IEEE sqrtf and __fdiv_rn over
-    all 2^31 non-negative squared distances, at the defaults (th 80,
-    sharpness 2): no mismatch."""
-    t0 = time.perf_counter()
-    mismatches = mcc.arithmetic_mismatches(device=dev)
-    print(f"[kernel] K2 arithmetic at th 80, sharpness 2: {mismatches} of "
-          f"2^31 squared distances give other bits than IEEE sqrtf and "
-          f"__fdiv_rn ({time.perf_counter() - t0:.3f} s)")
-    _check(mismatches == 0, "K2's arithmetic departs from IEEE")
-    result = None
-    for label, gt, valid, pred in _k2_rows(dev):
-        B, G, _ = gt.shape
-        S = pred.shape[1]
-        got = mcc.max_corner_confidence(gt, valid, pred)
-        ref = mcc.max_corner_confidence_reference(gt, valid, pred)
-        torch.cuda.synchronize()
-        d = (got - ref).abs()
-        max_d = float(d.max())
-        within = bool((d <= 1e-6 + 1e-5 * ref.abs()).all())
-        same_mask = bool(torch.equal(got > 0.6, ref > 0.6))
-        spread = float(((ref > 0.05) & (ref < 0.95)).float().mean())
-        exact = float((got == ref).float().mean())
-        sha = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
-        ms = _time_ms(lambda: mcc.max_corner_confidence(gt, valid, pred))
-        plain_ms = _time_ms(
-            lambda: mcc.max_corner_confidence_reference(gt, valid, pred))
-        bound = _k2_bound(gt, valid, pred, got)
-        print(f"[kernel] K2 ({B},{G},{S}) {label}, {int(valid.sum())} valid "
-              f"slots: max|d|={max_d:.6g} (rtol 1e-5, atol 1e-6: {within}), "
-              f"silenced-cell mask (> 0.6) equal: {same_mask}, "
-              f"{float((ref > 0.6).float().mean()):.4f} of cells silenced, "
-              f"{spread:.4f} in (0.05, 0.95), {exact:.6%} with the plain "
-              f"version's bits; output sha256 {sha}; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms; bound {bound['bound_ms'] * 1e3:.4f} "
-              f"µs ({bound['bound_by']}) [{card}]")
-        _check(within, f"K2 off its plain version by {max_d}")
-        _check(same_mask, "K2 silences other cells than its plain version")
-        if result is None:
-            result = {"max_abs_err": max_d, "ms": ms, "plain_ms": plain_ms,
-                      **bound}
-    return result
+def _k2_report(label: str, gt, valid, pred, card: str) -> dict:
+    """K2 vs its plain version on one row: error, the silenced-cell mask,
+    the share of outputs with the plain version's bits, a SHA-256 of the
+    output's bytes (the same seed gives the same inputs in any tree, so two
+    trees' kernels compare by it), kernel and plain ms and the bound.
+    Returns the numbers of the kernel summary."""
+    B, G, _ = gt.shape
+    S = pred.shape[1]
+    got = mcc.max_corner_confidence(gt, valid, pred)
+    ref = mcc.max_corner_confidence_reference(gt, valid, pred)
+    torch.cuda.synchronize()
+    d = (got - ref).abs()
+    max_d = float(d.max())
+    within = bool((d <= 1e-6 + 1e-5 * ref.abs()).all())
+    same_mask = bool(torch.equal(got > 0.6, ref > 0.6))
+    spread = float(((ref > 0.05) & (ref < 0.95)).float().mean())
+    exact = float((got == ref).float().mean())
+    sha = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+    ms = _time_ms(lambda: mcc.max_corner_confidence(gt, valid, pred))
+    plain_ms = _time_ms(
+        lambda: mcc.max_corner_confidence_reference(gt, valid, pred))
+    bound = _k2_bound(gt, valid, pred, got)
+    print(f"[kernel] K2 ({B},{G},{S}) {label}, {int(valid.sum())} valid "
+          f"slots: max|d|={max_d:.6g} (rtol 1e-5, atol 1e-6: {within}), "
+          f"silenced-cell mask (> 0.6) equal: {same_mask}, "
+          f"{float((ref > 0.6).float().mean()):.4f} of cells silenced, "
+          f"{spread:.4f} in (0.05, 0.95), {exact:.6%} with the plain "
+          f"version's bits; output sha256 {sha}; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms; bound {bound['bound_ms'] * 1e3:.4f} "
+          f"µs ({bound['bound_by']}) [{card}]")
+    _check(within, f"K2 off its plain version by {max_d}")
+    _check(same_mask, "K2 silences other cells than its plain version")
+    return {"max_abs_err": max_d, "ms": ms, "plain_ms": plain_ms, **bound}
+
+
+def phase_k2(dev, card: str) -> None:
+    """K2 vs its plain version (:func:`_k2_report`) on :func:`_k2_rows`."""
+    for row in _k2_rows(dev):
+        _k2_report(*row, card)
 
 
 _STEM_KERNELS = (("K3", "stem_conv_stats", "singleshotpose_tpu/ops/stem.py:182"),
@@ -676,6 +681,26 @@ def _train_setup(spec, dev, seed: int, fused_stem: bool):
     return state, cfg, step
 
 
+def _k2_step_inputs(state, cfg, frames, labels):
+    """The (gt, valid, pred) that ``build_targets`` hands K2 in the fused
+    train step on this batch: the loss on the train-mode fused forward's
+    head, with K2's call recorded (and answered by the plain version)."""
+    record = []
+
+    def k2(gt, valid, pred, **kw):
+        record.append((gt, valid, pred))
+        return mcc.max_corner_confidence_reference(gt, valid, pred, **kw)
+
+    with torch.no_grad(), mock.patch.object(targets, "max_corner_confidence",
+                                            k2):
+        state.model.train()
+        head = state.model(frames.float() / 255.0, torch.bfloat16,
+                           fused_stem=True)
+        region_loss(head, labels, TRAIN_EPOCH, cfg)
+    (row,) = record
+    return row
+
+
 _TRAIN_COUNTED = (mcc.max_corner_confidence, stem.stem_conv_stats,
                   stem.stem_bn_pool, stem.stem_bwd_sums, stem.stem_bwd_dw)
 
@@ -709,7 +734,8 @@ def phase_train(spec, dev, card: str):
     """The training path: TRAIN_STEPS steps of the full-width net at batch 8,
     416², bf16, with the fused train stem resolved as ``run_training``
     resolves it.  Returns (the trained state, K2–K6's launches in those
-    steps, the median step ms)."""
+    steps, the median step ms, K2's numbers on the inputs the last step gave
+    it and those inputs)."""
     fused = _resolve_fused_stem(TrainRunConfig(), dev)
     _check(fused, "run_training does not resolve the fused stem on for bf16 "
                   "on a card")
@@ -741,6 +767,8 @@ def phase_train(spec, dev, card: str):
     _check(launches == [TRAIN_STEPS] * 5,
            f"K2-K6 launched {launches} times in {TRAIN_STEPS} train steps")
     _check(state.seen == TRAIN_STEPS * TRAIN_BATCH, f"seen {state.seen}")
+    k2_inputs = _k2_step_inputs(state, cfg, *batches[-1])
+    k2_numbers = _k2_report("the train step's own inputs", *k2_inputs, card)
 
     # one batch's loss: the train-mode head with K2 and with the plain
     # reduction; and through the fused and the unfused forward, whose stem
@@ -820,7 +848,7 @@ def phase_train(spec, dev, card: str):
           f"{lr:.6g}: loss {fit[0]:.6g} -> {fit[-1]:.6g} (min {min(fit):.6g})")
     _check(np.isfinite(fit).all() and fit[-1] < fit[0],
            f"one batch did not overfit: {fit[0]} -> {fit[-1]}")
-    return state, launches, step_ms
+    return state, launches, step_ms, k2_numbers, k2_inputs
 
 
 def phase_train_to_serve(spec, state, dev) -> None:
@@ -992,8 +1020,9 @@ def phase_profile(spec, folded, dev, card: str, out_dir: str) -> None:
                   f"({us / total:.2%} of device time)")
 
 
-def phase_profile_k2(dev, card: str, out_dir: str) -> None:
-    """K2 and its plain version on the device alone (``--profile``), on
+def phase_profile_k2(dev, card: str, out_dir: str, step_inputs) -> None:
+    """K2 and its plain version on the device alone (``--profile``), on the
+    train step's own inputs (``step_inputs``, from :func:`phase_train`) and
     :func:`_k2_rows`: the device time per call from a trace of
     PROFILE_CALLS calls and K2's share of its bound, beside the CUDA-event
     time per call of phase 3, which also counts the host's work when the
@@ -1001,7 +1030,8 @@ def phase_profile_k2(dev, card: str, out_dir: str) -> None:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     os.makedirs(out_dir, exist_ok=True)
-    for i, (label, gt, valid, pred) in enumerate(_k2_rows(dev)):
+    rows = [("the train step's own inputs", *step_inputs), *_k2_rows(dev)]
+    for i, (label, gt, valid, pred) in enumerate(rows):
         B, G, _ = gt.shape
         S = pred.shape[1]
         for name, fn in (("K2", mcc.max_corner_confidence),
@@ -1185,7 +1215,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     stem_numbers = phase_kernel(dev, card)
-    k2_numbers = phase_k2(dev, card)
+    phase_k2(dev, card)
     train_stem_numbers = phase_train_stem(dev, card)
 
     spec = yolo_pose_single()
@@ -1200,11 +1230,12 @@ def main(argv=None) -> int:
     launches = stem.stem_conv_pool_infer.launches
     _check(launches > 0, "the serving path launched no stem kernel")
     phase_pose(dev, served)
-    state, train_launches, _ = phase_train(spec, dev, card)
+    state, train_launches, _, k2_numbers, k2_inputs = phase_train(spec, dev,
+                                                                  card)
     phase_train_to_serve(spec, state, dev)
     if args.profile:
         phase_profile(spec, folded, dev, card, args.profile)
-        phase_profile_k2(dev, card, args.profile)
+        phase_profile_k2(dev, card, args.profile, k2_inputs)
         phase_profile_stem(dev, card, args.profile)
         phase_profile_train(spec, dev, card, args.profile)
         phase_profile_gate(spec, dev, card)

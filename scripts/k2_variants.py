@@ -10,21 +10,21 @@ variant is ``csrc/max_corner_confidence.cu`` with one textual change, built
 with the port's nvcc flags (one nvcc each, started together) into
 ``singleshotpose_tpu_torch/_build/k2_variants/``; ``--source NAME=FILE``
 adds another source whole (an earlier commit's K2, say) as the variant NAME.
-On ``chip_smoke.py``'s K2 rows (the same seeded inputs: the train step's
-one valid slot an image, then 1..50 at (8,50,169), (8,50,676) and
-(32,50,845)) it prints each variant's registers and spill stores
-(``-Xptxas -v``), its SASS instruction count, whether its output has the
-kernel's bits (all variants but ``no_pairs`` compute the same function)
-and a SHA-256 of its output's bytes, and its time in three rounds of turns
-(forward, then backward through the list): the device µs a launch from a
-torch.profiler trace of 20 launches, and CUDA events around 50
-back-to-back launches, which also count the host's ctypes call.  The
-variants: 8, 16 or 24 cells a block (the kernel: 12); K lanes a pair
-never (``few0``; the kernel: up to 96 pairs a round); the IEEE instance,
-with sqrtf and __fdiv_rn and their slow-path branches, at the default th
-and sharpness (``ieee``), also with 24 cells a block (``ieee_cells24``);
-and the kernel without its pairs (``no_pairs``: the flags, staging and
-stores alone).
+The rows: the inputs the first fused train step of ``chip_smoke.py``'s
+train phase gives K2 (its seeds, the full-width model), then
+``chip_smoke.py``'s K2 rows (the same seeded inputs: one valid slot an
+image at (8,50,169), eight at (32,50,845), then 1..50 at (8,50,169),
+(8,50,676) and (32,50,845)).  It prints each variant's registers and
+spill stores (``-Xptxas -v``), its SASS instruction count, whether its
+output has the kernel's bits (all variants but ``no_pairs`` compute the
+same function) and a SHA-256 of its output's bytes, and its time in three
+rounds of turns (forward, then backward through the list): the device µs
+a launch from a torch.profiler trace of 20 launches, and CUDA events
+around 50 back-to-back launches, which also count the host's ctypes call.
+The variants: 12 or 32 cells a block (the kernel: 24); K lanes a pair
+always (``lanes``) or never (``threads``; the kernel: when one pass takes
+a round's pairs), each also at 12 cells; and the kernel without its pairs
+(``no_pairs``: the flags, staging and stores alone).
 Needs one CUDA card and nvcc; imports no jax.
 """
 
@@ -48,31 +48,40 @@ import chip_smoke  # noqa: E402
 from singleshotpose_tpu_torch.ops import cuda_build  # noqa: E402
 from singleshotpose_tpu_torch.ops.confidence import \
     confidence_denominator  # noqa: E402
+from singleshotpose_tpu_torch.zoo import yolo_pose_single  # noqa: E402
 from stem_serve_variants import (_chain, _sub, build_variants,  # noqa: E402
                                  card, per_launch_us, ptxas_usage)
 
 PROFILED, ROUNDS = 20, 3
 
+
 def _cells(n: int):
-    return _sub("constexpr int kCells = 12;", f"constexpr int kCells = {n};")
+    return _sub("constexpr int kCells = 24;", f"constexpr int kCells = {n};")
 
 
-def _few(n: int):
-    return _sub("constexpr int kFewPairs = 96;",
-                f"constexpr int kFewPairs = {n};")
+def _lanes(always: bool):
+    """K lanes a pair for every round (as many passes as it takes), or
+    never."""
+    if not always:
+        return _sub("if (0 < pairs && pairs <= kPass)", "if (false)")
+    return _chain(
+        _sub("if (0 < pairs && pairs <= kPass)", "if (0 < pairs)"),
+        _sub("      const int p = warp * kPerWarp + lane / K;\n",
+             "      for (int p0 = 0; p0 < pairs; p0 += kPass) {\n"
+             "      const int p = p0 + warp * kPerWarp + lane / K;\n"),
+        _sub("__float_as_uint(__fdiv_rn(sum, (float)K)));\n",
+             "__float_as_uint(__fdiv_rn(sum, (float)K)));\n      }\n"))
 
-
-_IEEE = _sub("  if (in_range(th) && in_range(denom))\n", "  if (false)\n")
 
 # name: (change, computes the kernel's function)
 VARIANTS = {
     "kernel": (None, True),
-    "cells8": (_cells(8), True),
-    "cells16": (_cells(16), True),
-    "cells24": (_cells(24), True),
-    "few0": (_few(0), True),
-    "ieee": (_IEEE, True),
-    "ieee_cells24": (_chain(_IEEE, _cells(24)), True),
+    "cells12": (_cells(12), True),
+    "cells32": (_cells(32), True),
+    "lanes": (_lanes(True), True),
+    "lanes_cells12": (_chain(_lanes(True), _cells(12)), True),
+    "threads": (_lanes(False), True),
+    "threads_cells12": (_chain(_lanes(False), _cells(12)), True),
     # G < 0 never holds, so the compiler keeps the rest
     "no_pairs": (_sub("const int pairs = nc * nr;",
                       "const int pairs = G < 0 ? nc * nr : 0;"), False),
@@ -80,8 +89,9 @@ VARIANTS = {
 
 
 def sass_counts(lib: str) -> str:
-    """Instructions in the kernel's SASS, and of them MUFU, FCHK and CALL,
-    read with the toolkit's cuobjdump."""
+    """Instructions in the kernel's SASS, and of them MUFU, FCHK and CALL
+    (the IEEE division's check and slow path), read with the toolkit's
+    cuobjdump."""
     tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
                           text=True, check=True).stdout
@@ -115,6 +125,16 @@ def device_us(fn) -> float:
     return sum(by_family.values()) / PROFILED
 
 
+def step_row(dev):
+    """The inputs the first fused train step of ``chip_smoke.py``'s train
+    phase gives K2: (label, gt, valid, pred)."""
+    state, cfg, _ = chip_smoke._train_setup(yolo_pose_single(), dev, seed=5,
+                                            fused_stem=True)
+    frames, labels = chip_smoke._train_batches(dev, 1, seed=8)[0]
+    return ("the first train step's own inputs",
+            *chip_smoke._k2_step_inputs(state, cfg, frames, labels))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--source", metavar="NAME=FILE", action="append",
@@ -145,7 +165,7 @@ def main(argv=None) -> int:
               f"{sass_counts(path)}")
     denom = confidence_denominator(2.0)
     stream = torch.cuda.current_stream().cuda_stream
-    for label, gt, valid, pred in chip_smoke._k2_rows(dev):
+    for label, gt, valid, pred in [step_row(dev), *chip_smoke._k2_rows(dev)]:
         B, G, _ = gt.shape
         S = pred.shape[1]
         tag = f"({B},{G},{S}) {label}, {int(valid.sum())} valid slots: "

@@ -26,8 +26,7 @@ import torch
 from . import cuda_build
 from .confidence import confidence_denominator, corner_confidences
 
-__all__ = ["max_corner_confidence", "max_corner_confidence_reference",
-           "arithmetic_mismatches"]
+__all__ = ["max_corner_confidence", "max_corner_confidence_reference"]
 
 _SOURCE = "max_corner_confidence"    # csrc/max_corner_confidence.cu
 _KERNEL_K = 9                        # the keypoint count the kernel is built for
@@ -79,33 +78,7 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
         + [ctypes.c_float] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    check = lib.max_corner_confidence_check
-    check.argtypes = [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2
-    check.restype = ctypes.c_int
     return lib
-
-
-def arithmetic_mismatches(*, th: float = 80.0, sharpness: float = 2.0,
-                          device="cuda") -> int:
-    """The kernel's branch-free sqrt and divisions against IEEE ``sqrtf``
-    and ``__fdiv_rn``, on the card: of all 2^31 non-negative floats x, the
-    number whose keypoint confidence at squared distance x differs in any
-    bit between the two forms.  0 proves that, for this (th, sharpness),
-    the kernel gives the bits of the IEEE form.  Raises ``ValueError``
-    where th or the denominator lies outside [2^-20, 2^20]: the kernel then
-    runs the IEEE form itself."""
-    count = torch.zeros((), dtype=torch.int64, device=device)
-    with torch.cuda.device(count.device):
-        err = _library().max_corner_confidence_check(
-            th, sharpness, confidence_denominator(sharpness),
-            count.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err == 1:                                  # cudaErrorInvalidValue
-        raise ValueError(f"th {th} or the denominator of sharpness "
-                         f"{sharpness} lies outside [2^-20, 2^20]")
-    if err != 0:
-        raise RuntimeError(f"max_corner_confidence_check launch failed: "
-                           f"CUDA error {err}")
-    return int(count)
 
 
 def max_corner_confidence(gt_corners: torch.Tensor, valid: torch.Tensor,
