@@ -2,13 +2,14 @@
 """Smoke run of the PyTorch port (singleshotpose_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py                    # from the root of the repository
-    python3 chip_smoke.py --profile OUT_DIR  # and where the serve's and the
-                                             # train step's time goes
+    python3 chip_smoke.py --profile OUT_DIR  # and where the serves' and the
+                                             # train steps' time goes
 
 Drives the single-object serving and training paths at full width —
-``yolo_pose_single``, ~50.6 M parameters, random weights from a seed —
-through the entry points a user calls, in phases; any failure propagates
-and the exit code is nonzero:
+``yolo_pose_single``, ~50.6 M parameters, random weights from a seed — and
+then the multi-object (OCCLUSION) ones — ``yolo_pose_multi``, 13 classes, 5
+anchors, the same backbone — through the entry points a user calls, in
+phases; any failure propagates and the exit code is nonzero:
 
   1. device: the card's name and power limit; TF32 off for convs and matmuls;
   2. build: the three CUDA sources, one nvcc each, started together
@@ -17,13 +18,14 @@ and the exit code is nonzero:
      instructions (their products run on the tensor cores);
   3. kernels against plain: each kernel (K1 the serving stem, K2 the max
      corner confidence, K3–K6 the train stem) vs its plain PyTorch version
-     at the main paths' shapes (K3–K6 also at a ragged one; K2 on the train
-     step's own labels, one valid slot an image, on eight valid slots an
-     image at the multi-object step's shape, then with 1..50 at three
-     shapes), error and time of both, and its bound; K1's and K3's share of
-     outputs equal to the plain version's and their largest difference in
-     bf16 ulps; K2's share of outputs with the plain version's bits and a
-     SHA-256 of its output;
+     at the main paths' shapes (K1 also at the multi-object serve's batch
+     16, 416²; K3–K6 also at a ragged shape and at the multi-object step's
+     batch 32, 320² and 608²; K2 on the train step's own labels, one valid
+     slot an image, on nine valid slots an image at the multi-object step's
+     416² and 608² shapes, then with 1..50 at three shapes), error and time
+     of both, and its bound; K1's and K3's share of outputs equal to the
+     plain version's and their largest difference in bf16 ulps; K2's share
+     of outputs with the plain version's bits and a SHA-256 of its output;
   4. model: fold BN, bf16 forward at batch 8, 672²; the stem went through
      the kernel, and the head equals the forward with the plain stem;
   5. serve: ``make_serving_fn`` behind a ``MicroBatcher`` answering 16
@@ -36,18 +38,28 @@ and the exit code is nonzero:
      poses; K2–K6 each ran once per step; K2 on the inputs the last step
      gave it against its plain version, as in phase 3; the loss equals the
      loss with the plain reduction and the loss through the unfused
-     forward; 5 unfused
-     steps (the stem's plain PyTorch path, no K3–K6); the fused and the
-     unfused step timed in turns; one fixed batch overfits in 30 fused
-     steps;
+     forward; 5 unfused steps (the stem's plain PyTorch path, no K3–K6);
+     the fused and the unfused step timed in turns; one fixed batch
+     overfits in 30 fused steps;
   8. train → serve: the trained weights through the darknet codec, BN fold
-     and the serving function; a checkpoint saved and restored on the card.
+     and the serving function; a checkpoint saved and restored on the card;
+  9. multi serve: ``make_serving_fn(pick=("per_class", 0.05))`` behind a
+     ``MicroBatcher`` at batch 16, 416², u8 frames, a (13, 21) row a
+     request; the picks equal a numpy fold of the decoded grid on the host
+     (the fallback forced with higher thresholds), and ``("for_class", c,
+     th)`` equals ``per_class[:, c]``;
+ 10. multi train: ``make_train_step`` with ``loss_config_from_spec(
+     multi=True)`` at batch 32, bf16, fused stem on, 10 steps at 416² and
+     one each at 320² and 608², on frames with 1..9 GTs of their classes
+     as the scene synthesizer pairs them; K2–K6 once a step; K2 on the
+     step's own inputs; the loss checks of phase 7 and a class loss > 0.
 
-Phases 4–5 are the serving path and phase 7's fused steps the training
-path: each kernel's launch count is set to 0 just before its path and read
-just after.  The line before the last is the kernel summary (JSON: each
-kernel's launches, error, kernel and plain ms, bound and what sets it); the
-last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card;
+Phases 4–5 and 9 are the serving paths and phase 7's fused steps and phase
+10 the training paths: each kernel's launch count is set to 0 just before
+its path and read just after.  The line before the last is the kernel
+summary (JSON: each kernel's launches on the single-object and the
+multi-object paths, error, kernel and plain ms, bound and what sets it);
+the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card;
 without one it exits nonzero before any result.  Reads no image files (the
 card's machine may lack Pillow) and imports no jax.
 """
@@ -77,6 +89,7 @@ import torch.nn.functional as F
 
 from singleshotpose_tpu_torch import weights as W
 from singleshotpose_tpu_torch.checkpoint import Checkpointer
+from singleshotpose_tpu_torch.data.synth_multi import ADD_OBJS, OCCLUSION_CLASSES
 from singleshotpose_tpu_torch.drivers import (TrainRunConfig,
                                               _resolve_fused_stem,
                                               loss_config_from_spec)
@@ -88,32 +101,41 @@ from singleshotpose_tpu_torch.models.darknet import (Darknet, apply_folded,
                                                      fold_batchnorm)
 from singleshotpose_tpu_torch.ops import cuda_build, stem, targets
 from singleshotpose_tpu_torch.ops import max_corner_confidence as mcc
+from singleshotpose_tpu_torch.ops.decode import best_boxes_per_class
 from singleshotpose_tpu_torch.ops.losses import region_loss
 from singleshotpose_tpu_torch.ops.pnp import pnp_batched, so3_exp
 from singleshotpose_tpu_torch.serving import MicroBatcher, make_serving_fn
 from singleshotpose_tpu_torch.training import (init_train_state,
                                                make_train_step, schedule_lr)
-from singleshotpose_tpu_torch.zoo import yolo_pose_single
+from singleshotpose_tpu_torch.zoo import yolo_pose_multi, yolo_pose_single
 
-STEM_SHAPES = ((1, 416, 416), (8, 416, 416), (8, 672, 672))
+# K1 (B, H, W): the last is the single-object serve's, (16, 416, 416) the
+# multi-object serve's
+STEM_SHAPES = ((1, 416, 416), (8, 416, 416), (16, 416, 416), (8, 672, 672))
 SIZE = 672            # yolo_pose_single's test size
 MODEL_BATCH = 8
 N_FRAMES, N_CLIENTS, BUCKETS = 16, 4, (1, 2, 4, 8)
 N_POSES = 64
 # K2 (B, G, S) with n uniform in 1..G valid slots an image, after the main
-# path's own row and the multi-object row (_k2_rows): the batch-8 416² train
+# path's own row and the multi-object rows (_k2_rows): the batch-8 416² train
 # step (13² cells), the 832² bucket of multi-scale training (26²), the
 # multi-object batch-32 step (13²·5 anchors)
 K2_SHAPES = ((8, 50, 169), (8, 50, 676), (32, 50, 845))
-# a multi-object frame's valid slots: its base object and the seven
-# companions of singleshotpose_tpu/data/synth_multi.py:ADD_OBJS
-MULTI_SLOTS = 8
+# the most valid slots a synthesized multi-object frame has: its base object
+# and its companions in singleshotpose_tpu/data/synth_multi.py:ADD_OBJS,
+# which are 8 for eggbox
+MULTI_SLOTS = 9
+# K2 (B, G, S) of the multi-object batch-32 step: 5 anchors on the 416² grid
+# and on the 608² one, MULTI_SCHEDULE's widest bucket
+K2_MULTI_SHAPES = ((32, 50, 845), (32, 50, 1805))
 TRAIN_SIZE, TRAIN_BATCH = 416, 8      # yolo-pose.cfg's width and batch
 TRAIN_STEPS, OVERFIT_STEPS, UNFUSED_STEPS = 20, 30, 5
 # K3-K6 (B, H, W): the batch-8 416² train step, the 832² bucket (the
-# largest of the multi-scale schedule), and a ragged shape whose 17 x 35
-# pooled grid is odd and no multiple of K6's 2 x 16 tiles
-TRAIN_STEM_SHAPES = ((8, 416, 416), (8, 832, 832), (3, 34, 70))
+# largest of the multi-scale schedule), a ragged shape whose 17 x 35 pooled
+# grid is odd and no multiple of K6's 2 x 16 tiles, and the multi-object
+# batch-32 step at MULTI_SCHEDULE's narrowest and widest buckets
+TRAIN_STEM_SHAPES = ((8, 416, 416), (8, 832, 832), (3, 34, 70),
+                     (32, 320, 320), (32, 608, 608))
 GATE_BATCH = 64       # the JAX package's batch gate for the fused stem
 TRAIN_EPOCH = 16      # past the 15-epoch pretrain gate: every loss term counts
 BATCHES_PER_EPOCH = 125   # ~1,000 LINEMOD training frames / batch 8
@@ -122,6 +144,11 @@ LINEMOD_K = np.array([[572.4114, 0.0, 325.2611],
                       [0.0, 573.5704, 242.0489],
                       [0.0, 0.0, 1.0]])
 IM_W, IM_H = 640, 480
+# yolo_pose_multi: eval at its width with the reference's eval batch, behind
+# a MicroBatcher that pads every batch to it; train at its batch, 416² for
+# MULTI_TRAIN_STEPS steps, then one step at each of MULTI_WIDTHS
+MULTI_SIZE, MULTI_SERVE_BATCH, MULTI_BUCKETS = 416, 16, (16,)
+MULTI_TRAIN_BATCH, MULTI_TRAIN_STEPS, MULTI_WIDTHS = 32, 10, (320, 608)
 PROFILE_CALLS = 10
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): HBM bytes/s, bf16
 # tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
@@ -287,9 +314,9 @@ def _k2_rows(dev):
     own: the batch-8 416² train step's labels, one LINEMOD object a frame
     (:func:`_linemod_labels`, one valid slot an image, a prefix as
     ``build_targets`` reads it), each of the 13² cells' predictions that GT
-    plus noise; then the multi-object step's shape with MULTI_SLOTS valid
-    slots an image (seed 18); then K2_SHAPES with n uniform in 1..G
-    (seed 7).  The inputs the train step itself gives K2 come from
+    plus noise; then K2_MULTI_SHAPES with MULTI_SLOTS valid slots an image
+    (seeds 18, 19); then K2_SHAPES with n uniform in 1..G (seed 7).  The
+    inputs the train steps themselves give K2 come from
     :func:`_k2_step_inputs`."""
     lab = torch.from_numpy(_linemod_labels(np.random.RandomState(16),
                                            TRAIN_BATCH)).to(dev)
@@ -300,9 +327,10 @@ def _k2_rows(dev):
     pred = gt[:, :1] + torch.randn((TRAIN_BATCH, S, 18), generator=g,
                                    device=dev) * 0.03
     rows = [("one slot an image", gt, valid, pred)]
-    g = torch.Generator(device=dev).manual_seed(18)
-    rows.append((f"{MULTI_SLOTS} slots an image",
-                 *_corners_near_gt(dev, *K2_SHAPES[-1], g, n=MULTI_SLOTS)))
+    for seed, shape in enumerate(K2_MULTI_SHAPES, start=18):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        rows.append((f"{MULTI_SLOTS} slots an image",
+                     *_corners_near_gt(dev, *shape, g, n=MULTI_SLOTS)))
     g = torch.Generator(device=dev).manual_seed(7)
     for B, G, S in K2_SHAPES:
         rows.append(("n uniform in 1..G", *_corners_near_gt(dev, B, G, S, g)))
@@ -650,32 +678,65 @@ def _linemod_labels(rng, batch: int) -> np.ndarray:
     return lab
 
 
-def _train_batches(dev, n: int, seed: int, batch: Optional[int] = None):
-    """``n`` batches of synthetic u8 frames (batch, 416, 416, 3) on the
-    card, with padded labels (batch, 50·21) from :func:`_linemod_labels`.
+def _multi_labels(rng, batch: int) -> np.ndarray:
+    """Padded labels (batch, 50, 21) of synthesized OCCLUSION frames, as
+    ``data/synth_multi.py`` composes them: a base object of the 13 classes
+    and a random number of its ADD_OBJS companions (frame 0: eggbox and all
+    8 of its), so 1..MULTI_SLOTS GTs a frame, base first, each with its
+    class id and its 9 keypoints projected from a pose drawn from ``rng``
+    over the frame, normalized by 640×480."""
+    pts, _, _ = _box_points()
+    lab = np.zeros((batch, 50, 21), np.float32)
+    for b in range(batch):
+        base = "eggbox" if b == 0 else OCCLUSION_CLASSES[rng.randint(13)]
+        companions = list(ADD_OBJS[base])
+        rng.shuffle(companions)
+        objs = [base] + companions[:len(companions) if b == 0
+                                   else rng.randint(len(companions) + 1)]
+        n = len(objs)
+        Rs = so3_exp(torch.from_numpy(rng.randn(n, 3) * 0.8)).numpy()
+        ts = np.stack([rng.uniform(-0.25, 0.25, n),
+                       rng.uniform(-0.18, 0.18, n),
+                       rng.uniform(0.7, 1.2, n)], axis=1)
+        cam = np.einsum("bij,nj->bni", Rs, pts.astype(np.float64)) \
+            + ts[:, None]
+        uvw = cam @ LINEMOD_K.T
+        px = uvw[..., :2] / uvw[..., 2:] / [IM_W, IM_H]          # (n, 9, 2)
+        lab[b, :n, 0] = [OCCLUSION_CLASSES.index(o) for o in objs]
+        lab[b, :n, 1:19] = px.reshape(n, 18)
+        lab[b, :n, 19] = np.ptp(px[..., 0], axis=1)
+        lab[b, :n, 20] = np.ptp(px[..., 1], axis=1)
+    return lab
+
+
+def _train_batches(dev, n: int, seed: int, batch: Optional[int] = None,
+                   size: int = TRAIN_SIZE, labels=_linemod_labels):
+    """``n`` batches of synthetic u8 frames (batch, size, size, 3) on the
+    card, with padded labels (batch, 50·21) from ``labels(rng, batch)``.
     ``batch`` defaults to TRAIN_BATCH."""
     batch = batch or TRAIN_BATCH
     rng = np.random.RandomState(seed)
     gen = torch.Generator().manual_seed(seed)
     out = []
     for _ in range(n):
-        lab = _linemod_labels(rng, batch)
-        frames = torch.randint(0, 256, (batch, TRAIN_SIZE, TRAIN_SIZE, 3),
+        lab = labels(rng, batch)
+        frames = torch.randint(0, 256, (batch, size, size, 3),
                                generator=gen, dtype=torch.uint8)
         out.append((frames.to(dev), torch.from_numpy(
             lab.reshape(batch, -1)).to(dev)))
     return out
 
 
-def _train_setup(spec, dev, seed: int, fused_stem: bool):
+def _train_setup(spec, dev, seed: int, fused_stem: bool, multi: bool = False):
     """A fresh train state, the loss config and a bf16 train step with the
-    fused train stem on or off."""
+    fused train stem on or off; ``multi``: the multi-object trainer's loss
+    (the class term, no confidence pretrain)."""
     net = spec.net
     state = init_train_state(_random_model(spec, dev, seed),
-                             weight_decay=net.decay * TRAIN_BATCH,
+                             weight_decay=net.decay * net.batch,
                              momentum=net.momentum)
-    cfg = loss_config_from_spec(spec, pretrain_num_epochs=15,
-                                im_width=IM_W, im_height=IM_H)
+    cfg = loss_config_from_spec(spec, pretrain_num_epochs=0 if multi else 15,
+                                im_width=IM_W, im_height=IM_H, multi=multi)
     step = make_train_step(cfg, compute_dtype=torch.bfloat16,
                            fused_stem=fused_stem)
     return state, cfg, step
@@ -715,7 +776,7 @@ def _lr(spec, processed: int) -> float:
     net = spec.net
     steps = [s * BATCHES_PER_EPOCH for s in net.steps]
     return schedule_lr(net.learning_rate, processed, steps,
-                       net.scales) / TRAIN_BATCH
+                       net.scales) / net.batch
 
 
 def _step_ms(step, state, batches, spec, n: int) -> float:
@@ -728,6 +789,54 @@ def _step_ms(step, state, batches, spec, n: int) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
     return statistics.median(times)
+
+
+def _check_losses(spec, state, cfg, frames, labels, tag: str):
+    """One batch's loss: the train-mode head with K2 and with the plain
+    reduction (rel 1e-5); and through the fused and the unfused forward
+    (rel 1e-2), whose stem outputs are compared first.  Returns the stats of
+    the loss with K2."""
+    with torch.no_grad():
+        state.model.train()
+        x = frames.float() / 255.0
+        c0 = getattr(state.model, spec.layers[0].name)
+        pooled, mean, var = stem.stem_conv_bn_pool_train(x, c0.weight,
+                                                         c0.scale, c0.bias)
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(torch.bfloat16),
+                     c0.weight.to(torch.bfloat16), padding=1)
+        z, mean_u, var_u = L.batch_norm_train(y, c0.scale, c0.bias)
+        pooled_u = L.max_pool(L.leaky_relu(z), 2, 2).permute(0, 2, 3, 1)
+        head = state.model(x, torch.bfloat16, fused_stem=True)
+        loss_k2, st = region_loss(head, labels, TRAIN_EPOCH, cfg)
+        with mock.patch.object(targets, "max_corner_confidence",
+                               mcc.max_corner_confidence_reference):
+            loss_plain, _ = region_loss(head, labels, TRAIN_EPOCH, cfg)
+        loss_unfused, _ = region_loss(
+            state.model(x, torch.bfloat16, fused_stem=False), labels,
+            TRAIN_EPOCH, cfg)
+    d = (pooled.float() - pooled_u.float()).abs()
+    same = float((d == 0).float().mean())
+    bound = 1e-2 * float(pooled_u.float().abs().max()) + 1e-3
+    d_stats = max(float((mean - mean_u).abs().max()),
+                  float((var - var_u).abs().max()))
+    rel = abs(float(loss_k2) - float(loss_plain)) / abs(float(loss_plain))
+    rel_stem = abs(float(loss_k2) - float(loss_unfused)) / \
+        abs(float(loss_unfused))
+    print(f"[{tag}] stem output, fused vs unfused: exactly equal {same:.6%}, "
+          f"max|d|={float(d.max()):.6g} (bound {bound:.6g}), batch mean and "
+          f"var max|d|={d_stats:.3g} (f32 sums in another order)")
+    print(f"[{tag}] loss with K2 {float(loss_k2):.8g}, with the plain "
+          f"reduction {float(loss_plain):.8g}: rel {rel:.3g} (bound 1e-5); "
+          f"through the unfused forward {float(loss_unfused):.8g}: rel "
+          f"{rel_stem:.3g} (bound 1e-2: bf16 roundings that flip with the "
+          f"statistics' last bits, carried through 22 more bf16 layers); "
+          f"class loss {float(st['loss_cls']):.6g}; nGT {int(st['nGT'])}, "
+          f"nCorrect {int(st['nCorrect'])}")
+    _check(float(d.max()) <= bound and same >= 0.99,
+           "the fused stem's output is off the unfused one")
+    _check(rel <= 1e-5, f"K2 loss vs plain-reduction loss rel {rel}")
+    _check(rel_stem <= 1e-2, f"fused vs unfused forward loss rel {rel_stem}")
+    return st
 
 
 def phase_train(spec, dev, card: str):
@@ -769,50 +878,7 @@ def phase_train(spec, dev, card: str):
     _check(state.seen == TRAIN_STEPS * TRAIN_BATCH, f"seen {state.seen}")
     k2_inputs = _k2_step_inputs(state, cfg, *batches[-1])
     k2_numbers = _k2_report("the train step's own inputs", *k2_inputs, card)
-
-    # one batch's loss: the train-mode head with K2 and with the plain
-    # reduction; and through the fused and the unfused forward, whose stem
-    # outputs are compared first
-    frames, labels = batches[-1]
-    with torch.no_grad():
-        state.model.train()
-        x = frames.float() / 255.0
-        c0 = getattr(state.model, spec.layers[0].name)
-        pooled, mean, var = stem.stem_conv_bn_pool_train(x, c0.weight,
-                                                         c0.scale, c0.bias)
-        y = F.conv2d(x.permute(0, 3, 1, 2).to(torch.bfloat16),
-                     c0.weight.to(torch.bfloat16), padding=1)
-        z, mean_u, var_u = L.batch_norm_train(y, c0.scale, c0.bias)
-        pooled_u = L.max_pool(L.leaky_relu(z), 2, 2).permute(0, 2, 3, 1)
-        head = state.model(x, torch.bfloat16, fused_stem=True)
-        loss_k2, st = region_loss(head, labels, TRAIN_EPOCH, cfg)
-        with mock.patch.object(targets, "max_corner_confidence",
-                               mcc.max_corner_confidence_reference):
-            loss_plain, _ = region_loss(head, labels, TRAIN_EPOCH, cfg)
-        loss_unfused, _ = region_loss(
-            state.model(x, torch.bfloat16, fused_stem=False), labels,
-            TRAIN_EPOCH, cfg)
-    d = (pooled.float() - pooled_u.float()).abs()
-    same = float((d == 0).float().mean())
-    bound = 1e-2 * float(pooled_u.float().abs().max()) + 1e-3
-    d_stats = max(float((mean - mean_u).abs().max()),
-                  float((var - var_u).abs().max()))
-    rel = abs(float(loss_k2) - float(loss_plain)) / abs(float(loss_plain))
-    rel_stem = abs(float(loss_k2) - float(loss_unfused)) / \
-        abs(float(loss_unfused))
-    print(f"[train] stem output, fused vs unfused: exactly equal {same:.6%}, "
-          f"max|d|={float(d.max()):.6g} (bound {bound:.6g}), batch mean and "
-          f"var max|d|={d_stats:.3g} (f32 sums in another order)")
-    print(f"[train] loss with K2 {float(loss_k2):.8g}, with the plain "
-          f"reduction {float(loss_plain):.8g}: rel {rel:.3g} (bound 1e-5); "
-          f"through the unfused forward {float(loss_unfused):.8g}: rel "
-          f"{rel_stem:.3g} (bound 1e-2: bf16 roundings that flip with the "
-          f"statistics' last bits, carried through 22 more bf16 layers); nGT "
-          f"{int(st['nGT'])}, nCorrect {int(st['nCorrect'])}")
-    _check(float(d.max()) <= bound and same >= 0.99,
-           "the fused stem's output is off the unfused one")
-    _check(rel <= 1e-5, f"K2 loss vs plain-reduction loss rel {rel}")
-    _check(rel_stem <= 1e-2, f"fused vs unfused forward loss rel {rel_stem}")
+    _check_losses(spec, state, cfg, *batches[-1], "train")
 
     # the unfused path: the stem's plain PyTorch ops, no K3-K6
     unfused = make_train_step(cfg, compute_dtype=torch.bfloat16,
@@ -888,6 +954,194 @@ def phase_train_to_serve(spec, state, dev) -> None:
               f"momentum equal {same_m}, seen {back.seen}")
         _check(step == TRAIN_STEPS and same and same_m
                and back.seen == state.seen, "the checkpoint did not round-trip")
+
+
+def _host_class_picks(decoded, th: float):
+    """The per-class picks of a decoded grid, in numpy on the host, in the
+    reference's order (``valid_multi.py:118-123``, ``utils_multi.py:
+    312-370``): among the cells whose conf (det_conf · max prob) is above
+    ``th`` and whose argmax class is the class, the first of highest
+    det_conf; where there is none, the sequential fold over the cells that
+    adopts a cell when its det_conf and its prob of the class both exceed
+    the last adopted cell's.  Returns ((B, C, 2K+3) boxes, (B, C) True
+    where a cell was kept)."""
+    corners, det, probs = (t.float().cpu().numpy() for t in decoded)
+    B, S, C = probs.shape
+    cls_max, cls_id = probs.max(-1), probs.argmax(-1)
+    conf = det * cls_max
+    out = np.empty((B, C, corners.shape[-1] + 3), np.float32)
+    kept = np.zeros((B, C), bool)
+    for b in range(B):
+        bd = np.full(C, -np.inf, np.float32)
+        bc = np.full(C, -np.inf, np.float32)
+        bi = np.zeros(C, np.int64)
+        for i in range(S):
+            upd = (det[b, i] > bd) & (probs[b, i] > bc)
+            bd = np.where(upd, det[b, i], bd)
+            bc = np.where(upd, probs[b, i], bc)
+            bi = np.where(upd, i, bi)
+        for c in range(C):
+            keep = np.flatnonzero((conf[b] > th) & (cls_id[b] == c))
+            kept[b, c] = keep.size > 0
+            if kept[b, c]:
+                i = keep[np.argmax(det[b, keep])]
+                out[b, c] = [*corners[b, i], det[b, i], cls_max[b, i], c]
+            else:
+                out[b, c] = [*corners[b, bi[c]], bd[c], bc[c], c]
+    return out, kept
+
+
+def phase_multi_serve(spec, folded, dev, card: str) -> None:
+    """The multi-object serve: ``make_serving_fn(pick=("per_class",
+    conf_thresh))`` behind a MicroBatcher that pads every batch to
+    MULTI_SERVE_BATCH, on u8 frames at MULTI_SIZE²; each request gets its
+    (C, 2K+3) row.  The picks equal the host's fold of the decoded grid at
+    the spec's conf_thresh, at a threshold that keeps a cell for a few
+    (image, class) pairs only, and at one above every conf (the fallback
+    everywhere), and ``("for_class", c, th)`` equals ``per_class[:, c]``."""
+    conf_thresh = spec.net.conf_thresh
+    serve = make_serving_fn(spec, folded, pick=("per_class", conf_thresh))
+    gen = torch.Generator().manual_seed(30)
+    frames = torch.randint(0, 256, (MULTI_SERVE_BATCH, MULTI_SIZE, MULTI_SIZE,
+                                    3), generator=gen,
+                           dtype=torch.uint8).numpy()
+    direct = serve(frames).cpu().numpy()
+    C, D = spec.num_classes, 2 * spec.num_keypoints + 3
+    _check(direct.shape == (MULTI_SERVE_BATCH, C, D),
+           f"per-class boxes shape {direct.shape}")
+    _check(bool(np.isfinite(direct).all()), "per-class boxes not finite")
+
+    answers = [None] * MULTI_SERVE_BATCH
+    with MicroBatcher(serve, height=MULTI_SIZE, width=MULTI_SIZE,
+                      buckets=MULTI_BUCKETS) as mb:
+        def client(k):
+            for i in range(k, MULTI_SERVE_BATCH, N_CLIENTS):
+                answers[i] = mb.infer(frames[i], timeout=300)
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(N_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        _check(not any(t.is_alive() for t in threads), "client threads hung")
+    got = np.stack([a.numpy() for a in answers])
+    same = int((got == direct).all(-1).sum())
+    print(f"[multi serve] yolo_pose_multi {MULTI_SIZE}², MicroBatcher "
+          f"(buckets {MULTI_BUCKETS}) {N_CLIENTS} clients x "
+          f"{MULTI_SERVE_BATCH} frames, a (C, 2K+3) = {got.shape[1:]} row "
+          f"each: {same} of {got.shape[0] * C} (frame, class) boxes equal to "
+          f"one batch-{MULTI_SERVE_BATCH} call's")
+    _check(got.shape == direct.shape and same == got.shape[0] * C,
+           "the MicroBatcher's per-class rows differ from the direct call's")
+
+    x = torch.from_numpy(frames).to(dev)
+    decoded = make_serving_fn(spec, folded)(x)
+    conf = (decoded.det_conf * decoded.cls_probs.amax(-1)).flatten()
+    sparse = float(torch.sort(conf).values[-MULTI_SERVE_BATCH])
+    n_kept = n_fallback = 0
+    for th in (conf_thresh, sparse, 1.0):
+        on_card = best_boxes_per_class(decoded, th).cpu().numpy()
+        host, kept = _host_class_picks(decoded, th)
+        served = make_serving_fn(spec, folded, pick=("per_class", th))(x) \
+            .cpu().numpy()
+        one = {c: make_serving_fn(spec, folded, pick=("for_class", c, th))(x)
+               .cpu().numpy() for c in (0, 7, C - 1)}
+        cls = torch.arange(MULTI_SERVE_BATCH, device=dev) % C
+        per_image = make_serving_fn(spec, folded,
+                                    pick=("for_class", cls, th))(x)
+        n_kept += int(kept.sum())
+        n_fallback += int((~kept).sum())
+        same = {"host": np.array_equal(on_card, host),
+                "served": np.array_equal(served, on_card),
+                "for_class": all(np.array_equal(v, served[:, c])
+                                 for c, v in one.items()),
+                "a class an image": np.array_equal(
+                    per_image.cpu().numpy(),
+                    served[np.arange(MULTI_SERVE_BATCH), cls.cpu().numpy()])}
+        print(f"[multi serve] picks at conf_thresh {th:.6g}: {int(kept.sum())} "
+              f"(image, class) pairs kept a cell, {int((~kept).sum())} took "
+              f"the fallback fold; on the card = the host's fold: "
+              f"{same['host']}; served = on the card: {same['served']}; "
+              f"for_class = per_class[:, c] for c in {sorted(one)}: "
+              f"{same['for_class']}, and for a class an image: "
+              f"{same['a class an image']}")
+        _check(all(same.values()),
+               f"per-class picks at {th}: equal to the host's fold, the "
+               f"served ones, for_class: {same}")
+    _check(n_kept > 0 and n_fallback > 0,
+           "the picks never kept a cell, or never fell back")
+
+    ms = _time_ms(lambda: serve(x))
+    pick_ms = _time_ms(lambda: best_boxes_per_class(decoded, conf_thresh))
+    print(f"[multi serve] u8 frames on the card -> per-class boxes, batch "
+          f"{MULTI_SERVE_BATCH}, {MULTI_SIZE}², CUDA events: {ms:.4f} ms = "
+          f"{MULTI_SERVE_BATCH * 1e3 / ms:.1f} frames/s, the per-class pick "
+          f"alone {pick_ms:.4f} ms [{card}]")
+
+
+def phase_multi_train(spec, dev, card: str):
+    """The multi-object training path: ``make_train_step`` with the multi
+    loss (``loss_config_from_spec(multi=True)``: the class term) on the
+    full-width ``yolo_pose_multi``, bf16, the fused stem resolved as the
+    trainers resolve it, MULTI_TRAIN_STEPS steps at batch 32, 416², then
+    one at each of MULTI_WIDTHS, on frames whose labels carry 1..9 GTs
+    (:func:`_multi_labels`).  K2–K6 launch once a step; K2 on the inputs
+    the last 416² step gave it against its plain version; the loss checks
+    of :func:`_check_losses`, and a class loss above 0.  Returns (K2–K6's
+    launches in those steps, the median 416² step ms, K2's numbers and its
+    inputs)."""
+    fused = _resolve_fused_stem(TrainRunConfig(), dev)
+    state, cfg, step = _train_setup(spec, dev, seed=31, fused_stem=fused,
+                                    multi=True)
+    _check(cfg.with_class_loss and cfg.num_anchors == 5,
+           "the multi loss config has no class term or not 5 anchors")
+    batches = _train_batches(dev, MULTI_TRAIN_STEPS, seed=32,
+                             batch=MULTI_TRAIN_BATCH, size=MULTI_SIZE,
+                             labels=_multi_labels)
+    wide = [_train_batches(dev, 1, seed=33 + i, batch=MULTI_TRAIN_BATCH,
+                           size=w, labels=_multi_labels)[0]
+            for i, w in enumerate(MULTI_WIDTHS)]
+    losses, cls_losses, times = [], [], []
+    torch.cuda.synchronize()
+    # the multi main path: every K2-K6 launch counted from here came from it
+    for f in _TRAIN_COUNTED:
+        f.launches = 0
+    for i, (frames, labels) in enumerate(batches + wide):
+        t = time.perf_counter()
+        stats = step(state, frames, labels, _lr(spec, i), TRAIN_EPOCH)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(stats["loss"]))
+        cls_losses.append(float(stats["loss_cls"]))
+    launches = _launches()
+    n = MULTI_TRAIN_STEPS + len(MULTI_WIDTHS)
+    step_ms = statistics.median(times[3:MULTI_TRAIN_STEPS])
+    print(f"[multi train] yolo_pose_multi batch {MULTI_TRAIN_BATCH} bf16, "
+          f"fused train stem {fused}, {MULTI_TRAIN_STEPS} steps at "
+          f"{MULTI_SIZE}² and one at each of {MULTI_WIDTHS}, lr "
+          f"{_lr(spec, 0):.6g}: losses {losses[0]:.6g} ... {losses[-1]:.6g}, "
+          f"class losses {cls_losses[0]:.6g} ... {cls_losses[-1]:.6g}, "
+          f"launches K2-K6 {launches}, seen {state.seen}; {MULTI_SIZE}² step "
+          f"median {step_ms:.4f} ms (host clock, sync each step, steps "
+          f"4-{MULTI_TRAIN_STEPS}), first step {times[0]:.1f} ms, " +
+          " / ".join(f"{w}² {t:.1f} ms" for w, t in
+                     zip(MULTI_WIDTHS, times[MULTI_TRAIN_STEPS:])) +
+          f" (first steps at those widths) [{card}]")
+    _check(all(np.isfinite(losses)),
+           f"a multi train loss is not finite: {losses}")
+    _check(all(np.isfinite(cls_losses)) and min(cls_losses) > 0,
+           f"a class loss is not finite and positive: {cls_losses}")
+    _check(launches == [n] * 5,
+           f"K2-K6 launched {launches} times in {n} multi train steps")
+    _check(state.seen == n * MULTI_TRAIN_BATCH, f"seen {state.seen}")
+    k2_inputs = _k2_step_inputs(state, cfg, *batches[-1])
+    slots = k2_inputs[1].sum(1)
+    _check(int(slots.min()) >= 1 and int(slots.max()) == MULTI_SLOTS,
+           f"the multi step gave K2 {slots.tolist()} valid slots an image")
+    k2_numbers = _k2_report("the multi step's own inputs", *k2_inputs, card)
+    st = _check_losses(spec, state, cfg, *batches[-1], "multi train")
+    _check(float(st["loss_cls"]) > 0, "the class term is 0")
+    return launches, step_ms, k2_numbers, k2_inputs
 
 
 def _host_ms(fn, iters: int = 30, warmup: int = 3) -> float:
@@ -1020,9 +1274,10 @@ def phase_profile(spec, folded, dev, card: str, out_dir: str) -> None:
                   f"({us / total:.2%} of device time)")
 
 
-def phase_profile_k2(dev, card: str, out_dir: str, step_inputs) -> None:
+def phase_profile_k2(dev, card: str, out_dir: str, step_rows) -> None:
     """K2 and its plain version on the device alone (``--profile``), on the
-    train step's own inputs (``step_inputs``, from :func:`phase_train`) and
+    train steps' own inputs (``step_rows``, (label, gt, valid, pred) from
+    :func:`phase_train` and :func:`phase_multi_train`) and
     :func:`_k2_rows`: the device time per call from a trace of
     PROFILE_CALLS calls and K2's share of its bound, beside the CUDA-event
     time per call of phase 3, which also counts the host's work when the
@@ -1030,7 +1285,7 @@ def phase_profile_k2(dev, card: str, out_dir: str, step_inputs) -> None:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     os.makedirs(out_dir, exist_ok=True)
-    rows = [("the train step's own inputs", *step_inputs), *_k2_rows(dev)]
+    rows = [*step_rows, *_k2_rows(dev)]
     for i, (label, gt, valid, pred) in enumerate(rows):
         B, G, _ = gt.shape
         S = pred.shape[1]
@@ -1111,17 +1366,19 @@ def phase_profile_train(spec, dev, card: str, out_dir: str) -> None:
 def phase_profile_stem(dev, card: str, out_dir: str) -> None:
     """K1 and K3–K6 on the device alone (``--profile``): device µs per call
     of each wrapper (its kernel and, for K3, K5 and K6, the partial-sum
-    pass) from a trace of PROFILE_CALLS calls at its main path's shape
-    (K1 the serve's batch 8, 672²; K3–K6 the train step's batch 8, 416²),
-    beside the kernel's bound and the share of it reached, and the same for
-    the plain version."""
+    pass) from a trace of PROFILE_CALLS calls at its main paths' shapes
+    (K1 the serve's batch 8, 672², and the multi-object serve's batch 16,
+    416²; K3–K6 the train step's batch 8, 416², and the multi-object
+    step's batch 32 at 320² and 608²), beside the kernel's bound and the
+    share of it reached, and the same for the plain version."""
     os.makedirs(out_dir, exist_ok=True)
     g0 = torch.Generator(device=dev).manual_seed(21)
 
     def report(tag, name, which, shape, fn, bound):
         fn()
         torch.cuda.synchronize()
-        path = os.path.join(out_dir, f"{name}_{which}.json")
+        path = os.path.join(out_dir, f"{name}_{which}_" +
+                            "_".join(map(str, shape)) + ".json")
         by_family, busy, _ = _profile(fn, PROFILE_CALLS, path)
         us = sum(by_family.values()) / PROFILE_CALLS
         share = f"{bound['bound_ms'] * 1e3 / us:.2%}" if us else "not measured"
@@ -1130,17 +1387,24 @@ def phase_profile_stem(dev, card: str, out_dir: str) -> None:
               f"bound {bound['bound_ms'] * 1e3:.2f} µs ({bound['bound_by']}),"
               f" {share} of it [{card}]")
 
-    B, H, W = STEM_SHAPES[-1]
-    args = (torch.rand((B, H, W, 3), generator=g0, device=dev),
-            torch.randn((32, 3, 3, 3), generator=g0, device=dev) * 0.2,
-            torch.randn((32,), generator=g0, device=dev) * 0.2)
-    out = stem.stem_conv_pool_infer(*args)
-    bound = _bound(_nbytes(*args, out), 2 * 27 * 32 * B * H * W, BF16_FLOPS)
-    for which, fn in (("kernel", stem.stem_conv_pool_infer),
-                      ("plain", stem.stem_conv_pool_infer_reference)):
-        report("K1", "stem_conv_pool_infer", which, (B, H, W),
-               functools.partial(fn, *args), bound)
-    B, H, W = TRAIN_STEM_SHAPES[0]
+    for B, H, W in (STEM_SHAPES[-1], (MULTI_SERVE_BATCH, MULTI_SIZE,
+                                      MULTI_SIZE)):
+        args = (torch.rand((B, H, W, 3), generator=g0, device=dev),
+                torch.randn((32, 3, 3, 3), generator=g0, device=dev) * 0.2,
+                torch.randn((32,), generator=g0, device=dev) * 0.2)
+        out = stem.stem_conv_pool_infer(*args)
+        bound = _bound(_nbytes(*args, out), 2 * 27 * 32 * B * H * W,
+                       BF16_FLOPS)
+        for which, fn in (("kernel", stem.stem_conv_pool_infer),
+                          ("plain", stem.stem_conv_pool_infer_reference)):
+            report("K1", "stem_conv_pool_infer", which, (B, H, W),
+                   functools.partial(fn, *args), bound)
+    for B, H, W in (TRAIN_STEM_SHAPES[0], *TRAIN_STEM_SHAPES[3:]):
+        _profile_train_stem(dev, g0, B, H, W, report)
+
+
+def _profile_train_stem(dev, g0, B, H, W, report) -> None:
+    """K3–K6 and their plain versions at (B, H, W) through ``report``."""
     img = torch.rand((B, H, W, 3), generator=g0, device=dev)
     w = torch.randn((32, 3, 3, 3), generator=g0, device=dev) * 0.3
     n = torch.full((), float(B * H * W), device=dev)
@@ -1164,6 +1428,49 @@ def phase_profile_stem(dev, card: str, out_dir: str) -> None:
                           ("plain", getattr(stem, name + "_reference"))):
             report(tag, name, which, (B, H, W), functools.partial(fn, *args),
                    bounds[name])
+
+
+def phase_profile_multi(spec, folded, dev, card: str, out_dir: str) -> None:
+    """Where the multi-object serve's and train step's time goes
+    (``--profile``): the per-class serve at batch MULTI_SERVE_BATCH and the
+    fused batch-32 416² train step, each its host-clock median (sync each
+    call) first, then device time by kernel family over PROFILE_CALLS
+    profiled calls and the device's idle share against that median."""
+    os.makedirs(out_dir, exist_ok=True)
+    serve = make_serving_fn(spec, folded,
+                            pick=("per_class", spec.net.conf_thresh))
+    gen = torch.Generator().manual_seed(40)
+    x = torch.randint(0, 256, (MULTI_SERVE_BATCH, MULTI_SIZE, MULTI_SIZE, 3),
+                      generator=gen, dtype=torch.uint8).to(dev)
+    state, _, step = _train_setup(spec, dev, seed=41, fused_stem=True,
+                                  multi=True)
+    batches = itertools.cycle(_train_batches(
+        dev, 4, seed=42, batch=MULTI_TRAIN_BATCH, size=MULTI_SIZE,
+        labels=_multi_labels))
+
+    def one_step():
+        frames, labels = next(batches)
+        step(state, frames, labels, _lr(spec, 0), TRAIN_EPOCH)
+
+    calls = {f"per-class serve batch {MULTI_SERVE_BATCH}": lambda: serve(x),
+             f"fused train step batch {MULTI_TRAIN_BATCH}": one_step}
+    host = {k: _host_ms(fn, iters=20) for k, fn in calls.items()}
+    for i, (what, fn) in enumerate(calls.items()):
+        path = os.path.join(out_dir, f"multi_trace_{i}.json")
+        by_family, busy, by_name = _profile(fn, PROFILE_CALLS, path)
+        busy_ms = busy / 1e3 / PROFILE_CALLS
+        total = sum(by_family.values())
+        print(f"[profile] multi {what}, {MULTI_SIZE}², bf16: host clock "
+              f"{host[what]:.4f} ms/call (median of 20, sync each call); "
+              f"device busy {busy_ms:.4f} ms/call over {PROFILE_CALLS} "
+              f"profiled calls; idle share {1 - busy_ms / host[what]:.4f}; "
+              f"trace {path} [{card}]")
+        for fam, us in by_family.most_common():
+            print(f"[profile]   {fam}: {us / 1e3 / PROFILE_CALLS:.4f} ms/call "
+                  f"({us / total:.2%} of device time)")
+        for name, us in by_name.most_common(8):
+            print(f"[profile]   kernel {us / 1e3 / PROFILE_CALLS:.4f} "
+                  f"ms/call [{_family(name)}] {name[:110]}")
 
 
 def phase_profile_gate(spec, dev, card: str) -> None:
@@ -1203,10 +1510,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
                                  "on one NVIDIA card.")
     ap.add_argument("--profile", metavar="OUT_DIR",
-                    help="after the phases, profile the serve and the fused "
-                         "train step: device time by kernel family, idle "
-                         "share, K1 against the plain stem in turns, K2-K6 "
-                         "and their plain versions on the device, and the "
+                    help="after the phases, profile the serves and the "
+                         "fused train steps: device time by kernel family, "
+                         "idle share, K1 against the plain stem in turns, "
+                         "K2-K6 and their plain versions on the device, the "
+                         "multi-object serve and batch-32 step, and the "
                          "fused against the unfused step at batch 64; "
                          "chrome traces go to OUT_DIR")
     args = ap.parse_args(argv)
@@ -1233,30 +1541,51 @@ def main(argv=None) -> int:
     state, train_launches, _, k2_numbers, k2_inputs = phase_train(spec, dev,
                                                                   card)
     phase_train_to_serve(spec, state, dev)
+
+    multi = yolo_pose_multi()
+    multi_model = _random_model(multi, dev, seed=30)
+    multi_folded = fold_batchnorm(multi_model)
+    n_params = sum(t.numel() for t in multi_model.state_dict().values())
+    print(f"[model] yolo_pose_multi: {n_params} parameters and BN statistics")
+    # the multi-object serving path: every K1 launch counted from here on
+    stem.stem_conv_pool_infer.launches = 0
+    phase_multi_serve(multi, multi_folded, dev, card)
+    multi_launches = [stem.stem_conv_pool_infer.launches]
+    _check(multi_launches[0] > 0, "the multi serve launched no stem kernel")
+    train_multi, _, _, multi_k2_inputs = phase_multi_train(multi, dev, card)
+    multi_launches += train_multi
     if args.profile:
         phase_profile(spec, folded, dev, card, args.profile)
-        phase_profile_k2(dev, card, args.profile, k2_inputs)
+        phase_profile_k2(dev, card, args.profile, [
+            ("the train step's own inputs", *k2_inputs),
+            ("the multi step's own inputs", *multi_k2_inputs)])
         phase_profile_stem(dev, card, args.profile)
         phase_profile_train(spec, dev, card, args.profile)
+        phase_profile_multi(multi, multi_folded, dev, card, args.profile)
         phase_profile_gate(spec, dev, card)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
-    # no single PyTorch call computes any of these functions: library_ms null
+    # no single PyTorch call computes any of these functions: library_ms
+    # null; launches on the single-object paths, launches_multi on the
+    # multi-object ones (K1 the serve, K2-K6 the train step)
     kernels = [{
         "name": "stem_conv_pool_infer", "route": "cuda",
         "source": "singleshotpose_tpu_torch/csrc/stem_serve.cu",
         "replaces": "singleshotpose_tpu/ops/stem.py:545",
-        "launches": launches, **stem_numbers, "library_ms": None}, {
+        "launches": launches, "launches_multi": multi_launches[0],
+        **stem_numbers, "library_ms": None}, {
         "name": "max_corner_confidence", "route": "cuda",
         "source": "singleshotpose_tpu_torch/csrc/max_corner_confidence.cu",
         "replaces": "singleshotpose_tpu/ops/pallas_kernels.py:44",
-        "launches": train_launches[0], **k2_numbers, "library_ms": None}]
-    for (_, name, replaces), n in zip(_STEM_KERNELS, train_launches[1:]):
+        "launches": train_launches[0], "launches_multi": multi_launches[1],
+        **k2_numbers, "library_ms": None}]
+    for (_, name, replaces), n, n_multi in zip(
+            _STEM_KERNELS, train_launches[1:], multi_launches[2:]):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "singleshotpose_tpu_torch/csrc/stem_train.cu",
-            "replaces": replaces, "launches": n, **train_stem_numbers[name],
-            "library_ms": None})
+            "replaces": replaces, "launches": n, "launches_multi": n_multi,
+            **train_stem_numbers[name], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

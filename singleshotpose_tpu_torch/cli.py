@@ -5,9 +5,17 @@
          [--bg_dir DIR] [--checkpoint_dir DIR [--resume]] [--device cuda]
   python -m singleshotpose_tpu_torch.cli valid --datacfg D.data --modelcfg M
          --weightfile W.weights [--batch_size N] [--device cuda]
+  python -m singleshotpose_tpu_torch.cli train-multi --datacfg occlusion.data
+         [--modelcfg M] [--initweightfile W] [--linemod_root DIR]
+         [--eval_datacfgs D.data ...] [--max_epochs N] [--bg_dir DIR]
+         [--checkpoint_dir DIR [--resume]] [--device cuda]
+  python -m singleshotpose_tpu_torch.cli valid-multi --weightfile W.weights
+         [--modelcfg M] [--datacfgs D.data ... | --datacfg occlusion.data]
+         [--device cuda]
 
-Flags follow ``singleshotpose_tpu/cli.py`` (``train``, ``valid``), with
-``--checkpoint_dir`` in place of ``--orbax_dir``; ``--modelcfg`` also takes
+Flags follow ``singleshotpose_tpu/cli.py`` (``train``, ``valid``,
+``train-multi``, ``valid-multi``), with ``--checkpoint_dir`` in place of
+``--orbax_dir``; ``--modelcfg`` also takes
 the zoo names ``yolo-pose``, ``yolo-pose-multi``, ``yolo-pose-pre``.  The
 default device is ``cuda``: without a CUDA device a command fails rather
 than run on the CPU; ``--device cpu`` asks for the CPU explicitly.
@@ -33,14 +41,7 @@ def _require_device(device: str) -> None:
                          "available (pass --device cpu to run on the CPU)")
 
 
-def cmd_train(argv: Sequence[str]) -> int:
-    p = argparse.ArgumentParser(prog="singleshotpose_tpu_torch.cli train")
-    p.add_argument("--datacfg", type=str, default="cfg/ape.data")
-    p.add_argument("--modelcfg", type=str, default="cfg/yolo-pose.cfg")
-    p.add_argument("--initweightfile", type=str,
-                   default="cfg/darknet19_448.conv.23",
-                   help="backbone weights ('' to start from random weights)")
-    p.add_argument("--pretrain_num_epochs", type=int, default=15)
+def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--max_epochs", type=int, default=None,
                    help="override [net] max_epochs")
     p.add_argument("--bg_dir", type=str,
@@ -50,20 +51,67 @@ def cmd_train(argv: Sequence[str]) -> int:
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in --checkpoint_dir")
     p.add_argument("--device", type=str, default="cuda")
+
+
+def _run_config(args, **overrides):
+    from .drivers import TrainRunConfig
+    return TrainRunConfig(bg_dir=args.bg_dir,
+                          max_epochs_override=args.max_epochs,
+                          checkpoint_dir=args.checkpoint_dir,
+                          resume=args.resume, device=args.device, **overrides)
+
+
+def cmd_train(argv: Sequence[str]) -> int:
+    p = argparse.ArgumentParser(prog="singleshotpose_tpu_torch.cli train")
+    p.add_argument("--datacfg", type=str, default="cfg/ape.data")
+    p.add_argument("--modelcfg", type=str, default="cfg/yolo-pose.cfg")
+    p.add_argument("--initweightfile", type=str,
+                   default="cfg/darknet19_448.conv.23",
+                   help="backbone weights ('' to start from random weights)")
+    p.add_argument("--pretrain_num_epochs", type=int, default=15)
+    _add_train_flags(p)
     args = p.parse_args(argv)
     _require_file(args.datacfg, "data config")
     _require_file(args.initweightfile or None, "initial weight file")
     _require_device(args.device)
 
-    from .drivers import TrainRunConfig, run_training
+    from .drivers import run_training
     from .zoo import _resolve_model
-    rc = TrainRunConfig(bg_dir=args.bg_dir,
-                        max_epochs_override=args.max_epochs,
-                        checkpoint_dir=args.checkpoint_dir,
-                        resume=args.resume, device=args.device)
     result = run_training(args.datacfg, _resolve_model(args.modelcfg),
                           args.initweightfile or None,
-                          args.pretrain_num_epochs, rc)
+                          args.pretrain_num_epochs, _run_config(args))
+    print(f"best accuracy: {result['best_acc']}")
+    return 0
+
+
+def cmd_train_multi(argv: Sequence[str]) -> int:
+    p = argparse.ArgumentParser(prog="singleshotpose_tpu_torch.cli train-multi")
+    p.add_argument("--datacfg", type=str, default="cfg/occlusion.data")
+    p.add_argument("--modelcfg", type=str, default="cfg/yolo-pose-multi.cfg")
+    p.add_argument("--initweightfile", type=str,
+                   default="backup_multi/init.weights",
+                   help="backbone weights ('' to start from random weights)")
+    p.add_argument("--pretrain_num_epochs", type=int, default=0)
+    p.add_argument("--linemod_root", type=str, default=None)
+    p.add_argument("--eval_datacfgs", type=str, nargs="*", default=None)
+    _add_train_flags(p)
+    args = p.parse_args(argv)
+    _require_file(args.datacfg, "data config")
+    _require_file(args.initweightfile or None, "initial weight file")
+    _require_device(args.device)
+
+    from .drivers import run_training_multi
+    from .zoo import _resolve_model
+    eval_dcs = args.eval_datacfgs
+    if eval_dcs is None:
+        # reference sweep: train_multi.py:277-297
+        eval_dcs = [f"cfg/{o}_occlusion.data"
+                    for o in ("ape", "can", "cat", "duck", "driller", "glue")]
+        eval_dcs = [dc for dc in eval_dcs if os.path.exists(dc)]
+    result = run_training_multi(
+        args.datacfg, _resolve_model(args.modelcfg),
+        args.initweightfile or None, args.pretrain_num_epochs, eval_dcs,
+        args.linemod_root, _run_config(args, eval_every=20, eval_after=-1))
     print(f"best accuracy: {result['best_acc']}")
     return 0
 
@@ -89,7 +137,43 @@ def cmd_valid(argv: Sequence[str]) -> int:
     return 0
 
 
-COMMANDS = {"train": cmd_train, "valid": cmd_valid}
+def cmd_valid_multi(argv: Sequence[str]) -> int:
+    p = argparse.ArgumentParser(prog="singleshotpose_tpu_torch.cli valid-multi")
+    p.add_argument("--modelcfg", type=str, default="cfg/yolo-pose-multi.cfg")
+    p.add_argument("--weightfile", type=str,
+                   default="backup_multi/model_backup.weights")
+    p.add_argument("--datacfgs", type=str, nargs="*", default=None,
+                   help="per-object occlusion .data files; default: the "
+                        "reference's 6-object sweep under cfg/")
+    p.add_argument("--datacfg", type=str, default=None,
+                   help="a multi .data with valid<i>/mesh<i>/diam<i> keys "
+                        "(e.g. occlusion.data): evals every listed object")
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--device", type=str, default="cuda")
+    args = p.parse_args(argv)
+    _require_file(args.weightfile, "weight file")
+    _require_device(args.device)
+
+    from .drivers import (OCCLUSION_EVAL_OBJECTS, run_validation_multi,
+                          run_validation_multi_sweep)
+    from .zoo import _resolve_model
+    spec = _resolve_model(args.modelcfg)
+    kw = dict(batch_size=args.batch_size, device=args.device)
+    if args.datacfg:
+        _require_file(args.datacfg, "data config")
+        run_validation_multi_sweep(args.datacfg, spec, args.weightfile, **kw)
+        return 0
+    datacfgs = args.datacfgs or [
+        f"cfg/{obj}_occlusion.data" for obj in OCCLUSION_EVAL_OBJECTS]
+    for dc in datacfgs:
+        _require_file(dc, "data config")
+    for dc in datacfgs:
+        run_validation_multi(dc, spec, args.weightfile, **kw)
+    return 0
+
+
+COMMANDS = {"train": cmd_train, "valid": cmd_valid,
+            "train-multi": cmd_train_multi, "valid-multi": cmd_valid_multi}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -2,8 +2,8 @@
 
 The port's own copy of ``singleshotpose_tpu/config.py`` (plain Python, no
 framework), kept so the port imports nothing of the JAX package;
-``tests/test_torch_host.py`` holds it equal to the original.  Left out until
-the multi-object slice: ``occlusion_sweep`` and ``print_cfg``.
+``tests/test_torch_host.py`` holds it equal to the original.  Left out:
+``print_cfg``.
 
 A rebuild of the reference config layer (reference: ``cfg.py:4-34``
 ``parse_cfg`` and ``utils.py:343-358`` ``read_data_cfg``).  The parsers keep the
@@ -16,6 +16,7 @@ dataclasses.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 __all__ = [
@@ -27,6 +28,7 @@ __all__ = [
     "net_config_from_block",
     "region_config_from_block",
     "data_config_from_options",
+    "occlusion_sweep",
     "format_cfg_table",
 ]
 
@@ -228,6 +230,30 @@ def data_config_from_options(options: Dict[str, str]) -> DataConfig:
             extra[key] = value
     kw["extra"] = extra
     return DataConfig(**kw)
+
+
+def occlusion_sweep(dcfg: DataConfig):
+    """Enumerate the per-object eval entries of a multi-object ``.data``.
+
+    The occlusion config carries numbered keys ``valid<i>``/``mesh<i>``/
+    ``diam<i>`` (reference: ``multi_obj_pose_estimation/cfg/occlusion.data``);
+    returns a list of per-object :class:`DataConfig` views inheriting the
+    shared intrinsics/dims, ordered by index.
+    """
+    entries = []
+    idxs = sorted(int(k[len("valid"):]) for k in dcfg.extra
+                  if k.startswith("valid") and k[len("valid"):].isdigit())
+    for i in idxs:
+        valid = dcfg.extra.get(f"valid{i}")
+        mesh = dcfg.extra.get(f"mesh{i}")
+        diam = dcfg.extra.get(f"diam{i}")
+        name = None
+        if mesh:
+            name = os.path.splitext(os.path.basename(mesh))[0]
+        entries.append(dataclasses.replace(
+            dcfg, valid=valid, mesh=mesh,
+            diam=float(diam) if diam else None, name=name, extra={}))
+    return entries
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,15 @@
 """Host data pipeline: dataset, multi-scale schedule, thread-pooled loader.
 
 The port's own copy of ``singleshotpose_tpu/data/pipeline.py``, cut to what
-the single-object drivers run, so the port imports nothing of the JAX
-package; ``tests/test_torch_host.py`` holds its batches equal, bit for bit,
-to the JAX package's ``Loader(backend="python")``.  Left out: the
-scene-synthesis hook, the decoded-image cache, the native C++ decoder's
-sampling plan and the ``native``/``device``/``device_bank``/``device_synth``
-backends with their ``out_yuv420`` and ``mesh`` options — the loader here
-has the Python backend only, and a caller that passes one of those options
-gets a ``TypeError``.
+the drivers run, so the port imports nothing of the JAX package;
+``tests/test_torch_host.py`` and ``tests/test_torch_multi_host.py`` hold its
+batches equal, bit for bit, to the JAX package's
+``Loader(backend="python")``, the multi-object scene synthesizer's
+(``synthesizer=``) included.  Left out: the decoded-image cache, the native
+C++ decoder's sampling plan and the ``native``/``device``/``device_bank``/
+``device_synth`` backends with their ``out_yuv420`` and ``mesh`` options —
+the loader here has the Python backend only, and a caller that passes one of
+those options gets a ``TypeError``.
 
 Rebuild of ``listDataset`` + torch ``DataLoader`` (reference:
 ``dataset.py:14-141``, ``train.py:56-65``):
@@ -19,7 +20,7 @@ Rebuild of ``listDataset`` + torch ``DataLoader`` (reference:
     (``dataset.py:138``), racy-by-design; here the schedule is deterministic
     given (seen, rng).
   * widths are drawn from the same staged 32-px buckets
-    (``dataset.py:66-90``).
+    (``dataset.py:66-90`` single, ``dataset_multi.py:43-58`` multi).
   * samples are decoded/augmented by a thread pool (PIL/numpy release the
     GIL for the heavy parts) and batches are yielded as host numpy.
 """
@@ -37,8 +38,8 @@ from ..utils.labels import (label_path_from_image, mask_path_from_image,
                             read_truths, read_truths_args)
 from . import augment
 
-__all__ = ["MultiScaleSchedule", "SINGLE_SCHEDULE", "AugmentConfig",
-           "PoseDataset", "Loader", "load_image"]
+__all__ = ["MultiScaleSchedule", "SINGLE_SCHEDULE", "MULTI_SCHEDULE",
+           "AugmentConfig", "PoseDataset", "Loader", "load_image"]
 
 
 def load_image(path: str) -> np.ndarray:
@@ -87,6 +88,10 @@ SINGLE_SCHEDULE = MultiScaleSchedule((
     (10, 13, 0), (20, 13, 7), (30, 12, 9), (40, 11, 11),
     (50, 10, 13), (60, 9, 15), (70, 8, 17), (0, 7, 19)))
 
+# reference: dataset_multi.py:43-58 — milder brackets
+MULTI_SCHEDULE = MultiScaleSchedule((
+    (20, 13, 0), (40, 13, 3), (60, 12, 5), (80, 11, 7), (0, 10, 9)))
+
 
 # ---------------------------------------------------------------------------
 # dataset
@@ -99,6 +104,10 @@ class AugmentConfig:
     hue: float = 0.1
     saturation: float = 1.5
     exposure: float = 1.5
+
+    @classmethod
+    def multi(cls) -> "AugmentConfig":
+        return cls(jitter=0.1, hue=0.05)  # dataset_multi.py:62-65
 
 
 class PoseDataset:
@@ -113,7 +122,8 @@ class PoseDataset:
                  bg_file_names: Optional[Sequence[str]] = None,
                  aug: AugmentConfig = AugmentConfig(),
                  num_keypoints: int = 9, max_num_gt: int = 50,
-                 label_path_fn: Callable[[str], str] = label_path_from_image):
+                 label_path_fn: Callable[[str], str] = label_path_from_image,
+                 synthesizer: Optional[Callable] = None):
         with open(listfile) as f:
             self.lines = [ln.strip() for ln in f if ln.strip()]
         self.train = train
@@ -122,6 +132,7 @@ class PoseDataset:
         self.num_keypoints = num_keypoints
         self.max_num_gt = max_num_gt
         self.label_path_fn = label_path_fn
+        self.synthesizer = synthesizer  # multi-object scene synthesis hook
 
     def __len__(self) -> int:
         return len(self.lines)
@@ -176,19 +187,23 @@ class PoseDataset:
         (the augmentation pipeline is uint8 throughout) so batches transfer
         at 1/4 the bytes and normalize on device — bit-identical values."""
         imgpath = self.lines[index]
-        img = load_image(imgpath)
-        mask = load_image(mask_path_from_image(imgpath))
-        if self.bg_file_names:
-            bg = load_image(
-                self.bg_file_names[rng.randint(len(self.bg_file_names))])
-            img = augment.change_background(img, mask, bg)
-        w, h = shape
-        img, _flip, dx, dy, sx, sy = augment.data_augmentation(
-            rng, img, w, h, self.aug.jitter, self.aug.hue,
-            self.aug.saturation, self.aug.exposure)
-        truths = self._read_truths_full(imgpath)
-        label = augment.transform_truths(truths, dx, dy, 1.0 / sx, 1.0 / sy,
-                                         self.num_keypoints, self.max_num_gt)
+        if self.synthesizer is not None:
+            img, label = self.synthesizer(self, imgpath, shape, rng)
+        else:
+            img = load_image(imgpath)
+            mask = load_image(mask_path_from_image(imgpath))
+            if self.bg_file_names:
+                bg = load_image(
+                    self.bg_file_names[rng.randint(len(self.bg_file_names))])
+                img = augment.change_background(img, mask, bg)
+            w, h = shape
+            img, _flip, dx, dy, sx, sy = augment.data_augmentation(
+                rng, img, w, h, self.aug.jitter, self.aug.hue,
+                self.aug.saturation, self.aug.exposure)
+            truths = self._read_truths_full(imgpath)
+            label = augment.transform_truths(truths, dx, dy, 1.0 / sx,
+                                             1.0 / sy, self.num_keypoints,
+                                             self.max_num_gt)
         if as_uint8:
             return np.ascontiguousarray(img, np.uint8), label
         return img.astype(np.float32) / 255.0, label

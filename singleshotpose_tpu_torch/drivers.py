@@ -1,17 +1,22 @@
-"""Drivers: the reference's ``valid.py`` and ``train.py`` for a single object.
+"""Drivers: the reference's ``valid.py``/``train.py`` for a single object and
+``valid_multi.py``/``train_multi.py`` for OCCLUSION.
 
-Mirrors ``run_validation`` and ``run_training`` of
-``singleshotpose_tpu/drivers.py``.
+Mirrors ``run_validation``, ``run_validation_multi``,
+``run_validation_multi_sweep``, ``run_training`` and ``run_training_multi``
+of ``singleshotpose_tpu/drivers.py``.
 
 Validation, on the ``rgb`` transfer: the host ``PoseDataset``/
-``Loader`` feed u8 batches at the spec's test size, the serving function
-(fold → bf16 forward → decode → best box) runs on the device, and the boxes
-of all batches meet the ground truth in one batched PnP + metric pass.
+``Loader`` feed u8 batches (single object at the spec's test size, multi
+object at its train size), the serving function (fold → bf16 forward →
+decode → box pick: the best box, or one box per class) runs on the device,
+and the boxes of all batches meet the ground truth in one batched PnP +
+metric pass.
 
-Training: the host ``Loader`` (multi-scale, u8) feeds the eager train
-step through pinned host memory; the reference's behaviours are kept — the
-step LR schedule in batches, the pretrain confidence gate, an eval every
-``eval_every`` epochs after ``eval_after``, the best 2D accuracy saved as
+Training: the host ``Loader`` (multi-scale, u8; for OCCLUSION over scenes
+from the multi-object synthesizer) feeds the eager train step through
+pinned host memory; the reference's behaviours are kept — the step LR
+schedule in batches, the pretrain confidence gate, an eval every
+``eval_every`` epochs after ``eval_after``, the best accuracy saved as
 darknet ``model.weights``, ``costs.npz`` curves — and full-state
 checkpoints (``checkpoint.py``) give a real resume.
 """
@@ -21,17 +26,21 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from . import weights as W
 from .checkpoint import Checkpointer
-from .config import data_config_from_options, read_data_cfg
-from .data.pipeline import SINGLE_SCHEDULE, Loader, PoseDataset
+from .config import (DataConfig, data_config_from_options, occlusion_sweep,
+                     read_data_cfg)
+from .data.pipeline import (MULTI_SCHEDULE, SINGLE_SCHEDULE, AugmentConfig,
+                            Loader, PoseDataset)
 from .data.prefetch import prefetch
-from .evaluate import EvalContext, PoseErrors, accuracy_summary, pose_metrics
+from .data.synth_multi import MultiObjectSynthesizer, SynthConfig
+from .evaluate import (EvalContext, PoseErrors, accuracy_summary,
+                       multi_accuracy_table, pose_metrics)
 from .models.darknet import Darknet, DarknetSpec, fold_batchnorm
 from .ops.losses import RegionLossConfig
 from .serving import make_serving_fn
@@ -40,8 +49,10 @@ from .training import (TrainState, init_train_state, make_train_step,
 from .utils.labels import get_all_files
 from .zoo import _resolve_model
 
-__all__ = ["run_validation", "run_training", "TrainRunConfig",
-           "loss_config_from_spec"]
+__all__ = ["run_validation", "run_validation_multi",
+           "run_validation_multi_sweep", "run_training", "run_training_multi",
+           "TrainRunConfig", "loss_config_from_spec",
+           "OCCLUSION_EVAL_OBJECTS"]
 
 
 def _log(msg: str) -> None:
@@ -56,14 +67,27 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+def _load_model(spec: DarknetSpec, weightfile: Optional[str],
+                device: torch.device) -> Darknet:
+    if weightfile is None:
+        raise ValueError("a validation needs a weightfile or a model")
+    model = Darknet(spec, device=device)
+    model.load_state_dict(W.load_weights(spec, weightfile)[1])
+    return model
+
+
 def _eval_pass(spec: DarknetSpec, model: Darknet, loader, ctx: EvalContext, *,
-               compute_dtype, device) -> Tuple[PoseErrors, Dict]:
+               compute_dtype, device, pick: Tuple = ("best",),
+               fix_gt_corners: bool = False) -> Tuple[PoseErrors, Dict]:
     """Boxes for every batch (launched as the prefetch thread decodes the
-    next batch), then one metric pass.  Returns (PoseErrors, artifacts with
+    next batch), then one metric pass.  ``pick`` is the serving function's:
+    ``("best",)`` gives a box an image; ``("per_class", conf)`` a box a
+    class, and each GT is paired with the box of its own class
+    (``valid_multi.py:118-123``).  Returns (PoseErrors, artifacts with
     ``corners_gt``, ``corners_pr`` (pixels) and ``image_idx``; empty when
     there is no ground truth)."""
     K = spec.num_keypoints
-    serve = make_serving_fn(spec, fold_batchnorm(model), pick=("best",),
+    serve = make_serving_fn(spec, fold_batchnorm(model), pick=pick,
                             compute_dtype=compute_dtype)
     pending = [(serve(images), labels) for images, labels in prefetch(loader)]
 
@@ -81,7 +105,9 @@ def _eval_pass(spec: DarknetSpec, model: Darknet, loader, ctx: EvalContext, *,
         bidx, gidx = np.nonzero(valid)
         if bidx.size:
             all_gt.append(lab[bidx, gidx, 1:2 * K + 1])
-            all_pr.append(boxes[bidx][:, :2 * K])
+            classes = lab[bidx, gidx, 0].astype(int)
+            pr = boxes[bidx, classes] if boxes.ndim == 3 else boxes[bidx]
+            all_pr.append(pr[:, :2 * K])
             image_idx.append(img_base + bidx)
         img_base += B
 
@@ -91,7 +117,8 @@ def _eval_pass(spec: DarknetSpec, model: Darknet, loader, ctx: EvalContext, *,
     scale = np.tile(np.array([ctx.im_width, ctx.im_height], np.float32), K)
     gt = (np.concatenate(all_gt) * scale).reshape(-1, K, 2)
     pr = (np.concatenate(all_pr) * scale).reshape(-1, K, 2)
-    errors.extend(pose_metrics(gt, pr, ctx, device=device))
+    errors.extend(pose_metrics(gt, pr, ctx, fix_gt_corners=fix_gt_corners,
+                               device=device))
     return errors, {"corners_gt": gt, "corners_pr": pr,
                     "image_idx": np.concatenate(image_idx)}
 
@@ -114,10 +141,7 @@ def run_validation(datacfg: str, modelcfg: Union[str, DarknetSpec],
     dcfg = data_config_from_options(read_data_cfg(datacfg))
     spec = _resolve_model(modelcfg)
     if model is None:
-        if weightfile is None:
-            raise ValueError("run_validation needs a weightfile or a model")
-        model = Darknet(spec, device=device)
-        model.load_state_dict(W.load_weights(spec, weightfile)[1])
+        model = _load_model(spec, weightfile, device)
 
     ctx = EvalContext.from_data_config(dcfg)
     ds = PoseDataset(dcfg.valid, train=False,
@@ -147,22 +171,111 @@ def run_validation(datacfg: str, modelcfg: Union[str, DarknetSpec],
     return summary
 
 
+# occlusion eval sweep objects (reference valid_multi.py:160-177)
+OCCLUSION_EVAL_OBJECTS = ("ape", "can", "cat", "duck", "glue", "holepuncher")
+
+
+def run_validation_multi(datacfg: Union[str, DataConfig],
+                         modelcfg: Union[str, DarknetSpec],
+                         weightfile: Optional[str] = None, *,
+                         model: Optional[Darknet] = None,
+                         objclass: Optional[str] = None,
+                         class_id: Optional[int] = None,
+                         conf_thresh: Optional[float] = None,
+                         batch_size: int = 16, num_workers: int = 8,
+                         compute_dtype=torch.bfloat16, device="cuda",
+                         verbose: bool = True) -> Dict[str, object]:
+    """Multi-object OCCLUSION eval for one object (reference
+    ``valid_multi.py:20-158``): class-picked boxes, ``fix_corner_order`` on
+    the GT, the pixel-error accuracy table at 5..50 px.
+
+    With ``class_id`` (or a ``class_id`` key in the ``.data`` file) each
+    image's box of that class is scored; otherwise each GT is paired with
+    the box of its own class.  Frames are read at the spec's train size
+    (``valid_multi.py:71``), labels from ``labels_occlusion/`` under the
+    object's name (``dataset_multi.py:78``).  The network is
+    ``weightfile`` or ``model``, as :func:`run_validation` takes them.
+    """
+    device = _resolve_device(device)
+    if isinstance(datacfg, DataConfig):
+        options: Dict[str, str] = {}
+        dcfg = datacfg
+    else:
+        options = read_data_cfg(datacfg)
+        dcfg = data_config_from_options(options)
+    spec = _resolve_model(modelcfg)
+    if model is None:
+        model = _load_model(spec, weightfile, device)
+    if conf_thresh is None:
+        conf_thresh = spec.net.conf_thresh
+    name = objclass or dcfg.name
+    if class_id is None and "class_id" in options:
+        class_id = int(options["class_id"])
+
+    def occlusion_label_path(imgpath: str) -> str:
+        return (imgpath.replace("benchvise", name)
+                .replace("images", "labels_occlusion")
+                .replace("JPEGImages", "labels_occlusion")
+                .replace(".jpg", ".txt").replace(".png", ".txt"))
+
+    ctx = EvalContext.from_data_config(dcfg)
+    ds = PoseDataset(dcfg.valid, train=False,
+                     num_keypoints=spec.num_keypoints,
+                     label_path_fn=occlusion_label_path)
+    loader = Loader(ds, batch_size, shuffle=False, schedule=None,
+                    fixed_shape=(spec.net.width, spec.net.height),
+                    num_workers=num_workers, drop_last=False, out_uint8=True)
+    pick = ("for_class", class_id, conf_thresh) if class_id is not None \
+        else ("per_class", conf_thresh)
+    if verbose:
+        _log(f"   Testing {name}...")
+    errors, _ = _eval_pass(spec, model, loader, ctx, pick=pick,
+                           fix_gt_corners=True, compute_dtype=compute_dtype,
+                           device=device)
+    table = multi_accuracy_table(errors.errs_2d)
+    if verbose:
+        for th, acc in table.items():
+            _log(f"   Acc using {th} px 2D Projection = {acc:.2f}%")
+    return {"name": name, "acc_table": table,
+            "mean_err_2d": float(np.mean(errors.errs_2d))
+            if len(errors) else float("nan"),
+            "n_samples": len(errors)}
+
+
+def run_validation_multi_sweep(occlusion_datacfg: str,
+                               modelcfg: Union[str, DarknetSpec],
+                               weightfile: str,
+                               **kw) -> List[Dict[str, object]]:
+    """Eval every object listed in a multi ``.data``'s numbered
+    ``valid<i>``/``mesh<i>``/``diam<i>`` keys (``occlusion.data``), with
+    one load of the weights; ``kw`` go to :func:`run_validation_multi`."""
+    dcfg = data_config_from_options(read_data_cfg(occlusion_datacfg))
+    spec = _resolve_model(modelcfg)
+    model = _load_model(spec, weightfile,
+                        _resolve_device(kw.get("device", "cuda")))
+    return [run_validation_multi(entry, spec, model=model, **kw)
+            for entry in occlusion_sweep(dcfg)]
+
+
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 
 
 def loss_config_from_spec(spec: DarknetSpec, *, pretrain_num_epochs: int,
-                          im_width: float, im_height: float) -> RegionLossConfig:
-    """Single-object loss config: topology from the spec's [region] block,
-    scales as the reference's loss module really uses them — the config's
-    defaults, coord/object/noobject 1/5/1 and threshold 0.6, whatever the
-    cfg says (``singleshotpose_tpu/drivers.py:67-95``)."""
+                          im_width: float, im_height: float,
+                          multi: bool = False) -> RegionLossConfig:
+    """Loss config: topology from the spec's [region] block, scales as the
+    reference's loss modules really use them — the config's defaults,
+    coord/object/noobject/class 1/5/1/1 and threshold 0.6, whatever the cfg
+    says (``singleshotpose_tpu/drivers.py:67-95``); ``multi`` adds the class
+    term where the region has more than one class."""
     r = spec.region
     return RegionLossConfig(
         num_keypoints=spec.num_keypoints, num_classes=r.classes,
         num_anchors=r.num, anchors=r.anchors,
         pretrain_num_epochs=pretrain_num_epochs,
+        with_class_loss=multi and r.classes > 1,
         im_width=float(im_width), im_height=float(im_height))
 
 
@@ -201,6 +314,56 @@ def _count_lines(path: str) -> int:
         return sum(1 for line in f if line.strip())
 
 
+def _init_state(spec: DarknetSpec, initweightfile: Optional[str],
+                rc: TrainRunConfig, device: torch.device):
+    """The train state, from ``initweightfile`` (a backbone: every layer
+    but the last two blocks, ``seen`` reset to 0 as the reference does) or a
+    generator seeded with ``rc.seed``; with ``rc.resume`` and a checkpoint
+    in ``rc.checkpoint_dir``, from that checkpoint.  Returns (state,
+    checkpointer or None)."""
+    net = spec.net
+    gen = torch.Generator().manual_seed(rc.seed)
+    if initweightfile:
+        _, init = W.load_weights_until_last(spec, initweightfile, gen)
+        model = Darknet(spec, device=device)
+        model.load_state_dict(init)
+    else:
+        model = Darknet(spec, generator=gen, device=device)
+    state = init_train_state(model, weight_decay=net.decay * net.batch,
+                             momentum=net.momentum)
+    ckpt = Checkpointer(rc.checkpoint_dir) if rc.checkpoint_dir else None
+    if rc.resume and ckpt is not None and ckpt.latest_step() is not None:
+        ckpt.restore(state)
+        _log(f"resumed from {rc.checkpoint_dir} at seen={state.seen}")
+    return state, ckpt
+
+
+def _train_epochs(epochs, train_one, evaluate, state: TrainState, processed,
+                  ckpt: Optional[Checkpointer], rc: TrainRunConfig) -> None:
+    """Per epoch: ``train_one(epoch)``, a checkpoint every
+    ``rc.checkpoint_every_epochs``, ``evaluate(epoch)``; a final checkpoint.
+    On any failure the latest state is saved before the error goes on."""
+    try:
+        for epoch in epochs:
+            train_one(epoch)
+            if ckpt is not None and rc.checkpoint_every_epochs and \
+                    epoch % rc.checkpoint_every_epochs == 0:
+                ckpt.save(processed[0], state)
+            evaluate(epoch)
+    except BaseException:
+        # keep what was trained: a full-state save at the current batch
+        # before the error goes on
+        if ckpt is not None:
+            _log("checkpoint on failure")
+            try:
+                ckpt.save(processed[0], state)
+            except Exception as e:      # the original error matters more
+                _log(f"checkpoint on failure failed: {e!r}")
+        raise
+    if ckpt is not None:
+        ckpt.save(processed[0], state)
+
+
 def run_training(datacfg: str, modelcfg: Union[str, DarknetSpec],
                  initweightfile: Optional[str] = None,
                  pretrain_num_epochs: int = 15,
@@ -231,19 +394,7 @@ def run_training(datacfg: str, modelcfg: Union[str, DarknetSpec],
     backupdir = dcfg.backup or "backup"
     os.makedirs(backupdir, exist_ok=True)
 
-    gen = torch.Generator().manual_seed(rc.seed)
-    if initweightfile:
-        _, init = W.load_weights_until_last(spec, initweightfile, gen)
-        model = Darknet(spec, device=device)
-        model.load_state_dict(init)
-    else:
-        model = Darknet(spec, generator=gen, device=device)
-    state = init_train_state(model, weight_decay=net.decay * batch_size,
-                             momentum=net.momentum)
-    ckpt = Checkpointer(rc.checkpoint_dir) if rc.checkpoint_dir else None
-    if rc.resume and ckpt is not None and ckpt.latest_step() is not None:
-        ckpt.restore(state)
-        _log(f"resumed from {rc.checkpoint_dir} at seen={state.seen}")
+    state, ckpt = _init_state(spec, initweightfile, rc, device)
     processed = [state.seen // batch_size]     # current, for the crash save
     init_epoch = state.seen // max(nsamples, 1)
 
@@ -262,37 +413,135 @@ def run_training(datacfg: str, modelcfg: Union[str, DarknetSpec],
                                 "testing_iters": [], "testing_accuracies": [],
                                 "testing_errors_pixel": [],
                                 "testing_errors_angle": []}
-    best_acc = -float("inf")
-    try:
-        for epoch in range(init_epoch, max_epochs):
-            lr = schedule_lr(net.learning_rate, processed[0], steps, scales)
-            _log(f"epoch {epoch}, processed {epoch * nsamples} samples, "
-                 f"lr {lr:f}")
-            _run_epoch_batches(epoch, loader, step, state, device, net, steps,
-                               scales, nbatches, processed, rc.log_every,
-                               history)
-            if ckpt is not None and rc.checkpoint_every_epochs and \
-                    epoch % rc.checkpoint_every_epochs == 0:
-                ckpt.save(processed[0], state)
-            if epoch % rc.eval_every == 0 and epoch > rc.eval_after:
-                best_acc = _eval_and_keep_best(datacfg, spec, state, rc,
-                                               device, backupdir, history,
-                                               processed[0], best_acc)
-    except BaseException:
-        # keep what was trained: a full-state save at the current batch
-        # before the error goes on
-        if ckpt is not None:
-            _log("checkpoint on failure")
-            try:
-                ckpt.save(processed[0], state)
-            except Exception as e:      # the original error matters more
-                _log(f"checkpoint on failure failed: {e!r}")
-        raise
-    if ckpt is not None:
-        ckpt.save(processed[0], state)
-    _save_final_if_unsaved(spec, state, best_acc, backupdir,
+    best = [-float("inf")]
+
+    def train_one(epoch):
+        lr = schedule_lr(net.learning_rate, processed[0], steps, scales)
+        _log(f"epoch {epoch}, processed {epoch * nsamples} samples, "
+             f"lr {lr:f}")
+        _run_epoch_batches(epoch, loader, step, state, device, net, steps,
+                           scales, nbatches, processed, rc.log_every, history)
+
+    def evaluate(epoch):
+        if epoch % rc.eval_every == 0 and epoch > rc.eval_after:
+            best[0] = _eval_and_keep_best(datacfg, spec, state, rc, device,
+                                          backupdir, history, processed[0],
+                                          best[0])
+
+    _train_epochs(range(init_epoch, max_epochs), train_one, evaluate, state,
+                  processed, ckpt, rc)
+    _save_final_if_unsaved(spec, state, best[0], backupdir,
                            processed[0] * batch_size)
-    return {"state": state, "best_acc": best_acc, "history": history}
+    return {"state": state, "best_acc": best[0], "history": history}
+
+
+def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
+                       initweightfile: Optional[str] = None,
+                       pretrain_num_epochs: int = 0,
+                       eval_datacfgs: Optional[Sequence[str]] = None,
+                       linemod_root: Optional[str] = None,
+                       run_cfg: Optional[TrainRunConfig] = None
+                       ) -> Dict[str, object]:
+    """Multi-object OCCLUSION training (reference ``train_multi.py`` main).
+
+    What differs from :func:`run_training`, as in the reference: scenes
+    from the multi-object synthesizer over the LINEMOD singles under
+    ``linemod_root`` (by default inferred from the train list's paths,
+    ``image_multi.py:320``), ``AugmentConfig.multi()``, the milder
+    ``MULTI_SCHEDULE``, the class term of the loss, and an eval every 20
+    epochs from epoch 0 over the per-object ``eval_datacfgs``
+    (:func:`run_validation_multi`), the best ``model.weights`` kept on the
+    mean of their acc@50 px (``train_multi.py:277``, ``417-421``).  The
+    state, checkpoints, resume and device are as :func:`run_training` has
+    them.
+    """
+    rc = run_cfg or TrainRunConfig(eval_every=20, eval_after=-1)
+    device = _resolve_device(rc.device)
+    dcfg = data_config_from_options(read_data_cfg(datacfg))
+    spec = _resolve_model(modelcfg)
+    net = spec.net
+
+    batch_size = net.batch
+    with open(dcfg.train) as f:
+        train_lines = [ln.strip() for ln in f if ln.strip()]
+    nsamples = len(train_lines)
+    nbatches = nsamples / batch_size
+    steps = [s * nbatches for s in net.steps]
+    scales = list(net.scales)
+    max_epochs = rc.max_epochs_override or net.max_epochs
+    backupdir = dcfg.backup or "backup_multi"
+    os.makedirs(backupdir, exist_ok=True)
+
+    state, ckpt = _init_state(spec, initweightfile, rc, device)
+    processed = [state.seen // batch_size]
+    init_epoch = state.seen // max(nsamples, 1)
+
+    loss_cfg = loss_config_from_spec(spec,
+                                     pretrain_num_epochs=pretrain_num_epochs,
+                                     im_width=dcfg.width,
+                                     im_height=dcfg.height, multi=True)
+    step = make_train_step(loss_cfg, compute_dtype=rc.compute_dtype,
+                           fused_stem=_resolve_fused_stem(rc, device))
+    if linemod_root is None:
+        linemod_root = os.path.dirname(os.path.dirname(
+            os.path.dirname(train_lines[0])))
+    synth = MultiObjectSynthesizer(SynthConfig(
+        linemod_root=linemod_root, num_keypoints=spec.num_keypoints))
+    bg_files = get_all_files(rc.bg_dir) if os.path.isdir(rc.bg_dir) else []
+    ds = PoseDataset(dcfg.train, train=True, bg_file_names=bg_files,
+                     aug=AugmentConfig.multi(),
+                     num_keypoints=spec.num_keypoints, synthesizer=synth)
+    loader = Loader(ds, batch_size, schedule=MULTI_SCHEDULE, seen=state.seen,
+                    num_workers=rc.num_workers, seed=rc.seed, out_uint8=True)
+
+    history: Dict[str, List] = {"training_iters": [], "training_losses": [],
+                                "testing_iters": [], "testing_accuracies": []}
+    best = [-float("inf")]
+
+    def train_one(epoch):
+        lr = schedule_lr(net.learning_rate, processed[0], steps, scales)
+        _log(f"[multi] epoch {epoch}, lr {lr:f}")
+        _run_epoch_batches(epoch, loader, step, state, device, net, steps,
+                           scales, nbatches, processed, rc.log_every, history)
+
+    def evaluate(epoch):
+        if eval_datacfgs and epoch % rc.eval_every == 0 and \
+                epoch > rc.eval_after:
+            best[0] = _multi_eval_and_keep_best(eval_datacfgs, spec, state,
+                                                rc, device, backupdir,
+                                                history, processed[0],
+                                                best[0])
+
+    _train_epochs(range(init_epoch, max_epochs), train_one, evaluate, state,
+                  processed, ckpt, rc)
+    _save_final_if_unsaved(spec, state, best[0], backupdir,
+                           processed[0] * batch_size)
+    return {"state": state, "best_acc": best[0], "history": history}
+
+
+def _multi_eval_and_keep_best(eval_datacfgs, spec, state, rc, device,
+                              backupdir, history, processed,
+                              best_acc) -> float:
+    """The in-training sweep of the model in memory: acc@50 px of each
+    object, their mean to the curves and ``costs.npz``, and
+    ``model.weights`` when the mean is a new best.  Returns the best."""
+    accs = [run_validation_multi(dc, spec, model=state.model,
+                                 batch_size=rc.eval_batch_size,
+                                 num_workers=rc.num_workers,
+                                 compute_dtype=rc.compute_dtype,
+                                 device=device)["acc_table"][50]
+            for dc in eval_datacfgs]
+    mean_acc = float(np.mean(accs))
+    history["testing_iters"].append(processed)
+    history["testing_accuracies"].append(mean_acc)
+    np.savez(os.path.join(backupdir, "costs.npz"),
+             **{k: np.asarray(v) for k, v in history.items()})
+    if not mean_acc > best_acc:
+        return best_acc
+    path = os.path.join(backupdir, "model.weights")
+    _log(f"[multi] best model so far! save weights to {path}")
+    W.save_weights(spec, state.model.state_dict(), path, seen=state.seen)
+    return mean_acc
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -1,7 +1,9 @@
-"""Evaluation: the reference's single-object 6D pose metrics, batched.
+"""Evaluation: the reference's 6D pose metrics, batched.
 
 Mirrors ``singleshotpose_tpu/evaluate.py`` (``EvalContext``, ``PoseErrors``,
-``pose_metrics``, ``accuracy_summary``).  The ground-truth and predicted
+``pose_metrics``, ``accuracy_summary``; for OCCLUSION ``truths_length``,
+``gt_corner_boxes``, the GT corner permutation and
+``multi_accuracy_table``).  The ground-truth and predicted
 poses come from one batched PnP solve on the requested device; the error
 families are numpy, with the helpers of ``utils/geometry.py``:
 
@@ -17,18 +19,19 @@ with the reference's ``count·100/(n + 1e-5)`` accuracy convention.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
 from .config import DataConfig
 from .ops.pnp import pnp_batched
-from .utils.geometry import (calc_pts_diameter, get_3D_corners,
-                             get_camera_intrinsic)
+from .utils.geometry import (calc_pts_diameter, fix_corner_order,
+                             get_3D_corners, get_camera_intrinsic)
 from .utils.meshply import MeshPly
 
-__all__ = ["EvalContext", "PoseErrors", "pose_metrics", "accuracy_summary"]
+__all__ = ["EvalContext", "PoseErrors", "pose_metrics", "accuracy_summary",
+           "truths_length", "gt_corner_boxes", "multi_accuracy_table"]
 
 EPS = 1e-5
 PX_THRESHOLD = 5.0
@@ -82,15 +85,36 @@ class PoseErrors:
         return len(self.errs_2d)
 
 
+def truths_length(truths: np.ndarray, max_num_gt: int = 50) -> int:
+    """Number of GT slots before the first empty one (x0 == 0)."""
+    t = truths.reshape(max_num_gt, -1)
+    empty = np.nonzero(t[:, 1] == 0)[0]
+    return int(empty[0]) if empty.size else max_num_gt
+
+
+def gt_corner_boxes(target_row: np.ndarray, num_keypoints: int = 9,
+                    max_num_gt: int = 50) -> np.ndarray:
+    """Extract (nGT, 2K) normalized GT keypoints from a padded label row."""
+    K = num_keypoints
+    t = target_row.reshape(max_num_gt, -1)
+    n = truths_length(target_row, max_num_gt)
+    return t[:n, 1:2 * K + 1]
+
+
 def pose_metrics(corners2d_gt: np.ndarray, corners2d_pr: np.ndarray,
                  ctx: EvalContext, *, pnp_iters: int = 15,
+                 fix_gt_corners: bool = False,
                  device="cpu") -> Dict[str, np.ndarray]:
     """Batched metrics for (B, 9, 2) pixel-space keypoints.  The ground-truth
     and predicted poses come from one 2B-frame PnP solve on ``device``; the
-    five error families follow ``valid.py:137-177`` of the reference."""
+    five error families follow ``valid.py:137-177`` of the reference.
+    ``fix_gt_corners`` applies the OCCLUSION GT corner permutation
+    (``valid_multi.py:132``)."""
     B = corners2d_gt.shape[0]
     gt = np.asarray(corners2d_gt, np.float32)
     pr = np.asarray(corners2d_pr, np.float32)
+    if fix_gt_corners:
+        gt = np.stack([fix_corner_order(g) for g in gt])
     err_corner = np.linalg.norm(gt - pr, axis=2).mean(axis=1)
 
     stacked = torch.from_numpy(np.concatenate([gt, pr], axis=0)).to(device)
@@ -142,3 +166,13 @@ def accuracy_summary(errors: PoseErrors, diam: float,
         "mean_err_angle": float(ea.mean()) if n else float("nan"),
         "n_samples": n,
     }
+
+
+def multi_accuracy_table(errs_2d: Sequence[float],
+                         thresholds: Sequence[float] = tuple(range(5, 55, 5))
+                         ) -> Dict[int, float]:
+    """2D-reproj accuracy at 5..50 px (``valid_multi.py:153-158``)."""
+    e = np.asarray(errs_2d)
+    n = len(e)
+    return {int(th): float((e <= th).sum() * 100.0 / (n + EPS))
+            for th in thresholds}

@@ -18,6 +18,7 @@ target tensor, the same semantics —
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -40,13 +41,20 @@ class BuiltTargets(NamedTuple):
     num_correct: torch.Tensor  # scalar: rescoring conf > 0.5
 
 
+@functools.lru_cache(maxsize=16)
+def _anchor_wh(anchors: Tuple[float, ...], nA: int, device: torch.device):
+    """The anchors' (w, h) on ``device``, made once per (anchors, device): a
+    pageable host-to-device copy on every step would wait for the stream."""
+    a = torch.tensor(anchors, dtype=torch.float32).reshape(nA, -1)[:, :2]
+    return a[:, 0].to(device), a[:, 1].to(device)
+
+
 def _best_anchor(t: torch.Tensor, nl: int, nA: int, nH: int, nW: int,
                  anchors: Tuple[float, ...]) -> torch.Tensor:
     """Per GT slot, the anchor whose origin-centred box has the highest IoU
     with the GT's extent (first anchor on ties): intersection = min(w)·min(h)
     (``singleshotpose_tpu/ops/targets.py:55-65``, ``:121-127``)."""
-    wh = torch.tensor(anchors, dtype=torch.float32).reshape(nA, -1)[:, :2]
-    aw, ah = (v.to(t.device) for v in (wh[:, 0], wh[:, 1]))
+    aw, ah = _anchor_wh(tuple(anchors), nA, t.device)
     gw = t[:, :, nl - 2, None] * nW                                # (B, G, 1)
     gh = t[:, :, nl - 1, None] * nH
     iw, ih = torch.minimum(gw, aw), torch.minimum(gh, ah)          # (B, G, nA)

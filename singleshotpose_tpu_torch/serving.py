@@ -2,9 +2,9 @@
 dynamic micro-batching front end for it.
 
 Mirrors ``make_serving_fn`` and ``MicroBatcher`` of
-``singleshotpose_tpu/serving.py``: the same pick modes for a single object,
-the same bucket and deadline policy.  Results come back to the host with
-``.cpu()``.
+``singleshotpose_tpu/serving.py``: the same pick modes, single- and
+multi-object, the same bucket and deadline policy.  Results come back to the
+host with ``.cpu()``.
 """
 
 from __future__ import annotations
@@ -19,12 +19,18 @@ import numpy as np
 import torch
 
 from .models.darknet import DarknetSpec, apply_folded
-from .ops.decode import best_boxes, decode_grid
+from .ops.decode import (best_box_for_class, best_boxes, best_boxes_per_class,
+                         decode_grid)
 
 __all__ = ["make_serving_fn", "MicroBatcher"]
 
-# None / ("grid",) → the decoded grid; ("best",) → (B, 2K+3) best box per image
+# (pick-mode, extras):
+#   None / ("grid",)            → the decoded grid
+#   ("best",)                   → (B, 2K+3) best box per image
+#   ("per_class", conf)         → (B, C, 2K+3) per-class best with fallback
+#   ("for_class", cls, conf)    → (B, 2K+3) best box of one class
 Pick = Optional[Tuple]
+_PICKS = ("grid", "best", "per_class", "for_class")
 
 
 def make_serving_fn(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
@@ -35,7 +41,7 @@ def make_serving_fn(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]
     ``images``: NHWC, uint8 (normalized on the device) or float in [0, 1],
     a tensor or a numpy array; it runs on the device the weights are on.
     """
-    if pick is not None and pick[0] not in ("grid", "best"):
+    if pick is not None and pick[0] not in _PICKS:
         raise ValueError(f"unknown pick {pick!r}")
     K, C, nA = spec.num_keypoints, spec.num_classes, spec.num_anchors
     device = next(iter(folded.values()))["w"].device
@@ -52,7 +58,11 @@ def make_serving_fn(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]
         decoded = decode_grid(head.float(), K, C, nA)
         if pick is None or pick[0] == "grid":
             return decoded
-        return best_boxes(decoded)
+        if pick[0] == "best":
+            return best_boxes(decoded)
+        if pick[0] == "per_class":
+            return best_boxes_per_class(decoded, pick[1])
+        return best_box_for_class(decoded, pick[1], pick[2])
 
     return serve
 

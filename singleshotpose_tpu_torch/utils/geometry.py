@@ -1,16 +1,18 @@
 """Geometry primitives the port's evaluation uses: camera intrinsics, 3D
-bbox corners, object diameter.
+bbox corners, object diameter, the OCCLUSION corner order.
 
 The port's own copy of the functions of ``singleshotpose_tpu/utils/geometry.py``
 that ``evaluate.py`` calls (numpy only), so the port imports nothing of the
-JAX package; ``tests/test_torch_host.py`` holds them equal to the originals.
+JAX package; ``tests/test_torch_host.py`` and ``tests/test_torch_multi_host.py``
+hold them equal to the originals.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["get_camera_intrinsic", "get_3D_corners", "calc_pts_diameter"]
+__all__ = ["get_camera_intrinsic", "get_3D_corners", "calc_pts_diameter",
+           "fix_corner_order"]
 
 
 def get_camera_intrinsic(u0: float, v0: float, fx: float, fy: float) -> np.ndarray:
@@ -56,3 +58,11 @@ def calc_pts_diameter(pts: np.ndarray, chunk: int = 512) -> float:
         if m > diameter:
             diameter = m
     return float(np.sqrt(diameter))
+
+
+_FIX_ORDER = np.array([0, 1, 3, 5, 7, 2, 4, 6, 8])
+
+
+def fix_corner_order(corners2D_gt: np.ndarray) -> np.ndarray:
+    """OCCLUSION GT corner permutation (reference: ``utils.py:197-208``)."""
+    return np.asarray(corners2D_gt, dtype=np.float32)[_FIX_ORDER]

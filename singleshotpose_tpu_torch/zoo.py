@@ -3,17 +3,19 @@
 Mirrors ``singleshotpose_tpu/zoo.py``: the same block dicts (Darknet-19 to a
 13×13×1024 map, a passthrough route → 1×1×64 conv → reorg → concat, a 3×3
 fuse conv and a 1×1 linear head with ``nA·(2K+1+C)`` filters), built into
-this package's jax-free :class:`DarknetSpec`.
+this package's jax-free :class:`DarknetSpec`; and the OCCLUSION ``.data``
+renderer.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from .models.darknet import DarknetSpec
 
 __all__ = ["yolo_pose_blocks", "yolo_pose_single", "yolo_pose_multi",
-           "yolo_pose_pretrain", "MULTI_ANCHORS"]
+           "yolo_pose_pretrain", "MULTI_ANCHORS", "LINEMOD_OBJECTS",
+           "LINEMOD_DIAMETERS", "OCCLUSION_OBJECTS", "occlusion_datacfg"]
 
 # 5 anchor (w, h) pairs in grid units (yolo-pose-multi.cfg:240)
 MULTI_ANCHORS: Tuple[float, ...] = (
@@ -119,6 +121,71 @@ def yolo_pose_pretrain(**overrides) -> DarknetSpec:
               object_scale=0.0, noobject_scale=0.0)
     kw.update(overrides)
     return DarknetSpec(yolo_pose_blocks(**kw))
+
+
+# Published LINEMOD object diameters in meters (reference: cfg/<obj>.data:7,
+# e.g. ape.data "diam = 0.103"); the order is the 13 class ids.
+LINEMOD_DIAMETERS: Dict[str, float] = {
+    "ape": 0.103, "benchvise": 0.286908, "cam": 0.173, "can": 0.202,
+    "cat": 0.155, "driller": 0.262, "duck": 0.109, "eggbox": 0.176364,
+    "glue": 0.176, "holepuncher": 0.162, "iron": 0.303153,
+    "lamp": 0.285155, "phone": 0.213,
+}
+LINEMOD_OBJECTS: Tuple[str, ...] = tuple(LINEMOD_DIAMETERS)
+
+
+# Objects with OCCLUSION test annotations (the reference ships one
+# ``<obj>_occlusion.data`` per entry, multi_obj_pose_estimation/cfg/).
+OCCLUSION_OBJECTS: Tuple[str, ...] = (
+    "ape", "can", "cat", "driller", "duck", "eggbox", "glue", "holepuncher")
+
+# Objects in the combined occlusion.data numbered sweep (no eggbox there,
+# reference multi_obj_pose_estimation/cfg/occlusion.data:2-8).
+_OCCLUSION_SWEEP: Tuple[str, ...] = (
+    "ape", "can", "cat", "driller", "duck", "glue", "holepuncher")
+
+_SHARED_CAMERA = ("gpus = 0\n"
+                  "im_width = 640\n"
+                  "im_height = 480\n"
+                  "fx = 572.4114\n"
+                  "fy = 573.5704\n"
+                  "u0 = 325.2611\n"
+                  "v0 = 242.0489\n")
+
+
+def occlusion_datacfg(obj: Optional[str] = None,
+                      linemod_root: str = "../LINEMOD",
+                      backup_root: str = "backup_multi",
+                      train_list: str = "cfg/train_occlusion.txt") -> str:
+    """Render OCCLUSION ``.data`` artifacts for ``read_data_cfg``.
+
+    ``obj=None`` → the combined multi-object config with numbered
+    ``valid<i>``/``mesh<i>``/``diam<i>`` keys (≡ reference
+    ``multi_obj_pose_estimation/cfg/occlusion.data``; index = LINEMOD class
+    id + 1, e.g. ``valid1`` = ape, ``valid4`` = can).  ``obj=<name>`` → the
+    per-object eval config (≡ ``<obj>_occlusion.data``), plus a ``class_id``
+    key so the eval driver can class-pick boxes directly.
+    """
+    if obj is None:
+        ids = [(o, LINEMOD_OBJECTS.index(o) + 1) for o in _OCCLUSION_SWEEP]
+        lines = [f"train  = {train_list}"]
+        lines += [f"valid{i} = {linemod_root}/{o}/test_occlusion.txt"
+                  for o, i in ids]
+        lines.append(f"backup = {backup_root}")
+        lines += [f"mesh{i} = {linemod_root}/{o}/{o}.ply" for o, i in ids]
+        lines += [f"diam{i} = {LINEMOD_DIAMETERS[o]}" for o, i in ids]
+        return "\n".join(lines) + "\n" + _SHARED_CAMERA
+    if obj not in OCCLUSION_OBJECTS:
+        raise ValueError(f"no OCCLUSION annotations for {obj!r}; "
+                         f"choose from {OCCLUSION_OBJECTS}")
+    r = f"{linemod_root}/{obj}"
+    return (f"valid = {r}/test_occlusion.txt\n"
+            f"mesh = {r}/{obj}.ply\n"
+            f"backup = {backup_root}\n"
+            f"name = {obj}\n"
+            f"diam = {LINEMOD_DIAMETERS[obj]}\n"
+            f"class_id = {LINEMOD_OBJECTS.index(obj)}\n"
+            + _SHARED_CAMERA)
 
 
 _BUILDERS = {"yolo-pose": yolo_pose_single,

@@ -215,6 +215,20 @@ def test_max_corner_confidence_kernel_on_valid_patterns(dev, pattern, B, G, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [845, 1805])
+def test_max_corner_confidence_kernel_on_multi_object_frames(dev, S):
+    """The multi-object step's traffic: batch 32, nine valid slots an image
+    (an eggbox scene: the base object and its 8 companions), 5 anchors on
+    the 416² grid (845 cells) and on the 608² one (1805)."""
+    gt, valid, pred = _k2_case(dev, "prefix9", 32, 50, S, seed=S)
+    got = mcc.max_corner_confidence(gt, valid, pred)
+    ref = mcc.max_corner_confidence_reference(gt, valid, pred)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got > 0.6, ref > 0.6)
+    assert (got > 0.6).any()
+
+
+@pytest.mark.cuda
 def test_max_corner_confidence_kernel_packing_keeps_each_pairs_bits(dev):
     """The max over all slots equals the max of the one-slot outputs, bit
     for bit: a pair's mean does not depend on how many pairs share the
@@ -338,12 +352,13 @@ def _glue(sums, n, scale, bias):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,W", [(2, 32, 64), (8, 416, 416), (8, 832, 832),
-                                   (3, 34, 70), (2, 36, 40)])
+                                   (3, 34, 70), (2, 36, 40), (32, 320, 320)])
 def test_train_stem_kernels_match_plain_versions(dev, B, H, W):
     """(3, 34, 70): a pooled grid of 17 x 35, odd and not a multiple of K6's
     2 x 16 tiles, so every edge tile is ragged; K3 takes its 4-byte halo
     copies (W % 4 != 0).  (2, 36, 40): 18 x 20, no multiple of K3's 8 x 16
-    tiles in either dimension, with K3's 16-byte copies."""
+    tiles in either dimension, with K3's 16-byte copies.  (32, 320, 320):
+    the multi-object step's batch at MULTI_SCHEDULE's narrowest width."""
     img, w, scale, bias = _stem_inputs(dev, B, H, W, seed=B + H)
     n = torch.full((), float(B * H * W), device=dev)
     before = [stem.stem_conv_stats.launches, stem.stem_bn_pool.launches,

@@ -1,7 +1,7 @@
 """PyTorch port vs the JAX package: the serving function, the micro-batcher,
 the validation driver and its CLI (singleshotpose_tpu_torch/serving.py,
-drivers.py, cli.py) — and that the port (serving and a train step) runs
-with jax absent.
+drivers.py, cli.py) — and that the port (single- and multi-object serving
+and a train step) runs with jax absent.
 
 Tolerances: f32 serving boxes to 1e-5 (the same f32 net, summed in another
 order); bf16 boxes to 2e-2 of a corner's scale — the tiny net's bf16 convs
@@ -71,10 +71,10 @@ def test_serving_fn_matches_jax(tiny, dtype):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0, atol=tol)
 
 
-def test_serving_fn_rejects_multi_object_picks(tiny):
+def test_serving_fn_rejects_unknown_pick(tiny):
     _, tspec, _, tfolded, _ = tiny
-    with pytest.raises(ValueError):
-        TS.make_serving_fn(tspec, tfolded, pick=("per_class", 0.1))
+    with pytest.raises(ValueError, match="unknown pick"):
+        TS.make_serving_fn(tspec, tfolded, pick=("nearest", 0.1))
 
 
 def test_microbatcher_answers_equal_direct_call(tiny):
@@ -216,7 +216,8 @@ import singleshotpose_tpu_torch
 from singleshotpose_tpu_torch import (checkpoint, cli, config, drivers,
                                       evaluate, serving, training, weights,
                                       zoo)
-from singleshotpose_tpu_torch.data import augment, pipeline, prefetch
+from singleshotpose_tpu_torch.data import (augment, pipeline, prefetch,
+                                           synth_multi)
 from singleshotpose_tpu_torch.models import darknet, layers
 from singleshotpose_tpu_torch.ops import (confidence, cuda_build, decode,
                                           losses, max_corner_confidence, pnp,
@@ -228,6 +229,13 @@ model = darknet.Darknet(spec, generator=torch.Generator().manual_seed(0))
 boxes = serving.make_serving_fn(spec, darknet.fold_batchnorm(model),
                                 pick=("best",))(np.zeros((1, 64, 64, 3), np.uint8))
 assert boxes.shape == (1, 21) and bool(torch.isfinite(boxes).all())
+multi = zoo.yolo_pose_multi(train_size=64)
+per_class = serving.make_serving_fn(
+    multi, darknet.fold_batchnorm(darknet.Darknet(
+        multi, generator=torch.Generator().manual_seed(0))),
+    pick=("per_class", 0.05))(np.zeros((2, 64, 64, 3), np.uint8))
+assert per_class.shape == (2, 13, 21)
+assert bool(torch.isfinite(per_class).all())
 X = np.array([[0, 0, 0]] + [[a * .05, b * .04, c * .03] for a in (-1, 1)
               for b in (-1, 1) for c in (-1, 1)], np.float32)
 K = np.array([[572.4, 0, 325.3], [0, 573.6, 242.0], [0, 0, 1]], np.float32)

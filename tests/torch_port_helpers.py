@@ -43,10 +43,28 @@ TINY_BLOCKS = [
      "num": "1"},
 ]
 
-TINY_CFG = "\n".join(
-    "[{}]\n{}\n".format(b["type"], "\n".join(
-        f"{k}={v}" for k, v in b.items() if k != "type"))
-    for b in TINY_BLOCKS)
+
+def _cfg_text(blocks):
+    return "\n".join(
+        "[{}]\n{}\n".format(b["type"], "\n".join(
+            f"{k}={v}" for k, v in b.items() if k != "type"))
+        for b in blocks)
+
+
+TINY_CFG = _cfg_text(TINY_BLOCKS)
+
+# yolo-pose-multi.cfg's 5 anchors (zoo.MULTI_ANCHORS)
+MULTI_ANCHORS = (1.4820, 2.2412, 2.0501, 3.1265, 2.3946, 4.6891, 3.1018,
+                 3.9910, 3.4879, 5.8851)
+
+# the tiny net with the multi-object head: 13 classes, 5 anchors,
+# 5·(2·9 + 1 + 13) = 160 filters
+TINY_MULTI_BLOCKS = [dict(b) for b in TINY_BLOCKS]
+TINY_MULTI_BLOCKS[-2]["filters"] = "160"
+TINY_MULTI_BLOCKS[-1].update(
+    classes="13", num="5",
+    anchors=", ".join(f"{a:.4f}" for a in MULTI_ANCHORS))
+TINY_MULTI_CFG = _cfg_text(TINY_MULTI_BLOCKS)
 
 
 def jax_params(spec, seed=0):
@@ -72,9 +90,10 @@ def jax_params(spec, seed=0):
     return params, stats
 
 
-# K2's valid-slot patterns: one slot (single-object LINEMOD), eight (about
-# an OCCLUSION frame), all of them, a scattered mask that is no prefix, and
-# one image with none beside full ones
+# K2's valid-slot patterns: one slot (single-object LINEMOD), eight, all of
+# them, a scattered mask that is no prefix, and one image with none beside
+# full ones ("prefix<n>" takes any n: a synthesized OCCLUSION frame has up
+# to 9, an eggbox scene)
 K2_PATTERNS = ["prefix1", "prefix8", "all", "scattered", "one_empty"]
 
 
