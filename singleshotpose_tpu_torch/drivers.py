@@ -179,9 +179,6 @@ def run_validation_multi(datacfg: Union[str, DataConfig],
                          modelcfg: Union[str, DarknetSpec],
                          weightfile: Optional[str] = None, *,
                          model: Optional[Darknet] = None,
-                         objclass: Optional[str] = None,
-                         class_id: Optional[int] = None,
-                         conf_thresh: Optional[float] = None,
                          batch_size: int = 16, num_workers: int = 8,
                          compute_dtype=torch.bfloat16, device="cuda",
                          verbose: bool = True) -> Dict[str, object]:
@@ -189,9 +186,10 @@ def run_validation_multi(datacfg: Union[str, DataConfig],
     ``valid_multi.py:20-158``): class-picked boxes, ``fix_corner_order`` on
     the GT, the pixel-error accuracy table at 5..50 px.
 
-    With ``class_id`` (or a ``class_id`` key in the ``.data`` file) each
-    image's box of that class is scored; otherwise each GT is paired with
-    the box of its own class.  Frames are read at the spec's train size
+    With a ``class_id`` key in the ``.data`` file each image's box of that
+    class is scored; otherwise each GT is paired with the box of its own
+    class, picked at the spec's ``conf_thresh``.  Frames are read at the
+    spec's train size
     (``valid_multi.py:71``), labels from ``labels_occlusion/`` under the
     object's name (``dataset_multi.py:78``).  The network is
     ``weightfile`` or ``model``, as :func:`run_validation` takes them.
@@ -206,11 +204,9 @@ def run_validation_multi(datacfg: Union[str, DataConfig],
     spec = _resolve_model(modelcfg)
     if model is None:
         model = _load_model(spec, weightfile, device)
-    if conf_thresh is None:
-        conf_thresh = spec.net.conf_thresh
-    name = objclass or dcfg.name
-    if class_id is None and "class_id" in options:
-        class_id = int(options["class_id"])
+    conf_thresh = spec.net.conf_thresh
+    name = dcfg.name
+    class_id = int(options["class_id"]) if "class_id" in options else None
 
     def occlusion_label_path(imgpath: str) -> str:
         return (imgpath.replace("benchvise", name)

@@ -163,75 +163,65 @@ def _fallback_fold(det_conf: torch.Tensor, probs: torch.Tensor):
     return torch.where(adopted, end, 0), det, prob
 
 
-def best_box_for_class(decoded: DecodedGrid, cls, conf_thresh: float,
-                       only_objectness: bool = False) -> torch.Tensor:
-    """Multi-object selection for one requested class.
+def _class_picks(decoded: DecodedGrid, classes: torch.Tensor,
+                 conf_thresh: float) -> torch.Tensor:
+    """Multi-object selection for the requested classes ``classes`` (B, N).
 
-    Among cells with conf above ``conf_thresh`` whose argmax class is
-    ``cls``, the highest ``det_conf`` (the first on a tie); where none
-    survive, the reference's sequential joint-maximum fold
-    (:func:`_fallback_fold`) over ``det_conf`` and the prob of ``cls``
-    (``utils_multi.py:312-370``, ``valid_multi.py:118-123``).
+    For each (b, n): among cells with ``det_conf · cls_max`` above
+    ``conf_thresh`` whose argmax class is ``classes[b, n]``, the highest
+    ``det_conf`` (the first on a tie); where none survive, the reference's
+    sequential joint-maximum fold (:func:`_fallback_fold`) over ``det_conf``
+    and the prob of that class (``utils_multi.py:312-370``,
+    ``valid_multi.py:118-123``).  Column 2K+1 is the kept cell's max class
+    prob, or on the fallback the requested class's prob.
 
-    Returns (B, 2K+3) boxes; ``cls`` may be a scalar or a (B,) per-image
-    class.  Column 2K+1 is the kept cell's max class prob, or on the
-    fallback the requested class's prob.
+    The fold runs for every (image, class), whether or not a cell was kept:
+    choosing on ``any_keep`` would wait on the card for it (PERF.md §7).
     """
     corners, det_conf, cls_probs = decoded
     B, S = det_conf.shape
-    cls = torch.broadcast_to(torch.as_tensor(cls, dtype=torch.int64,
-                                             device=det_conf.device), (B,))
     cls_max = cls_probs.amax(dim=-1)
     cls_id = torch.argmax(cls_probs, dim=-1)
-    conf = det_conf if only_objectness else det_conf * cls_max
-    cls_p = cls_probs.gather(-1, cls[:, None, None].expand(B, S, 1))[..., 0]
+    conf = det_conf * cls_max
 
-    keep = (conf > conf_thresh) & (cls_id == cls[:, None])
-    any_keep = keep.any(dim=-1)
-    kept_idx = torch.argmax(torch.where(keep, det_conf, float("-inf")), dim=-1)
-    fb_idx, fb_det, fb_cls = (v[:, 0] for v in
-                              _fallback_fold(det_conf, cls_p[:, None]))
-
-    idx = torch.where(any_keep, kept_idx, fb_idx)
-    out_det = torch.where(any_keep, _take(det_conf, idx), fb_det)
-    out_clsconf = torch.where(any_keep, _take(cls_max, idx), fb_cls)
-    return torch.cat([
-        _take(corners, idx),
-        out_det[:, None],
-        out_clsconf[:, None],
-        cls.to(corners.dtype)[:, None],
-    ], dim=-1)
-
-
-def best_boxes_per_class(decoded: DecodedGrid, conf_thresh: float,
-                         only_objectness: bool = False) -> torch.Tensor:
-    """Class-picked boxes for every class at once: (B, C, 2K+3), each as
-    :func:`best_box_for_class` picks it, so multi-GT eval can pair each
-    ground truth with the box of its own class (``valid_multi.py:118-123``
-    matches ``boxes[j][2K+2] == truths[k][0]`` per GT)."""
-    corners, det_conf, cls_probs = decoded
-    B, S = det_conf.shape
-    C = cls_probs.shape[-1]
-    cls_max = cls_probs.amax(dim=-1)
-    cls_id = torch.argmax(cls_probs, dim=-1)
-    conf = det_conf if only_objectness else det_conf * cls_max
-
-    classes = torch.arange(C, device=det_conf.device)
     keep = (conf > conf_thresh)[:, None, :] & \
-        (cls_id[:, None, :] == classes[None, :, None])            # (B, C, S)
+        (cls_id[:, None, :] == classes[:, :, None])               # (B, N, S)
     any_keep = keep.any(dim=-1)
     kept_idx = torch.argmax(
         torch.where(keep, det_conf[:, None, :], float("-inf")), dim=-1)
-    fb_idx, fb_det, fb_cls = _fallback_fold(det_conf,
-                                            cls_probs.transpose(1, 2))
+    cls_p = cls_probs.transpose(1, 2).gather(
+        1, classes[:, :, None].expand(-1, -1, S))                 # (B, N, S)
+    fb_idx, fb_det, fb_cls = _fallback_fold(det_conf, cls_p)
 
-    idx = torch.where(any_keep, kept_idx, fb_idx)                 # (B, C)
+    idx = torch.where(any_keep, kept_idx, fb_idx)                 # (B, N)
     bidx = torch.arange(B, device=det_conf.device)[:, None]
     out_det = torch.where(any_keep, det_conf[bidx, idx], fb_det)
     out_clsconf = torch.where(any_keep, cls_max[bidx, idx], fb_cls)
-    cls_col = classes.to(corners.dtype)[None, :].expand(B, C)
     return torch.cat([corners[bidx, idx], out_det[..., None],
-                      out_clsconf[..., None], cls_col[..., None]], dim=-1)
+                      out_clsconf[..., None],
+                      classes.to(corners.dtype)[..., None]], dim=-1)
+
+
+def best_box_for_class(decoded: DecodedGrid, cls,
+                       conf_thresh: float) -> torch.Tensor:
+    """The box of one requested class an image, (B, 2K+3), as
+    :func:`_class_picks` picks it; ``cls`` may be a scalar or a (B,)
+    per-image class."""
+    B = decoded.det_conf.shape[0]
+    cls = torch.broadcast_to(torch.as_tensor(
+        cls, dtype=torch.int64, device=decoded.det_conf.device), (B,))
+    return _class_picks(decoded, cls[:, None], conf_thresh)[:, 0]
+
+
+def best_boxes_per_class(decoded: DecodedGrid,
+                         conf_thresh: float) -> torch.Tensor:
+    """Class-picked boxes for every class at once: (B, C, 2K+3), so
+    multi-GT eval can pair each ground truth with the box of its own class
+    (``valid_multi.py:118-123`` matches ``boxes[j][2K+2] == truths[k][0]``
+    per GT)."""
+    B, _, C = decoded.cls_probs.shape
+    classes = torch.arange(C, device=decoded.det_conf.device)
+    return _class_picks(decoded, classes.expand(B, C), conf_thresh)
 
 
 def bbox_iou(box1, box2, x1y1x2y2: bool = False) -> float:

@@ -68,23 +68,21 @@ def _both(grid):
             TD.DecodedGrid(*(torch.from_numpy(np.array(a)) for a in grid)))
 
 
-def _fallback_pairs(grid, th, only_objectness=False):
+def _fallback_pairs(grid, th):
     """(B, C) True where no cell keeps the class: the fold decides."""
     _, det, probs = grid
-    conf = det if only_objectness else det * probs.max(-1)
-    keep = (conf > th)[:, None, :] & \
+    keep = (det * probs.max(-1) > th)[:, None, :] & \
         (probs.argmax(-1)[:, None, :] == np.arange(C)[None, :, None])
     return ~keep.any(-1)
 
 
-@pytest.mark.parametrize("only_objectness", [False, True],
-                         ids=["conf", "objectness"])
+@pytest.mark.parametrize("seed", [0, 3])
 @pytest.mark.parametrize("ties", [False, True], ids=["distinct", "ties"])
 @pytest.mark.parametrize("regime", sorted(THRESHOLDS))
-def test_best_boxes_per_class_matches_jax(regime, ties, only_objectness):
-    grid = _grid(ties)
+def test_best_boxes_per_class_matches_jax(regime, ties, seed):
+    grid = _grid(ties, seed)
     th = THRESHOLDS[regime]
-    fb = _fallback_pairs(grid, th, only_objectness)
+    fb = _fallback_pairs(grid, th)
     if regime == "fallback_everywhere":
         assert fb.all()
     elif regime == "fallback_nowhere":
@@ -92,8 +90,8 @@ def test_best_boxes_per_class_matches_jax(regime, ties, only_objectness):
     else:
         assert fb.any() and not fb.all(), fb.mean()
     jg, tg = _both(grid)
-    want = np.asarray(JD.best_boxes_per_class(jg, th, only_objectness))
-    got = TD.best_boxes_per_class(tg, th, only_objectness).numpy()
+    want = np.asarray(JD.best_boxes_per_class(jg, th))
+    got = TD.best_boxes_per_class(tg, th).numpy()
     assert got.shape == want.shape == (B, C, 2 * K + 3)
     np.testing.assert_array_equal(got, want)
 
