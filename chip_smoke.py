@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                    # from the root of the repository
     python3 chip_smoke.py --profile OUT_DIR  # and where the serves' and the
-                                             # train steps' time goes
+                                             # train steps' time goes, eager
+                                             # and captured
 
 Drives the single-object serving and training paths at full width —
 ``yolo_pose_single``, ~50.6 M parameters, random weights from a seed — and
@@ -52,13 +53,36 @@ phases; any failure propagates and the exit code is nonzero:
      multi=True)`` at batch 32, bf16, fused stem on, 10 steps at 416² and
      one each at 320² and 608², on frames with 8 or 9 GTs of their classes
      as the scene synthesizer pairs them; K2–K6 once a step; K2 on the
-     step's own inputs; the loss checks of phase 7 and a class loss > 0.
+     step's own inputs; the loss checks of phase 7 and a class loss > 0;
+ 11. captured train: ``drivers._precompile_buckets``, as ``run_training``
+     calls it with ``precompile_buckets``, over all 20 ``SINGLE_SCHEDULE``
+     widths at batch 8, bf16, fused stem on; capture time and memory
+     reserved; K2–K6 recorded once in each graph; from one state 20
+     captured steps over widths that change 8 times (416², 224², 832² among
+     them) and across the pretrain gate, each batch from host memory
+     through ``drivers._to_device``'s pinned, non-blocking copy as the
+     trainers feed it, equal 20 eager steps bit for bit (losses and every
+     weight, BN statistic and momentum buffer), and a second eager run says
+     whether the eager step is deterministic; captured and eager 416²
+     steps timed in turns;
+ 12. captured multi train: the same for ``yolo_pose_multi`` at batch 32
+     over the 10 ``MULTI_SCHEDULE`` widths, on phase 10's widths;
+ 13. aot serve: ``aot_serving`` per bucket of phase 5 behind a
+     ``MicroBatcher({bucket: fn}, start=False)``, K1 recorded once in each
+     graph, every batch the batcher formed equal bit for bit to the eager
+     serve of that batch; batch-1 and batch-8 latency, graph against eager;
+     the multi-object per-class serve's graph at batch 16 equal to the eager
+     call bit for bit.
 
 Phases 4–5 and 9 are the serving paths and phase 7's fused steps and phase
 10 the training paths: each kernel's launch count is set to 0 just before
-its path and read just after.  The line before the last is the kernel
-summary (JSON: each kernel's launches on the single-object and the
-multi-object paths, error, kernel and plain ms, bound and what sets it);
+its path and read just after.  On the captured paths (11–13) a kernel's
+wrapper runs only while a graph records it, so what is counted there is
+captures: the graphs that recorded it (and their replays, each of which
+launches it once).  The line before the last is the kernel summary (JSON:
+each kernel's launches on the single-object and the multi-object paths, its
+captures and replays on the captured ones, error, kernel and plain ms,
+bound and what sets it);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card;
 without one it exits nonzero before any result.  Reads no image files (the
 card's machine may lack Pillow) and imports no jax.
@@ -70,6 +94,7 @@ import argparse
 import collections
 import contextlib
 import functools
+import gc
 import hashlib
 import itertools
 import json
@@ -90,8 +115,10 @@ import torch.nn.functional as F
 from singleshotpose_tpu_torch import weights as W
 from singleshotpose_tpu_torch.checkpoint import Checkpointer
 from singleshotpose_tpu_torch.data.synth_multi import ADD_OBJS, OCCLUSION_CLASSES
-from singleshotpose_tpu_torch.drivers import (TrainRunConfig,
+from singleshotpose_tpu_torch.drivers import (TrainRunConfig, _ProfileWindow,
+                                              _precompile_buckets,
                                               _resolve_fused_stem,
+                                              _to_device,
                                               loss_config_from_spec)
 from singleshotpose_tpu_torch.evaluate import (EvalContext, PoseErrors,
                                                accuracy_summary, pose_metrics)
@@ -104,7 +131,10 @@ from singleshotpose_tpu_torch.ops import max_corner_confidence as mcc
 from singleshotpose_tpu_torch.ops.decode import best_boxes_per_class
 from singleshotpose_tpu_torch.ops.losses import region_loss
 from singleshotpose_tpu_torch.ops.pnp import pnp_batched, so3_exp
-from singleshotpose_tpu_torch.serving import MicroBatcher, make_serving_fn
+from singleshotpose_tpu_torch.data.pipeline import (MULTI_SCHEDULE,
+                                                    SINGLE_SCHEDULE)
+from singleshotpose_tpu_torch.serving import (MicroBatcher, aot_serving,
+                                              make_serving_fn)
 from singleshotpose_tpu_torch.training import (init_train_state,
                                                make_train_step, schedule_lr)
 from singleshotpose_tpu_torch.zoo import yolo_pose_multi, yolo_pose_single
@@ -150,6 +180,17 @@ IM_W, IM_H = 640, 480
 MULTI_SIZE, MULTI_SERVE_BATCH, MULTI_BUCKETS = 416, 16, (16,)
 MULTI_TRAIN_BATCH, MULTI_TRAIN_STEPS, MULTI_WIDTHS = 32, 10, (320, 608)
 PROFILE_CALLS = 10
+# the captured train phases: every bucket of the trainers' schedules
+# captured; then one step a width of a sequence that changes width, across
+# the pretrain gate (yolo-pose's 15 epochs; the multi trainer's 0).  Single:
+# 416², 224², 832² among 8 changes; multi: phase 10's widths.  The first
+# width's captured and eager steps are timed in turns, TIMED_STEPS each.
+CAPTURED_SEQUENCE = ((416,) * 4 + (224,) * 2 + (832,) * 2 + (416,) * 3 +
+                     (320,) * 2 + (608,) * 2 + (224, 832) + (416,) * 3)
+CAPTURED_EPOCHS = (15,) * 10 + (16,) * 10
+MULTI_CAPTURED_SEQUENCE = (MULTI_SIZE,) * MULTI_TRAIN_STEPS + MULTI_WIDTHS
+MULTI_CAPTURED_EPOCHS = (0,) * 6 + (1,) * 6
+TIMED_STEPS = 10
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): HBM bytes/s, bf16
 # tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -1146,6 +1187,319 @@ def phase_multi_train(spec, dev, card: str):
     return launches, step_ms, k2_numbers, k2_inputs
 
 
+_ALL_COUNTED = (stem.stem_conv_pool_infer, *_TRAIN_COUNTED)
+
+
+class _CountingGraph(torch.cuda.CUDAGraph):
+    """A CUDA graph that notes, for each of its captures, how many times
+    each kernel's wrapper (K1-K6) ran while it recorded: those launches
+    went into the graph, and each of its replays launches them again
+    without the wrapper.  ``captured`` holds one K1-K6 list a capture."""
+
+    captured = []
+
+    def capture_begin(self, *args, **kwargs):
+        self._before = [f.launches for f in _ALL_COUNTED]
+        super().capture_begin(*args, **kwargs)
+
+    def capture_end(self):
+        super().capture_end()
+        _CountingGraph.captured.append(
+            [f.launches - b for f, b in zip(_ALL_COUNTED, self._before)])
+
+
+def _counting_captures():
+    """While active, every CUDA graph made through ``torch.cuda.CUDAGraph``
+    counts what it recorded (:class:`_CountingGraph`)."""
+    _CountingGraph.captured.clear()
+    return mock.patch.object(torch.cuda, "CUDAGraph", _CountingGraph)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits as integers of its width (-0.0 is not 0.0)."""
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        t.element_size()])
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        torch.equal(_bits(a), _bits(b))
+
+
+def _state_diffs(a, b):
+    """Every tensor of two train states whose bits differ — parameters, BN
+    running statistics, momentum buffers — as (name, elements differing,
+    max|d|), and the number of tensors compared."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    pairs = [(k, sa[k], sb[k]) for k in sa] + [
+        (f"momentum {n}", a.optimizer.state[p]["momentum_buffer"],
+         b.optimizer.state[q]["momentum_buffer"])
+        for (n, p), q in zip(a.model.named_parameters(), b.model.parameters())]
+    diffs = [(name, int((_bits(x) != _bits(y)).sum()),
+              float((x.float() - y.float()).abs().max()))
+             for name, x, y in pairs if not _same_bits(x, y)]
+    return diffs, len(pairs)
+
+
+def _scribble(dev) -> None:
+    """Fill freed memory the allocator keeps with NaNs: a graph that reads
+    a tensor nothing holds any more then computes NaNs, where it might
+    otherwise still find the old values."""
+    gc.collect()
+    junk = [torch.full((n,), float("nan"), device=dev)
+            for n in (1, 64, 4096, 1 << 18, 1 << 22) for _ in range(64)]
+    del junk
+
+
+def _run_steps(step, state, batches, epochs, spec, dev) -> torch.Tensor:
+    """``step`` over host ``batches``, each copied to the card as the
+    trainers copy it (``drivers._to_device``: pinned, non-blocking, no
+    sync between steps), with the darknet lr of each batch and ``epochs``;
+    the losses, on the card."""
+    return torch.stack([
+        step(state, _to_device(frames, dev), _to_device(labels, dev),
+             _lr(spec, i), epoch)["loss"]
+        for i, ((frames, labels), epoch) in enumerate(zip(batches, epochs))])
+
+
+def phase_captured_train(spec, dev, card: str, tag: str, *, seed: int,
+                         batch: int, widths, sequence, epochs, labels,
+                         multi: bool = False) -> dict:
+    """The train step captured per multi-scale bucket by
+    ``drivers._precompile_buckets``, as ``run_training`` builds it with
+    ``precompile_buckets``, against the eager step, on full-width ``spec``,
+    bf16, the fused stem on: one graph for each of ``widths``, K2–K6
+    recorded once in each; then from one state the captured steps, the
+    eager steps and the eager steps again over ``sequence`` (one width a
+    step) and ``epochs`` (across the pretrain gate), with the same host
+    batches through ``drivers._to_device`` and the same lr.  The captured
+    steps' losses and every weight, BN statistic and momentum buffer must
+    have the eager steps' bits; the second eager run says whether the eager
+    step itself is deterministic.  Then the captured and the eager step at
+    ``sequence[0]`` in turns.  Returns the numbers of the kernel summary:
+    captures and replays."""
+    fused = _resolve_fused_stem(TrainRunConfig(), dev)
+    (cap_state, _, cap_step), (eager_state, _, step), (again_state, _, _) = \
+        (_train_setup(spec, dev, seed, fused, multi) for _ in range(3))
+    host = torch.device("cpu")
+    batches = [tuple(t.numpy() for t in _train_batches(
+        host, 1, seed=seed * 100 + i, batch=batch, size=w, labels=labels)[0])
+               for i, w in enumerate(sequence)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with _counting_captures():
+        captured = _precompile_buckets(cap_step, cap_state, widths, batch,
+                                       spec.num_keypoints)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    # as run_training leaves it: only the captured step holds the step
+    del cap_step
+    _scribble(dev)
+    per_graph = [c[1:] for c in _CountingGraph.captured]
+    reserved = torch.cuda.memory_reserved(dev)
+    each = sorted(captured.capture_seconds.values())
+    print(f"[{tag}] {len(widths)} widths {min(widths)}-{max(widths)} captured "
+          f"at batch {batch} in {capture_s:.2f} s ({each[0]:.3f}-{each[-1]:.3f}"
+          f" s a width: warm-up steps and capture); memory reserved "
+          f"{reserved / 2**30:.2f} GiB, most allocated while capturing "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; K2-K6 "
+          f"recorded in each graph: {per_graph[0]} "
+          f"(all {len(per_graph)} alike: "
+          f"{all(c == per_graph[0] for c in per_graph)}) [{card}]")
+    _check(tuple(captured.capture_seconds) ==
+           tuple((batch, w, w, 3) for w in widths),
+           f"captured shapes {tuple(captured.capture_seconds)}")
+    _check(per_graph == [[1] * 5] * len(widths),
+           f"K2-K6 were not recorded once in each graph: {per_graph}")
+
+    for f in _TRAIN_COUNTED:
+        f.launches = 0
+    cap_losses = _run_steps(captured, cap_state, batches, epochs, spec, dev)
+    wrapped = _launches()
+    eager_losses = _run_steps(step, eager_state, batches, epochs, spec, dev)
+    again_losses = _run_steps(step, again_state, batches, epochs, spec, dev)
+    torch.cuda.synchronize()
+    replays = captured.replays
+    cap_diffs, n_tensors = _state_diffs(cap_state, eager_state)
+    eager_diffs, _ = _state_diffs(again_state, eager_state)
+    same_losses = _same_bits(cap_losses, eager_losses)
+    changes = sum(a != b for a, b in zip(sequence, sequence[1:]))
+    print(f"[{tag}] {len(sequence)} steps, {changes} width changes "
+          f"({' '.join(map(str, sequence))}), epochs {epochs[0]}->{epochs[-1]}"
+          f": {replays} replays (K2-K6 wrappers ran {wrapped} times in them);"
+          f" losses {float(cap_losses[0]):.8g} ... "
+          f"{float(cap_losses[-1]):.8g}; captured = eager bit for bit: "
+          f"losses {same_losses}, {n_tensors - len(cap_diffs)} of {n_tensors}"
+          f" state tensors; eager = eager again: losses "
+          f"{_same_bits(again_losses, eager_losses)}, "
+          f"{n_tensors - len(eager_diffs)} of {n_tensors} tensors [{card}]")
+    for name, n, d in cap_diffs[:10]:
+        print(f"[{tag}]   captured != eager: {name}: {n} elements, "
+              f"max|d| {d:.6g}")
+    for name, n, d in eager_diffs[:10]:
+        print(f"[{tag}]   eager != eager again: {name}: {n} elements, "
+              f"max|d| {d:.6g}")
+    if not same_losses:
+        d = (cap_losses - eager_losses).abs()
+        print(f"[{tag}]   losses differ at steps "
+              f"{torch.nonzero(d).flatten().tolist()}, max|d| {float(d.max())}")
+    _check(wrapped == [0] * 5, f"a replay ran a kernel's wrapper: {wrapped}")
+    _check(replays == len(sequence), f"{replays} replays")
+    _check(same_losses and not cap_diffs,
+           "the captured steps do not give the eager steps' bits")
+    _check(bool(torch.isfinite(cap_losses).all()), "a captured loss is not "
+                                                   "finite")
+
+    # the two steps at the first width, in turns, each on its own state
+    first = [(_to_device(f, dev), _to_device(t, dev))
+             for (f, t), w in zip(batches, sequence) if w == sequence[0]]
+    turns = {"captured": [], "eager": []}
+    for which in ("captured", "eager", "eager", "captured") * 2:
+        turns[which].append(_step_ms(
+            captured if which == "captured" else step,
+            cap_state if which == "captured" else eager_state, first, spec,
+            TIMED_STEPS))
+    print(f"[{tag}] {sequence[0]}² step ms in turns captured/eager/eager/"
+          f"captured x2, median of {TIMED_STEPS} steps each (host clock, sync "
+          f"each step): " + "; ".join(
+              f"{k} " + " ".join(f"{t:.4f}" for t in v)
+              for k, v in turns.items()) + f" [{card}]")
+    return {"captures": len(per_graph), "replays": replays}
+
+
+def phase_aot_serve(spec, folded, dev, card: str, multi, multi_folded):
+    """``aot_serving`` per bucket behind a ``MicroBatcher({bucket: fn},
+    start=False)``: at SIZE², one graph for each of BUCKETS, K1 recorded
+    once in each; 16 frames from 4 clients, each batch the batcher formed
+    equal bit for bit to the eager serve on that batch, and the answers
+    held to one eager batch-16 call as phase 5 holds them (cuDNN picks its
+    convs by batch size); each graph on its bucket's first frames equal to
+    the eager call bit for bit; batch-1 and batch-8 latency, graph against
+    eager, in turns.  Then ``yolo_pose_multi``'s per-class serve at
+    MULTI_SERVE_BATCH, MULTI_SIZE², behind a batcher of that one bucket,
+    equal bit for bit to the eager batch-16 call.  Returns (K1's captures
+    and replays on the single-object and on the multi-object serve)."""
+    serve = make_serving_fn(spec, folded, pick=("best",))
+    with _counting_captures():
+        fns = {b: aot_serving(spec, folded, batch=b, width=SIZE, height=SIZE)
+               for b in BUCKETS}
+    _scribble(dev)
+    per_graph = [c[0] for c in _CountingGraph.captured]
+    _check(per_graph == [1] * len(BUCKETS),
+           f"K1 was not recorded once in each serve graph: {per_graph}")
+    gen = torch.Generator().manual_seed(50)
+    frames = torch.randint(0, 256, (N_FRAMES, SIZE, SIZE, 3), generator=gen,
+                           dtype=torch.uint8).numpy()
+    ran = []        # (padded batch, the graph's answer) per batcher call
+
+    def recorded(b):
+        def fn(imgs):
+            out = fns[b](imgs)
+            ran.append((imgs.copy(), out))
+            return out
+        return fn
+
+    answers = [None] * N_FRAMES
+    # captured above, before the batcher's threads start
+    mb = MicroBatcher({b: recorded(b) for b in BUCKETS}, height=SIZE,
+                      width=SIZE, buckets=BUCKETS, start=False)
+    with mb:
+        def client(k):
+            for i in range(k, N_FRAMES, N_CLIENTS):
+                answers[i] = mb.infer(frames[i], timeout=300)
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(N_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        _check(not any(t.is_alive() for t in threads), "client threads hung")
+    same = [_same_bits(out, serve(imgs)) for imgs, out in ran]
+    got = np.stack([a.numpy() for a in answers])
+    direct = serve(frames).cpu().numpy()
+    conf_d = np.abs(got[:, 18] - direct[:, 18]).max()
+    n_close = int((np.abs(got[:, :18] - direct[:, :18]).max(axis=1)
+                   <= 1e-3).sum())
+    alone = {}
+    for b, fn in fns.items():
+        x = torch.from_numpy(frames[:b]).to(dev)
+        alone[b] = _same_bits(fn(x), serve(x))
+    print(f"[aot serve] yolo_pose_single {SIZE}²: a graph for each of buckets "
+          f"{BUCKETS}, K1 recorded once in each ({per_graph}); MicroBatcher "
+          f"{N_CLIENTS} clients x {N_FRAMES} frames in batches of "
+          f"{[len(imgs) for imgs, _ in ran]}: each graph call = the eager "
+          f"serve of its batch bit for bit: {same}; answers vs one eager "
+          f"batch-{N_FRAMES} call: bit for bit "
+          f"{bool(np.array_equal(got, direct))}, max|d det_conf| {conf_d:.6g}, "
+          f"corners within 1e-3 for {n_close}/{N_FRAMES}; each graph on its "
+          f"bucket's first frames = eager: {alone}")
+    _check(all(same) and all(alone.values()),
+           "a serve graph's answer differs from the eager serve's")
+    _check(conf_d <= 1e-2 and n_close >= N_FRAMES - 1,
+           "the graphs' answers are off the batch-16 call's")
+
+    turns = {}
+    for b in (1, 8):
+        x = torch.from_numpy(frames[:b]).to(dev)
+        turns[b] = {"graph": [], "eager": []}
+        for which in ("graph", "eager", "eager", "graph"):
+            fn = fns[b] if which == "graph" else serve
+            turns[b][which].append(_time_ms(functools.partial(fn, x)))
+    print(f"[aot serve] u8 frames on the card -> best boxes, {SIZE}², CUDA "
+          f"events, median of 20 per turn, turns graph/eager/eager/graph: " +
+          "; ".join(f"batch {b}: " + ", ".join(
+              f"{k} " + " ".join(f"{t:.4f}" for t in v)
+              for k, v in tv.items()) for b, tv in turns.items()) +
+          f" ms [{card}]")
+
+    conf_thresh = multi.net.conf_thresh
+    pick = ("per_class", conf_thresh)
+    with _counting_captures():
+        mfn = aot_serving(multi, multi_folded, batch=MULTI_SERVE_BATCH,
+                          width=MULTI_SIZE, height=MULTI_SIZE, pick=pick)
+    _scribble(dev)
+    _check([c[0] for c in _CountingGraph.captured] == [1],
+           "K1 was not recorded once in the multi serve graph")
+    mserve = make_serving_fn(multi, multi_folded, pick=pick)
+    gen = torch.Generator().manual_seed(51)
+    mframes = torch.randint(0, 256, (MULTI_SERVE_BATCH, MULTI_SIZE,
+                                     MULTI_SIZE, 3), generator=gen,
+                            dtype=torch.uint8).numpy()
+    mb = MicroBatcher({MULTI_SERVE_BATCH: mfn}, height=MULTI_SIZE,
+                      width=MULTI_SIZE, buckets=MULTI_BUCKETS, start=False)
+    futs = [mb.submit(f) for f in mframes]     # queued: one batch of 16
+    with mb:
+        mgot = torch.stack([f.result(timeout=300) for f in futs])
+    mdirect = mserve(mframes).cpu()
+    x = torch.from_numpy(mframes).to(dev)
+    mturns = {"graph": [], "eager": []}
+    for which in ("graph", "eager", "eager", "graph"):
+        mturns[which].append(_time_ms(functools.partial(
+            mfn if which == "graph" else mserve, x)))
+    print(f"[aot serve] yolo_pose_multi per-class {MULTI_SIZE}² batch "
+          f"{MULTI_SERVE_BATCH}, one graph (K1 recorded once), MicroBatcher "
+          f"of 16 queued frames: = the eager batch-16 call bit for bit: "
+          f"{_same_bits(mgot, mdirect)}; CUDA events, turns graph/eager/"
+          f"eager/graph: " + ", ".join(
+              f"{k} " + " ".join(f"{t:.4f}" for t in v)
+              for k, v in mturns.items()) + f" ms [{card}]")
+    _check(_same_bits(mgot, mdirect),
+           "the multi serve graph's boxes differ from the eager call's")
+    return {"captures": len(per_graph),
+            "replays": sum(fn.replays for fn in fns.values()),
+            "captures_multi": 1, "replays_multi": mfn.replays}
+
+
+def _free() -> None:
+    """Return what the phases before dropped (graphs, their pools, states)
+    to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _host_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     """Median host-clock time of ``fn()`` plus a device sync, in ms."""
     for _ in range(warmup):
@@ -1480,6 +1834,78 @@ def phase_profile_multi(spec, folded, dev, card: str, out_dir: str) -> None:
                   f"ms/call [{_family(name)}] {name[:110]}")
 
 
+def phase_profile_captured(spec, folded, dev, card: str, out_dir: str) -> None:
+    """The captured paths' idle share (``--profile``): the batch-8 416² train
+    step captured at that width by ``drivers._precompile_buckets`` (from
+    phase_profile_train's seeds, so its eager numbers stand beside these)
+    and the batch-1 SIZE² graph serve, each its host-clock median (sync each
+    call) first, then device time over PROFILE_CALLS profiled calls and the
+    device's idle share.  The train step's calls are traced by the trainers'
+    own ``drivers._ProfileWindow``, whose trace must hold the replays'
+    device events."""
+    os.makedirs(out_dir, exist_ok=True)
+    state, _, step = _train_setup(spec, dev, seed=12, fused_stem=True)
+    batches = itertools.cycle(_train_batches(dev, 4, seed=13))
+    captured = _precompile_buckets(step, state, (TRAIN_SIZE,), TRAIN_BATCH,
+                                   spec.num_keypoints)
+
+    def one_step():
+        frames, labels = next(batches)
+        captured(state, frames, labels, _lr(spec, 0), TRAIN_EPOCH)
+
+    serve = aot_serving(spec, folded, batch=1, width=SIZE, height=SIZE)
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randint(0, 256, (1, SIZE, SIZE, 3), generator=gen,
+                      dtype=torch.uint8).to(dev)
+    step_what = f"captured train step batch {TRAIN_BATCH}, {TRAIN_SIZE}²"
+    calls = {step_what: one_step,
+             f"graph serve batch 1, {SIZE}²": lambda: serve(x)}
+    host = {k: _host_ms(fn, iters=20) for k, fn in calls.items()}
+    for i, (what, fn) in enumerate(calls.items()):
+        if what == step_what:
+            by_family, busy, path = _profile_window(fn, dev, out_dir)
+            note = "drivers._ProfileWindow"
+        else:
+            path = os.path.join(out_dir, f"captured_trace_{i}.json")
+            by_family, busy, _ = _profile(fn, PROFILE_CALLS, path)
+            note = "torch.profiler"
+        busy_ms = busy / 1e3 / PROFILE_CALLS
+        total = sum(by_family.values())
+        idle = f"{1 - busy_ms / host[what]:.4f}" if by_family else \
+            "not measured (no device event in the trace)"
+        print(f"[profile] {what}: host clock {host[what]:.4f} ms/call (median "
+              f"of 20, sync each call); device busy {busy_ms:.4f} ms/call over "
+              f"{PROFILE_CALLS} profiled calls ({note}); idle share {idle}; "
+              f"trace {path} [{card}]")
+        for fam, us in by_family.most_common(8):
+            print(f"[profile]   {fam}: {us / 1e3 / PROFILE_CALLS:.4f} ms/call "
+                  f"({us / total:.2%} of device time)")
+
+
+def _profile_window(fn, dev, out_dir: str):
+    """``fn`` (a train step) PROFILE_CALLS times inside the trainers'
+    profiler window, ``drivers._ProfileWindow``, as ``_run_epoch_batches``
+    opens and closes it; (device µs by family, busy µs, trace path).  A
+    trace can come back without the device's events: up to three windows,
+    and the run fails if none has any."""
+    for attempt in range(3):
+        first = attempt * PROFILE_CALLS
+        rc = TrainRunConfig(profile_dir=out_dir,
+                            profile_steps=(first, first + PROFILE_CALLS))
+        window = _ProfileWindow(rc, dev)
+        for processed in range(first, first + PROFILE_CALLS):
+            window.before(processed)
+            fn()
+            window.after(processed + 1)
+        path = os.path.join(
+            out_dir, f"train_steps_{first}_{first + PROFILE_CALLS}.json")
+        _check(os.path.exists(path), f"the profile window wrote no {path}")
+        by_family, busy = _device_time(path)
+        if by_family:
+            return by_family, busy, path
+    _check(False, "no device event in 3 traces of drivers._ProfileWindow")
+
+
 def phase_profile_gate(spec, dev, card: str) -> None:
     """Does the JAX package's batch gate for the fused stem (B < 64) mean
     anything on this card?  The fused and the unfused train step at batch
@@ -1521,8 +1947,10 @@ def main(argv=None) -> int:
                          "fused train steps: device time by kernel family, "
                          "idle share, K1 against the plain stem in turns, "
                          "K2-K6 and their plain versions on the device, the "
-                         "multi-object serve and batch-32 step, and the "
-                         "fused against the unfused step at batch 64; "
+                         "multi-object serve and batch-32 step, the captured "
+                         "step's and the batch-1 graph serve's idle share, "
+                         "and the fused against the unfused step at batch "
+                         "64; "
                          "chrome traces go to OUT_DIR")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
@@ -1561,6 +1989,22 @@ def main(argv=None) -> int:
     _check(multi_launches[0] > 0, "the multi serve launched no stem kernel")
     train_multi, _, _, multi_k2_inputs = phase_multi_train(multi, dev, card)
     multi_launches += train_multi
+
+    # the captured paths; each phase frees its graphs and states at its end
+    _free()
+    captured = phase_captured_train(
+        spec, dev, card, "captured train", seed=60, batch=TRAIN_BATCH,
+        widths=SINGLE_SCHEDULE.all_widths, sequence=CAPTURED_SEQUENCE,
+        epochs=CAPTURED_EPOCHS, labels=_linemod_labels)
+    _free()
+    captured_multi = phase_captured_train(
+        multi, dev, card, "captured multi train", seed=61,
+        batch=MULTI_TRAIN_BATCH, widths=MULTI_SCHEDULE.all_widths,
+        sequence=MULTI_CAPTURED_SEQUENCE, epochs=MULTI_CAPTURED_EPOCHS,
+        labels=_multi_labels, multi=True)
+    _free()
+    aot = phase_aot_serve(spec, folded, dev, card, multi, multi_folded)
+    _free()
     if args.profile:
         phase_profile(spec, folded, dev, card, args.profile)
         phase_profile_k2(dev, card, args.profile, [
@@ -1569,30 +2013,45 @@ def main(argv=None) -> int:
         phase_profile_stem(dev, card, args.profile)
         phase_profile_train(spec, dev, card, args.profile)
         phase_profile_multi(multi, multi_folded, dev, card, args.profile)
+        phase_profile_captured(spec, folded, dev, card, args.profile)
         phase_profile_gate(spec, dev, card)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     # no single PyTorch call computes any of these functions: library_ms
-    # null; launches on the single-object paths, launches_multi on the
-    # multi-object ones (K1 the serve, K2-K6 the train step)
+    # null.  launches: the wrapper's launches on the eager single-object
+    # path, launches_multi on the multi-object one (K1 the serve, K2-K6 the
+    # train step); captures: the CUDA graphs that recorded the kernel on
+    # the captured single-object path (K1 the aot serve, K2-K6 the captured
+    # train step), captures_multi on the multi-object one; replays(_multi):
+    # those graphs' replays in the phase, each launching it once
+    def captured_counts(c):
+        return {"captures": c["captures"], "replays": c["replays"]}
+
+    k1_captured = {**captured_counts(aot),
+                   "captures_multi": aot["captures_multi"],
+                   "replays_multi": aot["replays_multi"]}
+    train_captured = {**captured_counts(captured),
+                      "captures_multi": captured_multi["captures"],
+                      "replays_multi": captured_multi["replays"]}
     kernels = [{
         "name": "stem_conv_pool_infer", "route": "cuda",
         "source": "singleshotpose_tpu_torch/csrc/stem_serve.cu",
         "replaces": "singleshotpose_tpu/ops/stem.py:545",
         "launches": launches, "launches_multi": multi_launches[0],
-        **stem_numbers, "library_ms": None}, {
+        **k1_captured, **stem_numbers, "library_ms": None}, {
         "name": "max_corner_confidence", "route": "cuda",
         "source": "singleshotpose_tpu_torch/csrc/max_corner_confidence.cu",
         "replaces": "singleshotpose_tpu/ops/pallas_kernels.py:44",
         "launches": train_launches[0], "launches_multi": multi_launches[1],
-        **k2_numbers, "library_ms": None}]
+        **train_captured, **k2_numbers, "library_ms": None}]
     for (_, name, replaces), n, n_multi in zip(
             _STEM_KERNELS, train_launches[1:], multi_launches[2:]):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "singleshotpose_tpu_torch/csrc/stem_train.cu",
             "replaces": replaces, "launches": n, "launches_multi": n_multi,
-            **train_stem_numbers[name], "library_ms": None})
+            **train_captured, **train_stem_numbers[name],
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

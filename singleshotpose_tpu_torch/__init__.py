@@ -16,6 +16,14 @@ never ``jax``, and nothing of ``singleshotpose_tpu``: the plain-Python host
 modules it needs (``config``, ``utils``, ``data.pipeline``, ``data.augment``,
 ``data.prefetch``) are its own copies, held equal to the originals by
 ``tests/test_torch_host.py``.
+
+``aot_serving`` is the serving function captured for one static shape (a
+CUDA graph on the card), the deployment shape behind a ``MicroBatcher``'s
+``{bucket: fn}``.
 """
 
 __version__ = "0.1.0"
+
+from .serving import aot_serving  # noqa: E402
+
+__all__ = ["aot_serving"]

@@ -2,13 +2,15 @@
 
   python -m singleshotpose_tpu_torch.cli train --datacfg D.data --modelcfg M
          [--initweightfile W] [--pretrain_num_epochs N] [--max_epochs N]
-         [--bg_dir DIR] [--checkpoint_dir DIR [--resume]] [--device cuda]
+         [--bg_dir DIR] [--checkpoint_dir DIR [--resume]]
+         [--precompile_buckets] [--profile_dir DIR] [--device cuda]
   python -m singleshotpose_tpu_torch.cli valid --datacfg D.data --modelcfg M
          --weightfile W.weights [--batch_size N] [--device cuda]
   python -m singleshotpose_tpu_torch.cli train-multi --datacfg occlusion.data
          [--modelcfg M] [--initweightfile W] [--linemod_root DIR]
          [--eval_datacfgs D.data ...] [--max_epochs N] [--bg_dir DIR]
-         [--checkpoint_dir DIR [--resume]] [--device cuda]
+         [--checkpoint_dir DIR [--resume]] [--precompile_buckets]
+         [--profile_dir DIR] [--device cuda]
   python -m singleshotpose_tpu_torch.cli valid-multi --weightfile W.weights
          [--modelcfg M] [--datacfgs D.data ... | --datacfg occlusion.data]
          [--device cuda]
@@ -50,6 +52,12 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
                    help="full-state checkpoints here")
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in --checkpoint_dir")
+    p.add_argument("--precompile_buckets", action="store_true",
+                   help="capture the train step as one CUDA graph per "
+                        "multi-scale bucket before epoch 0 (no per-step "
+                        "launch cost); nothing on the CPU")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of steps 5-10 here")
     p.add_argument("--device", type=str, default="cuda")
 
 
@@ -58,7 +66,9 @@ def _run_config(args, **overrides):
     return TrainRunConfig(bg_dir=args.bg_dir,
                           max_epochs_override=args.max_epochs,
                           checkpoint_dir=args.checkpoint_dir,
-                          resume=args.resume, device=args.device, **overrides)
+                          resume=args.resume, device=args.device,
+                          precompile_buckets=args.precompile_buckets,
+                          profile_dir=args.profile_dir, **overrides)
 
 
 def cmd_train(argv: Sequence[str]) -> int:

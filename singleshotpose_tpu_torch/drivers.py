@@ -13,12 +13,14 @@ and the boxes of all batches meet the ground truth in one batched PnP +
 metric pass.
 
 Training: the host ``Loader`` (multi-scale, u8; for OCCLUSION over scenes
-from the multi-object synthesizer) feeds the eager train step through
-pinned host memory; the reference's behaviours are kept — the step LR
-schedule in batches, the pretrain confidence gate, an eval every
+from the multi-object synthesizer) feeds the train step through pinned host
+memory — eager, or with ``precompile_buckets`` on a card replayed from one
+CUDA graph per multi-scale bucket; the reference's behaviours are kept —
+the step LR schedule in batches, the pretrain confidence gate, an eval every
 ``eval_every`` epochs after ``eval_after``, the best accuracy saved as
 darknet ``model.weights``, ``costs.npz`` curves — and full-state
-checkpoints (``checkpoint.py``) give a real resume.
+checkpoints (``checkpoint.py``) give a real resume; ``profile_dir`` writes a
+``torch.profiler`` trace of a window of steps.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,8 +46,8 @@ from .evaluate import (EvalContext, PoseErrors, accuracy_summary,
 from .models.darknet import Darknet, DarknetSpec, fold_batchnorm
 from .ops.losses import RegionLossConfig
 from .serving import make_serving_fn
-from .training import (TrainState, init_train_state, make_train_step,
-                       schedule_lr)
+from .training import (TrainState, capture_train_step, init_train_state,
+                       make_train_step, schedule_lr)
 from .utils.labels import get_all_files
 from .zoo import _resolve_model
 
@@ -294,6 +296,12 @@ class TrainRunConfig:
     # the fused train stem (K3-K6); None = on for bf16 on a CUDA device,
     # off elsewhere (_resolve_fused_stem)
     fused_stem: Optional[bool] = None
+    # pay for every multi-scale bucket before epoch 0: on a card, one CUDA
+    # graph of the step per bucket, replayed by every step after
+    # (_precompile_buckets)
+    precompile_buckets: bool = False
+    profile_dir: Optional[str] = None  # torch.profiler trace of a few steps
+    profile_steps: Tuple[int, int] = (5, 10)
 
 
 def _resolve_fused_stem(rc: TrainRunConfig, device: torch.device) -> bool:
@@ -404,6 +412,9 @@ def run_training(datacfg: str, modelcfg: Union[str, DarknetSpec],
                      num_keypoints=spec.num_keypoints)
     loader = Loader(ds, batch_size, schedule=SINGLE_SCHEDULE, seen=state.seen,
                     num_workers=rc.num_workers, seed=rc.seed, out_uint8=True)
+    if rc.precompile_buckets:
+        step = _precompile_buckets(step, state, SINGLE_SCHEDULE.all_widths,
+                                   batch_size, spec.num_keypoints)
 
     history: Dict[str, List] = {"training_iters": [], "training_losses": [],
                                 "testing_iters": [], "testing_accuracies": [],
@@ -416,7 +427,8 @@ def run_training(datacfg: str, modelcfg: Union[str, DarknetSpec],
         _log(f"epoch {epoch}, processed {epoch * nsamples} samples, "
              f"lr {lr:f}")
         _run_epoch_batches(epoch, loader, step, state, device, net, steps,
-                           scales, nbatches, processed, rc.log_every, history)
+                           scales, nbatches, processed, rc.log_every, history,
+                           window)
 
     def evaluate(epoch):
         if epoch % rc.eval_every == 0 and epoch > rc.eval_after:
@@ -424,8 +436,12 @@ def run_training(datacfg: str, modelcfg: Union[str, DarknetSpec],
                                           backupdir, history, processed[0],
                                           best[0])
 
-    _train_epochs(range(init_epoch, max_epochs), train_one, evaluate, state,
-                  processed, ckpt, rc)
+    window = _ProfileWindow(rc, device)
+    try:
+        _train_epochs(range(init_epoch, max_epochs), train_one, evaluate,
+                      state, processed, ckpt, rc)
+    finally:
+        window.close()
     _save_final_if_unsaved(spec, state, best[0], backupdir,
                            processed[0] * batch_size)
     return {"state": state, "best_acc": best[0], "history": history}
@@ -489,6 +505,9 @@ def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
                      num_keypoints=spec.num_keypoints, synthesizer=synth)
     loader = Loader(ds, batch_size, schedule=MULTI_SCHEDULE, seen=state.seen,
                     num_workers=rc.num_workers, seed=rc.seed, out_uint8=True)
+    if rc.precompile_buckets:
+        step = _precompile_buckets(step, state, MULTI_SCHEDULE.all_widths,
+                                   batch_size, spec.num_keypoints)
 
     history: Dict[str, List] = {"training_iters": [], "training_losses": [],
                                 "testing_iters": [], "testing_accuracies": []}
@@ -498,7 +517,8 @@ def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
         lr = schedule_lr(net.learning_rate, processed[0], steps, scales)
         _log(f"[multi] epoch {epoch}, lr {lr:f}")
         _run_epoch_batches(epoch, loader, step, state, device, net, steps,
-                           scales, nbatches, processed, rc.log_every, history)
+                           scales, nbatches, processed, rc.log_every, history,
+                           window)
 
     def evaluate(epoch):
         if eval_datacfgs and epoch % rc.eval_every == 0 and \
@@ -508,8 +528,12 @@ def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
                                                 history, processed[0],
                                                 best[0])
 
-    _train_epochs(range(init_epoch, max_epochs), train_one, evaluate, state,
-                  processed, ckpt, rc)
+    window = _ProfileWindow(rc, device)
+    try:
+        _train_epochs(range(init_epoch, max_epochs), train_one, evaluate,
+                      state, processed, ckpt, rc)
+    finally:
+        window.close()
     _save_final_if_unsaved(spec, state, best[0], backupdir,
                            processed[0] * batch_size)
     return {"state": state, "best_acc": best[0], "history": history}
@@ -549,19 +573,87 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def _precompile_buckets(step: Callable, state: TrainState,
+                        widths: Sequence[int], batch: int,
+                        num_keypoints: int) -> Callable:
+    """Pay for every multi-scale bucket before epoch 0
+    (``singleshotpose_tpu/drivers.py:905-930``).  Returns the step to train
+    with.
+
+    On a card: ``step`` captured as one CUDA graph per width
+    (:func:`~singleshotpose_tpu_torch.training.capture_train_step`), after
+    warm-up steps that leave the state as it was; a failed capture raises.
+    On the CPU, eager PyTorch has nothing to compile: ``step`` itself.
+    Logs each bucket's time."""
+    device = next(state.model.parameters()).device
+    if device.type != "cuda":
+        _log(f"nothing to precompile on {device}: the step runs eagerly")
+        return step
+    t_all = time.time()
+    captured = capture_train_step(step, state, widths, batch,
+                                  50 * (2 * num_keypoints + 3))
+    for shape, s in captured.capture_seconds.items():
+        _log(f"captured bucket {shape[2]}px in {s:.1f}s")
+    _log(f"captured {len(widths)} buckets in {time.time() - t_all:.1f}s; "
+         f"{torch.cuda.memory_reserved(device) / 2**30:.2f} GiB reserved")
+    return captured
+
+
+class _ProfileWindow:
+    """A ``torch.profiler`` trace of the steps that take the processed
+    batches from ``rc.profile_steps[0]`` to ``rc.profile_steps[1]``, written
+    as a chrome trace under ``rc.profile_dir`` (the JAX package's
+    ``jax.profiler`` window, ``singleshotpose_tpu/drivers.py:944-955``); a
+    run that ends inside the window writes what it traced."""
+
+    def __init__(self, rc: TrainRunConfig, device: torch.device):
+        self.directory = rc.profile_dir
+        self.start, self.stop = rc.profile_steps
+        self.device = device
+        self._prof = None
+
+    def before(self, processed: int) -> None:
+        if self.directory and processed == self.start:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.__enter__()
+
+    def after(self, processed: int) -> None:
+        if processed == self.stop:
+            self.close()
+
+    def close(self) -> None:
+        if self._prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prof.__exit__(None, None, None)
+        os.makedirs(self.directory, exist_ok=True)
+        path = os.path.join(self.directory,
+                            f"train_steps_{self.start}_{self.stop}.json")
+        self._prof.export_chrome_trace(path)
+        self._prof = None
+        _log(f"profile of steps {self.start}-{self.stop} written to {path}")
+
+
 def _run_epoch_batches(epoch, loader, step, state, device, net, steps, scales,
-                       nbatches, processed, log_every, history) -> None:
+                       nbatches, processed, log_every, history,
+                       window: _ProfileWindow) -> None:
     """One epoch of batches: the scheduled lr per batch, the step, the stats
-    read in chunks of ``log_every``; ``processed[0]`` is kept current per
-    batch, so a failure saves the latest state."""
+    read in chunks of ``log_every``, the profiler window; ``processed[0]``
+    is kept current per batch, so a failure saves the latest state."""
     batch_size = net.batch
     pending = []     # (iter, device stats)
     for bidx, (images, labels) in enumerate(prefetch(loader)):
         lr = schedule_lr(net.learning_rate, processed[0], steps, scales)
+        window.before(processed[0])
         stats = step(state, _to_device(images, device),
                      _to_device(labels, device), lr / batch_size, epoch)
         pending.append((epoch * int(np.ceil(nbatches)) + bidx, stats))
         processed[0] += 1
+        window.after(processed[0])
         if len(pending) >= log_every:
             _drain_stats(pending, history, epoch)
             pending = []

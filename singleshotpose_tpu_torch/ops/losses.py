@@ -7,7 +7,9 @@ loss and its stats, differentiable with autograd.  Loss algebra as there:
   * the confidence term weighted by ``conf_mask``;
   * with ``with_class_loss`` and more than one class, ``class_scale`` times
     the cross-entropy over responsible cells;
-  * the confidence term counts only once ``epoch > pretrain_num_epochs``.
+  * the confidence term counts only once ``epoch > pretrain_num_epochs``,
+    selected with ``torch.where`` so that ``epoch`` can be a device scalar
+    (a captured train step reads it from a tensor it refills each step).
 
 Where the JAX package takes ``use_pallas`` and ``mesh``, the port has no
 option: the tensors' device decides (the CUDA kernel of pass 1 on the card,
@@ -17,7 +19,7 @@ its plain version on the CPU).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import torch
 
@@ -65,13 +67,14 @@ def activate_head(output: torch.Tensor, K: int, C: int, nA: int):
     return xs, ys, conf, cls_logits, pred_corners
 
 
-def region_loss(output: torch.Tensor, target: torch.Tensor, epoch: int,
-                cfg: RegionLossConfig
+def region_loss(output: torch.Tensor, target: torch.Tensor,
+                epoch: Union[int, torch.Tensor], cfg: RegionLossConfig
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The region loss of a raw head (B, H, W, nA·(2K+1+C)) NHWC against
-    padded labels (B, max_num_gt·(2K+3)).  ``epoch`` gates the confidence
-    term.  Returns (loss, stats): the loss to differentiate, and the stats
-    as detached device tensors (no host sync)."""
+    padded labels (B, max_num_gt·(2K+3)).  ``epoch``, an int or a 0-dim
+    tensor on the head's device, gates the confidence term.  Returns (loss,
+    stats): the loss to differentiate, and the stats as detached device
+    tensors (no host sync)."""
     K, C, nA = cfg.num_keypoints, cfg.num_classes, cfg.num_anchors
     B, H, W, _ = output.shape
     xs, ys, conf, cls_logits, pred_corners = activate_head(output.float(),
@@ -97,7 +100,8 @@ def region_loss(output: torch.Tensor, target: torch.Tensor, epoch: int,
         loss_cls = torch.zeros((), device=output.device)
 
     base = loss_x + loss_y + loss_cls
-    loss = base + loss_conf if epoch > cfg.pretrain_num_epochs else base
+    epoch = torch.as_tensor(epoch, device=output.device)
+    loss = torch.where(epoch > cfg.pretrain_num_epochs, base + loss_conf, base)
     stats = {
         "loss": loss,
         "loss_x": loss_x,

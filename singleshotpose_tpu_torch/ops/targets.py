@@ -41,10 +41,11 @@ class BuiltTargets(NamedTuple):
     num_correct: torch.Tensor  # scalar: rescoring conf > 0.5
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _anchor_wh(anchors: Tuple[float, ...], nA: int, device: torch.device):
     """The anchors' (w, h) on ``device``, made once per (anchors, device): a
-    pageable host-to-device copy on every step would wait for the stream."""
+    pageable host-to-device copy on every step would wait for the stream.
+    Never evicted: a captured train step's graphs read these tensors."""
     a = torch.tensor(anchors, dtype=torch.float32).reshape(nA, -1)[:, :2]
     return a[:, 0].to(device), a[:, 1].to(device)
 

@@ -1,10 +1,12 @@
-"""Serving: the folded network as one function ``images → boxes``, and a
-dynamic micro-batching front end for it.
+"""Serving: the folded network as one function ``images → boxes``, that
+function captured for one static shape, and a dynamic micro-batching front
+end for either.
 
-Mirrors ``make_serving_fn`` and ``MicroBatcher`` of
+Mirrors ``make_serving_fn``, ``aot_serving`` and ``MicroBatcher`` of
 ``singleshotpose_tpu/serving.py``: the same pick modes, single- and
-multi-object, the same bucket and deadline policy.  Results come back to the
-host with ``.cpu()``.
+multi-object, the same bucket and deadline policy.  Where JAX compiles a
+serving executable ahead of time, the port records a CUDA graph.  Results
+come back to the host with ``.cpu()``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from .models.darknet import DarknetSpec, apply_folded
 from .ops.decode import (best_box_for_class, best_boxes, best_boxes_per_class,
                          decode_grid)
 
-__all__ = ["make_serving_fn", "MicroBatcher"]
+__all__ = ["make_serving_fn", "aot_serving", "MicroBatcher"]
 
 # (pick-mode, extras):
 #   None / ("grid",)            → the decoded grid
@@ -44,10 +46,15 @@ def make_serving_fn(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]
     if pick is not None and pick[0] not in _PICKS:
         raise ValueError(f"unknown pick {pick!r}")
     K, C, nA = spec.num_keypoints, spec.num_classes, spec.num_anchors
-    device = next(iter(folded.values()))["w"].device
+    device = _device(folded)
     # a device-tensor divisor: true division on the card too, where a
     # Python-scalar divisor becomes a multiply by its reciprocal
     u8_scale = torch.full((), 255.0, device=device)
+    if pick is not None and pick[0] == "for_class":
+        # the class on the device once: a host copy in every call would wait
+        # for the stream, and a CUDA graph cannot record one
+        pick = (pick[0], torch.as_tensor(pick[1], dtype=torch.int64,
+                                         device=device), pick[2])
 
     @torch.inference_mode()
     def serve(images):
@@ -67,16 +74,87 @@ def make_serving_fn(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]
     return serve
 
 
-def _to_host(out):
-    if isinstance(out, torch.Tensor):
-        return out.cpu()
-    return type(out)(*(_to_host(v) for v in out))
+def _device(folded: Dict[str, Dict[str, torch.Tensor]]) -> torch.device:
+    return next(iter(folded.values()))["w"].device
 
 
-def _row(out, i: int):
+def _map(fn, out):
+    """``fn`` on each tensor of a serving output: a tensor or a tuple
+    (``DecodedGrid``) of them."""
     if isinstance(out, torch.Tensor):
-        return out[i]
-    return type(out)(*(_row(v, i) for v in out))
+        return fn(out)
+    return type(out)(*(_map(fn, v) for v in out))
+
+
+# The MicroBatchers whose threads run.  A CUDA graph capture in CUDA's
+# global mode fails when another thread of the process uses the card
+# meanwhile, so aot_serving refuses to capture while one runs; the set is
+# the process's, as that constraint is.
+_RUNNING: set = set()
+_RUNNING_LOCK = threading.Lock()
+
+
+def aot_serving(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
+                *, batch: int, width: int, height: int, pick: Pick = ("best",),
+                compute_dtype=torch.bfloat16, input_dtype=torch.uint8):
+    """The serving function of :func:`make_serving_fn` for one static
+    shape, (batch, height, width, 3) of ``input_dtype``, ready before its
+    first request (``singleshotpose_tpu/serving.py:aot_serving``).
+
+    On a card the function's body — u8 normalize, the folded forward with
+    the serving stem's kernel, decode and the pick — is recorded once as a
+    CUDA graph after a warm-up call.  Each call copies its frames (a tensor
+    or a numpy array) into the graph's input on the current stream, replays
+    the graph (counted in the function's ``replays``) and returns a clone of
+    its outputs, so a later call cannot overwrite a result not yet read.
+    With the weights on the CPU the function runs eagerly.  Either way any
+    other shape or dtype raises.  Capture before a :class:`MicroBatcher`
+    that serves it starts (``start=False``): it raises while any
+    MicroBatcher's threads run.
+    """
+    serve = make_serving_fn(spec, folded, pick=pick,
+                            compute_dtype=compute_dtype)
+    device = _device(folded)
+    shape = (batch, height, width, 3)
+
+    def checked(images) -> torch.Tensor:
+        images = torch.as_tensor(images)
+        if tuple(images.shape) != shape or images.dtype != input_dtype:
+            raise ValueError(
+                f"this serving function takes {shape} {input_dtype}, got "
+                f"{tuple(images.shape)} {images.dtype}")
+        return images
+
+    if device.type != "cuda":
+        return lambda images: serve(checked(images))
+
+    with _RUNNING_LOCK:
+        if _RUNNING:
+            raise RuntimeError(
+                "a MicroBatcher's threads are running: a CUDA graph capture "
+                "fails while another thread uses the card; capture first "
+                "(MicroBatcher(..., start=False), then start())")
+    static_in = torch.zeros(shape, dtype=input_dtype, device=device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        serve(static_in)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        static_out = serve(static_in)
+
+    def replay(images):
+        static_in.copy_(checked(images))
+        graph.replay()
+        replay.replays += 1
+        return _map(torch.Tensor.clone, static_out)
+
+    replay.replays = 0
+    # the graph reads tensors that only ``serve`` holds (the u8 divisor, a
+    # for_class pick's class): freed, their memory would be reused under it
+    replay.serve = serve
+    return replay
 
 
 class MicroBatcher:
@@ -89,13 +167,17 @@ class MicroBatcher:
     ``max_delay_ms``.
 
     ``serve_fn``: ``images (B, H, W, 3) → a tensor or tuple of tensors`` with
-    a leading batch dim, e.g. from :func:`make_serving_fn`; it serves every
-    bucket.  The batch thread launches the work (PyTorch returns
-    before the device finishes) and a resolver thread waits for the results,
-    so one batch's assembly overlaps the previous batch's compute;
-    ``max_in_flight`` bounds the batches launched and not yet resolved.
+    a leading batch dim, e.g. from :func:`make_serving_fn`, which then
+    serves every bucket; or a dict ``{bucket: fn}``, e.g. from
+    :func:`aot_serving` per bucket.  The batch thread launches the work
+    (PyTorch returns before the device finishes) and a resolver thread waits
+    for the results, so one batch's assembly overlaps the previous batch's
+    compute; ``max_in_flight`` bounds the batches launched and not yet
+    resolved.  The threads start at construction, or with ``start=False``
+    at :meth:`start`; requests submitted before then wait in the queue.
 
-    Thread-safe; use as a context manager or call :meth:`close`.
+    Thread-safe; use as a context manager (which starts it) or call
+    :meth:`close`.
     """
 
     _STOP = object()
@@ -103,11 +185,15 @@ class MicroBatcher:
     def __init__(self, serve_fn, *, height: int, width: int,
                  buckets: Sequence[int] = (1, 2, 4, 8, 16, 32),
                  max_delay_ms: float = 2.0, input_dtype="uint8",
-                 max_in_flight: int = 2):
+                 max_in_flight: int = 2, start: bool = True):
         self._buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not self._buckets or self._buckets[0] < 1:
             raise ValueError(f"bad buckets {buckets!r}")
-        self._serve = serve_fn
+        self._fns = (dict(serve_fn) if isinstance(serve_fn, dict)
+                     else {b: serve_fn for b in self._buckets})
+        missing = [b for b in self._buckets if b not in self._fns]
+        if missing:
+            raise ValueError(f"no serve_fn for buckets {missing}")
         self._shape = (height, width, 3)
         self._dtype = np.dtype(input_dtype)
         self._max_delay = max_delay_ms / 1e3
@@ -119,8 +205,19 @@ class MicroBatcher:
                                         name="ssp-microbatcher")
         self._resolver = threading.Thread(target=self._resolve, daemon=True,
                                           name="ssp-microbatcher-resolver")
-        self._thread.start()
-        self._resolver.start()
+        self._started = False
+        if start:
+            self.start()
+
+    def start(self) -> "MicroBatcher":
+        """Start the batch and resolver threads (once)."""
+        if not self._started:
+            with _RUNNING_LOCK:
+                _RUNNING.add(self)
+            self._started = True
+            self._thread.start()
+            self._resolver.start()
+        return self
 
     def submit(self, image) -> Future:
         """Enqueue one frame; returns a ``Future`` whose result is this
@@ -173,7 +270,7 @@ class MicroBatcher:
             for i, (img, _) in enumerate(batch):
                 imgs[i] = img
             try:
-                out = self._serve(imgs)           # launched, not awaited
+                out = self._fns[bucket](imgs)     # launched, not awaited
             except Exception as e:     # noqa: BLE001 — fan the error out
                 for _, fut in batch:
                     fut.set_exception(e)
@@ -187,13 +284,13 @@ class MicroBatcher:
                 break
             out, batch = item
             try:
-                host = _to_host(out)
+                host = _map(torch.Tensor.cpu, out)
             except Exception as e:     # noqa: BLE001 — device-side failure
                 for _, fut in batch:
                     fut.set_exception(e)
                 continue
             for i, (_, fut) in enumerate(batch):
-                fut.set_result(_row(host, i))
+                fut.set_result(_map(lambda t: t[i], host))
 
     def close(self):
         """Stop accepting requests, drain the queue, join the threads."""
@@ -201,8 +298,11 @@ class MicroBatcher:
             return
         self._closed = True
         self._queue.put(self._STOP)
-        self._thread.join()
-        self._resolver.join()
+        if self._started:
+            self._thread.join()
+            self._resolver.join()
+            with _RUNNING_LOCK:
+                _RUNNING.discard(self)
         # reject anything racing close(): fail pending futures loudly
         while True:
             try:
@@ -213,7 +313,7 @@ class MicroBatcher:
                 item[1].set_exception(RuntimeError("MicroBatcher closed"))
 
     def __enter__(self):
-        return self
+        return self.start()
 
     def __exit__(self, *exc):
         self.close()

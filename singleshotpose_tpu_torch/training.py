@@ -1,7 +1,9 @@
-"""Training core: darknet-convention SGD, the LR step schedule, the train step.
+"""Training core: darknet-convention SGD, the LR step schedule, the train step,
+and the train step captured as CUDA graphs, one per multi-scale bucket.
 
 Mirrors ``singleshotpose_tpu/training.py``.  Optimizer semantics, torch SGD
-with dampening 0 and no Nesterov, as the reference constructs it:
+with dampening 0 and no Nesterov, as the reference constructs it (JAX's
+``sgd_apply``):
 
     d = grad + weight_decay · param
     buf = momentum · buf + d
@@ -9,32 +11,40 @@ with dampening 0 and no Nesterov, as the reference constructs it:
 
 with the darknet conventions applied by ``drivers.run_training``:
 ``lr = schedule_lr(...) / batch`` and ``weight_decay = decay · batch``.
-``torch.optim.SGD`` with those settings is that update (the tests hold it
-against the JAX package's ``sgd_apply``).  Weight decay applies to every
-parameter, the reference's behavior.
+:func:`sgd_update` runs it with ``lr`` a 0-dim device tensor, so no step
+reads a value back to the host; the momentum buffers live in the
+``torch.optim.SGD`` state, where a checkpoint keeps them.  Weight decay
+applies to every parameter, the reference's behavior.
 
 The step runs eagerly on the model's device and updates the state in place
-(the torch idiom) instead of returning a new one.
+(the torch idiom) instead of returning a new one.  :func:`capture_train_step`
+records it once per input shape as a ``torch.cuda.CUDAGraph``, the
+counterpart of the JAX package's one compiled program per bucket.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Sequence
+import time
+from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
 
 from .models.darknet import Darknet
 from .ops.losses import RegionLossConfig, region_loss
 
-__all__ = ["TrainState", "init_train_state", "schedule_lr", "make_train_step"]
+__all__ = ["TrainState", "init_train_state", "schedule_lr", "sgd_update",
+           "make_train_step", "CapturedTrainStep", "capture_train_step"]
+
+Scalar = Union[float, int, torch.Tensor]
 
 
 @dataclasses.dataclass
 class TrainState:
     """The train state: the model (parameters and running BN statistics),
-    its SGD optimizer (momentum buffers, made at the first step) and
-    ``seen``, the samples processed (the darknet header's ``seen``)."""
+    its SGD optimizer (the container of the momentum buffers, made as zeros
+    at the first step) and ``seen``, the samples processed (the darknet
+    header's ``seen``)."""
     model: Darknet
     optimizer: torch.optim.SGD
     seen: int = 0
@@ -43,8 +53,8 @@ class TrainState:
 def init_train_state(model: Darknet, *, weight_decay: float, momentum: float,
                      seen: int = 0) -> TrainState:
     """A fresh state around ``model``: SGD (dampening 0, no Nesterov) with
-    ``weight_decay`` on every parameter.  The learning rate is set by the
-    step."""
+    ``weight_decay`` on every parameter.  The learning rate is the step's
+    argument (:func:`sgd_update`)."""
     opt = torch.optim.SGD(model.parameters(), lr=0.0, momentum=momentum,
                           dampening=0.0, weight_decay=weight_decay,
                           nesterov=False)
@@ -73,6 +83,47 @@ def schedule_lr(base_lr: float, processed_batches: float,
     return lr
 
 
+def _momentum_buffers(optimizer: torch.optim.SGD,
+                      params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The momentum buffers of ``params``, made as zeros where there are none
+    yet, as the JAX package starts them (``momentum·0 + d == d``)."""
+    bufs = []
+    for p in params:
+        st = optimizer.state[p]
+        if st.get("momentum_buffer") is None:
+            st["momentum_buffer"] = torch.zeros_like(p)
+        bufs.append(st["momentum_buffer"])
+    return bufs
+
+
+def sgd_update(optimizer: torch.optim.SGD, lr: Scalar) -> None:
+    """One darknet SGD step on the parameters that have a gradient, in place
+    (``singleshotpose_tpu/training.py:sgd_apply``), with the momentum and
+    weight decay of ``optimizer``'s groups and ``lr`` a float or a 0-dim
+    tensor on the parameters' device: foreach ops only, so nothing is read
+    back to the host and a CUDA graph can record it."""
+    for group in optimizer.param_groups:
+        params = [p for p in group["params"] if p.grad is not None]
+        if not params:
+            continue
+        bufs = _momentum_buffers(optimizer, params)
+        with torch.no_grad():
+            d = torch._foreach_add([p.grad for p in params], params,
+                                   alpha=group["weight_decay"])
+            torch._foreach_mul_(bufs, group["momentum"])
+            torch._foreach_add_(bufs, d)
+            torch._foreach_sub_(params, torch._foreach_mul(bufs, lr))
+
+
+def _device_scalar(x: Scalar, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """``x`` as a 0-dim tensor on ``device``: a tensor as it is, a number by
+    a fill on the device (a host copy would wait for the stream)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.full((), x, dtype=dtype, device=device)
+
+
 def make_train_step(loss_cfg: RegionLossConfig, *,
                     compute_dtype=torch.bfloat16,
                     fused_stem: bool = False) -> Callable:
@@ -80,35 +131,161 @@ def make_train_step(loss_cfg: RegionLossConfig, *,
 
     ``images`` NHWC, uint8 (divided by 255 on the device) or float in
     [0, 1]; ``target`` (B, 50·(2K+3)); ``lr`` the learning rate already
-    divided by the batch size; ``epoch`` gates the confidence term.  The
-    step runs forward (training-mode BN), the region loss, backward and the
-    SGD update, and adds the batch size to ``state.seen``, all in place on
-    ``state``.  ``stats`` are device tensors (no host sync).
+    divided by the batch size and ``epoch``, which gates the confidence
+    term, each a number or a 0-dim tensor on the images' device.  The step
+    runs forward (training-mode BN), the region loss, backward and
+    :func:`sgd_update`, and adds the batch size to ``state.seen``, all in
+    place on ``state``.  ``stats`` are device tensors (no host sync).
     ``fused_stem``: layers 0–1 through the fused train stem where the model
     admits it (``Darknet.forward``), as the JAX step takes it.
     """
     scale_u8 = {}
 
     def step(state: TrainState, images: torch.Tensor, target: torch.Tensor,
-             lr: float, epoch: int) -> Dict[str, torch.Tensor]:
+             lr: Scalar, epoch: Scalar) -> Dict[str, torch.Tensor]:
         model, opt = state.model, state.optimizer
+        dev = images.device
         if not images.is_floating_point():
             # a device-tensor divisor keeps it a true division on the card,
             # where a Python-scalar divisor becomes a multiply by 1/255
-            div = scale_u8.get(images.device)
+            div = scale_u8.get(dev)
             if div is None:
-                div = scale_u8[images.device] = torch.full(
-                    (), 255.0, device=images.device)
+                div = scale_u8[dev] = torch.full((), 255.0, device=dev)
             images = images.float() / div
         model.train()
         head = model(images, compute_dtype, fused_stem)
-        loss, stats = region_loss(head, target, epoch, loss_cfg)
+        loss, stats = region_loss(
+            head, target, _device_scalar(epoch, torch.int64, dev), loss_cfg)
         opt.zero_grad(set_to_none=True)
         loss.backward()
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
+        sgd_update(opt, _device_scalar(lr, torch.float32, dev))
         state.seen += images.shape[0]
         return stats
 
     return step
+
+
+def _set(static: torch.Tensor, value: Scalar) -> None:
+    if isinstance(value, torch.Tensor):
+        static.copy_(value)
+    else:
+        static.fill_(value)
+
+
+class CapturedTrainStep:
+    """A train step replayed from CUDA graphs, one per images shape, with
+    the eager step's signature ``(state, images, target, lr, epoch) ->
+    stats`` (:func:`capture_train_step` builds it).
+
+    Each call copies its arguments into the graphs' static inputs on the
+    current stream, replays the graph of the images' shape, adds the batch
+    to ``state.seen`` and returns a clone of the graph's stats, which the
+    next replay overwrites.  ``replays`` counts the replays; the kernels'
+    own ``launches`` counters ran once per graph, at its capture.
+    ``capture_seconds``: for each images shape captured, the host seconds
+    its warm-up steps and capture took.  Any other state, images shape or
+    dtype, or target shape raises.
+    """
+
+    def __init__(self, step: Callable, state: TrainState,
+                 graphs: Dict[Tuple[int, ...], tuple], target: torch.Tensor,
+                 lr: torch.Tensor, epoch: torch.Tensor,
+                 capture_seconds: Dict[Tuple[int, ...], float]):
+        # the graphs read tensors that only ``step`` holds (its u8
+        # divisor): freed, their memory would be reused under the graphs
+        self._step = step
+        self._state = state
+        self._graphs = graphs          # images shape -> (graph, images, stats)
+        self._target, self._lr, self._epoch = target, lr, epoch
+        self.capture_seconds = capture_seconds
+        self.replays = 0
+
+    def __call__(self, state: TrainState, images: torch.Tensor,
+                 target: torch.Tensor, lr: Scalar,
+                 epoch: Scalar) -> Dict[str, torch.Tensor]:
+        if state is not self._state:
+            raise ValueError("this step was captured on another train state")
+        entry = self._graphs.get(tuple(images.shape))
+        if entry is None or images.dtype != entry[1].dtype:
+            raise ValueError(
+                f"no graph captured for images {tuple(images.shape)} "
+                f"{images.dtype}; captured: {sorted(self._graphs)}")
+        if target.shape != self._target.shape:
+            raise ValueError(f"target {tuple(target.shape)} != the captured "
+                             f"{tuple(self._target.shape)}")
+        graph, static_images, stats = entry
+        static_images.copy_(images)
+        self._target.copy_(target)
+        _set(self._lr, lr)
+        _set(self._epoch, epoch)
+        graph.replay()
+        self.replays += 1
+        state.seen += images.shape[0]
+        return {k: v.clone() for k, v in stats.items()}
+
+
+# eager steps on a side stream before each capture: they build the kernels'
+# libraries, cuDNN's plans and the step's cached device constants, none of
+# which may happen inside a capture
+_WARMUP_STEPS = 2
+
+
+def capture_train_step(step: Callable, state: TrainState,
+                       widths: Sequence[int], batch: int, label_dim: int
+                       ) -> CapturedTrainStep:
+    """``step`` (from :func:`make_train_step`) recorded as one CUDA graph
+    per width: images (batch, w, w, 3) u8, target (batch,
+    label_dim), lr and epoch 0-dim tensors — the counterpart of the JAX
+    package's ``_precompile_buckets`` (``singleshotpose_tpu/drivers.py:
+    905-930``), which compiles the step once per multi-scale bucket.
+
+    Before each capture the step runs ``_WARMUP_STEPS`` times on a side
+    stream on zero inputs; the state's parameters, BN running statistics
+    and momentum buffers (made as zeros first) are copied before the first
+    and written back after the last capture, so the warm-up does not move
+    the state, as JAX warms on a throwaway zero state.  The graphs share one
+    memory pool: they are replayed one at a time on one stream, each reads
+    only the state, its static inputs and what it writes itself (its
+    gradients too: each capture allocates its own ``.grad`` tensors), and
+    its stats are cloned out right after its replay.  The graphs bind the
+    state's tensors, so capture after any checkpoint restore
+    (``optimizer.load_state_dict`` replaces the momentum buffers).
+
+    Needs the state on a CUDA device; a failed capture raises.
+    """
+    device = next(state.model.parameters()).device
+    if device.type != "cuda":
+        raise ValueError(f"a CUDA graph needs a CUDA device; the state is on "
+                         f"{device}")
+    params = list(state.model.parameters())
+    live = [*params, *state.model.buffers(),
+            *_momentum_buffers(state.optimizer, params)]
+    saved = [t.detach().clone() for t in live]
+    seen = state.seen
+    target = torch.zeros((batch, label_dim), device=device)
+    lr = torch.zeros((), device=device)
+    epoch = torch.zeros((), dtype=torch.int64, device=device)
+    side = torch.cuda.Stream(device)
+    pool = torch.cuda.graph_pool_handle()
+    graphs, seconds = {}, {}
+    try:
+        for w in widths:
+            t0 = time.perf_counter()
+            images = torch.zeros((batch, w, w, 3), dtype=torch.uint8,
+                                 device=device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                for _ in range(_WARMUP_STEPS):
+                    step(state, images, target, lr, epoch)
+            torch.cuda.current_stream(device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=side):
+                stats = step(state, images, target, lr, epoch)
+            graphs[tuple(images.shape)] = (graph, images, stats)
+            seconds[tuple(images.shape)] = time.perf_counter() - t0
+    finally:
+        with torch.no_grad():
+            for t, s in zip(live, saved):
+                t.copy_(s)
+        state.seen = seen
+    return CapturedTrainStep(step, state, graphs, target, lr, epoch, seconds)

@@ -16,21 +16,31 @@ same cells above the 0.6 silencing threshold.  The train stem's kernels
 (K3–K6) and their plain versions use the same formulas with f32 sums in
 another order: y and pooled as the serving stem (K3 runs the serving
 stem's tensor-core conv); the sums of K3 and K5 rel 1e-5 of max|ref|; K6's
-dW rel 1e-4 of max|ref|.
+dW rel 1e-4 of max|ref|.  The captured paths hold the CUDA graphs to the
+eager calls bit for bit; there the kernels' ``launches`` counters count
+captures (a wrapper runs while a graph records it, not when it replays).
 """
+
+import json
 
 import numpy as np
 import pytest
 import torch
 
+from singleshotpose_tpu_torch.drivers import (TrainRunConfig, _ProfileWindow,
+                                              _precompile_buckets, _to_device)
 from singleshotpose_tpu_torch.models.darknet import (DarknetSpec, Darknet,
                                                      apply_folded,
                                                      fold_batchnorm)
 from singleshotpose_tpu_torch.ops import max_corner_confidence as mcc
 from singleshotpose_tpu_torch.ops import stem
 from singleshotpose_tpu_torch.ops.targets import build_targets
-from singleshotpose_tpu_torch.training import init_train_state, make_train_step
+from singleshotpose_tpu_torch.training import (capture_train_step,
+                                               init_train_state,
+                                               make_train_step)
 from singleshotpose_tpu_torch.ops.losses import RegionLossConfig
+from singleshotpose_tpu_torch.serving import (MicroBatcher, aot_serving,
+                                              make_serving_fn)
 
 from torch_port_helpers import K2_PATTERNS, TINY_BLOCKS, k2_inputs, k2_valid
 
@@ -528,3 +538,165 @@ def test_fused_train_step_runs_the_four_kernels(dev):
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1, 1]
     assert bool(torch.isfinite(stats["loss"]))
+
+
+def _scribble(dev):
+    """Fill freed memory the allocator keeps with NaNs, so that a graph
+    reading a tensor nothing holds any more computes NaNs."""
+    import gc
+    gc.collect()
+    junk = [torch.full((n,), float("nan"), device=dev)
+            for n in (1, 64, 4096, 1 << 18) for _ in range(64)]
+    del junk
+
+
+def _tiny_train_state(dev):
+    model = Darknet(DarknetSpec(TINY_BLOCKS),
+                    generator=torch.Generator().manual_seed(7), device=dev)
+    return init_train_state(model, weight_decay=1e-3, momentum=0.9)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.cuda
+def test_captured_steps_equal_eager_steps_bit_for_bit(dev):
+    """Two widths' graphs in one pool, replayed interleaved and across the
+    pretrain gate, give the eager steps' losses, weights, BN statistics and
+    momentum buffers bit for bit; the fused stem's kernels are recorded once
+    a graph (their ``launches`` count captures) and replays run no
+    wrapper.  Only the captured step holds the step it recorded."""
+    step = make_train_step(RegionLossConfig(), fused_stem=True)
+    eager, cap = _tiny_train_state(dev), _tiny_train_state(dev)
+    g = torch.Generator().manual_seed(8)
+    widths = (64, 96, 64, 96, 96, 64)
+    epochs = (15, 15, 15, 16, 16, 16)
+    batches = []
+    for w in widths:
+        target = torch.zeros((2, 50, 21))
+        target[:, 0, 1:19] = torch.rand((2, 18), generator=g) * 0.6 + 0.2
+        target[:, 0, 19:21] = 0.3
+        batches.append((torch.randint(0, 256, (2, w, w, 3), generator=g,
+                                      dtype=torch.uint8).to(dev),
+                        target.reshape(2, -1).to(dev)))
+    before = stem.stem_conv_stats.launches
+    captured = capture_train_step(
+        make_train_step(RegionLossConfig(), fused_stem=True), cap, (64, 96),
+        2, 50 * 21)
+    _scribble(dev)
+    # the warm-up steps launch it too; each graph recorded it once more
+    assert stem.stem_conv_stats.launches - before == 2 * 3
+    assert cap.seen == 0
+    counted = (stem.stem_conv_stats, mcc.max_corner_confidence)
+    before = [f.launches for f in counted]
+    losses = []
+    for (x, t), e in zip(batches, epochs):
+        got = captured(cap, x, t, 1e-3, e)["loss"]
+        want = step(eager, x, t, 1e-3, e)["loss"]
+        losses.append((got, want))
+    torch.cuda.synchronize()
+    assert captured.replays == len(widths) and cap.seen == eager.seen == 12
+    # the eager steps launched, the replays ran no wrapper
+    assert [f.launches - b for f, b in zip(counted, before)] == [6, 6]
+    for got, want in losses:
+        assert torch.equal(_bits(got), _bits(want))
+    for (k, a), b in zip(cap.model.state_dict().items(),
+                         eager.model.state_dict().values()):
+        assert torch.equal(_bits(a), _bits(b)), k
+    for p, q in zip(cap.model.parameters(), eager.model.parameters()):
+        assert torch.equal(_bits(cap.optimizer.state[p]["momentum_buffer"]),
+                           _bits(eager.optimizer.state[q]["momentum_buffer"]))
+    with pytest.raises(ValueError, match="no graph captured"):
+        captured(cap, batches[0][0][:1], batches[0][1][:1], 1e-3, 16)
+
+
+@pytest.mark.cuda
+def test_precompiled_buckets_fed_as_the_trainers_feed_them(dev, tmp_path):
+    """``drivers._precompile_buckets`` on the card returns the captured step;
+    fed host batches through ``drivers._to_device`` (pinned, non-blocking,
+    no sync between steps) over interleaved widths it gives the eager
+    steps' losses and weights bit for bit, and the trainers' profiler
+    window traces its replays' kernels."""
+    step = make_train_step(RegionLossConfig(), fused_stem=True)
+    eager, cap = _tiny_train_state(dev), _tiny_train_state(dev)
+    captured = _precompile_buckets(
+        make_train_step(RegionLossConfig(), fused_stem=True), cap, (64, 96),
+        2, 9)
+    _scribble(dev)
+    assert captured.replays == 0 and cap.seen == 0
+    rng = np.random.RandomState(11)
+    batches = []
+    for w in (96, 64, 64, 96, 64, 96):
+        target = np.zeros((2, 50, 21), np.float32)
+        target[:, 0, 1:19] = rng.rand(2, 18) * 0.6 + 0.2
+        target[:, 0, 19:21] = 0.3
+        batches.append((rng.randint(0, 256, (2, w, w, 3)).astype(np.uint8),
+                        target.reshape(2, -1)))
+    window = _ProfileWindow(TrainRunConfig(profile_dir=str(tmp_path),
+                                           profile_steps=(1, 4)), dev)
+    losses = []
+    for i, (x, t) in enumerate(batches):
+        window.before(i)
+        got = captured(cap, _to_device(x, dev), _to_device(t, dev), 1e-3,
+                       15 + i // 3)["loss"]
+        window.after(i + 1)
+        want = step(eager, _to_device(x, dev), _to_device(t, dev), 1e-3,
+                    15 + i // 3)["loss"]
+        losses.append((got, want))
+    torch.cuda.synchronize()
+    assert captured.replays == len(batches)
+    for got, want in losses:
+        assert torch.equal(_bits(got), _bits(want))
+    for (k, a), b in zip(cap.model.state_dict().items(),
+                         eager.model.state_dict().values()):
+        assert torch.equal(_bits(a), _bits(b)), k
+    with open(tmp_path / "train_steps_1_4.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+
+
+def _tiny_folded(dev):
+    model = Darknet(DarknetSpec(TINY_BLOCKS),
+                    generator=torch.Generator().manual_seed(9), device=dev)
+    return DarknetSpec(TINY_BLOCKS), fold_batchnorm(model)
+
+
+@pytest.mark.cuda
+def test_aot_serving_result_survives_a_later_call(dev):
+    """The graph's outputs are cloned out: an answer not yet read keeps its
+    values after the next replay; each equals the eager serve bit for bit."""
+    spec, folded = _tiny_folded(dev)
+    fn = aot_serving(spec, folded, batch=2, width=64, height=64)
+    _scribble(dev)
+    serve = make_serving_fn(spec, folded, pick=("best",))
+    g = torch.Generator().manual_seed(10)
+    x1, x2 = (torch.randint(0, 256, (2, 64, 64, 3), generator=g,
+                            dtype=torch.uint8) for _ in range(2))
+    a = fn(x1)
+    b = fn(x2.to(dev))
+    torch.cuda.synchronize()
+    assert fn.replays == 2
+    assert torch.equal(a, serve(x1)) and torch.equal(b, serve(x2))
+    assert not torch.equal(a, b)
+    with pytest.raises(ValueError, match="takes"):
+        fn(x1[:1])
+
+
+@pytest.mark.cuda
+def test_aot_serving_refuses_to_capture_while_a_batcher_runs(dev):
+    """A capture while another thread may use the card would fail in CUDA's
+    global capture mode: aot_serving refuses while a MicroBatcher runs, and
+    captures once it has closed; a batcher made with ``start=False`` does
+    not count until it starts."""
+    spec, folded = _tiny_folded(dev)
+    serve = make_serving_fn(spec, folded, pick=("best",))
+    idle = MicroBatcher(serve, height=64, width=64, buckets=(1,),
+                        start=False)
+    with MicroBatcher(serve, height=64, width=64, buckets=(1,)) as mb:
+        mb.infer(np.zeros((64, 64, 3), np.uint8), timeout=60)
+        with pytest.raises(RuntimeError, match="MicroBatcher"):
+            aot_serving(spec, folded, batch=1, width=64, height=64)
+    fn = aot_serving(spec, folded, batch=1, width=64, height=64)
+    idle.close()
+    assert fn(np.zeros((1, 64, 64, 3), np.uint8)).shape == (1, 21)
