@@ -72,11 +72,24 @@ phases; any failure propagates and the exit code is nonzero:
      graph, every batch the batcher formed equal bit for bit to the eager
      serve of that batch; batch-1 and batch-8 latency, graph against eager;
      the multi-object per-class serve's graph at batch 16 equal to the eager
-     call bit for bit.
+     call bit for bit;
+ 14. device data: a LINEMOD-size corpus rendered in memory (192 640x480
+     frames and masks, ~236 MB, and 16 backgrounds; ``data/shaded.py``),
+     the loader's image decoder reading the renders: the frame bank on the
+     card; 20 batches of 8 through ``Loader(backend="device_bank")`` over
+     SINGLE_SCHEDULE's last stage equal to the same draws on the CPU bit for
+     bit, images and labels; a 416² bank batch (host clock with a sync, and
+     CUDA events) against the host Python backend's on the same frames as
+     JPEG files; 10 captured batch-8 416² steps fed from the bank equal to
+     10 eager steps on the same batches bit for bit (K2–K6 once a step);
+     ``run_validation(transfer="bank")`` equal to ``"rgb"`` on a held-out
+     split (K1 once a batch); ``scripts/shaded_accuracy.py`` at 128 train and
+     64 held-out frames, 3 epochs.
 
 Phases 4–5 and 9 are the serving paths and phase 7's fused steps and phase
 10 the training paths: each kernel's launch count is set to 0 just before
-its path and read just after.  On the captured paths (11–13) a kernel's
+its path and read just after; so are phase 14's eager steps fed from the
+bank (K2–K6) and its two evals (K1).  On the captured paths (11–13) a kernel's
 wrapper runs only while a graph records it, so what is counted there is
 captures: the graphs that recorded it (and their replays, each of which
 launches it once).  The line before the last is the kernel summary (JSON:
@@ -84,8 +97,9 @@ each kernel's launches on the single-object and the multi-object paths, its
 captures and replays on the captured ones, error, kernel and plain ms,
 bound and what sets it);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card;
-without one it exits nonzero before any result.  Reads no image files (the
-card's machine may lack Pillow) and imports no jax.
+without one it exits nonzero before any result.  Reads image files only in
+phase 14, and only when Pillow imports there (to time the host loader, and
+the shaded script's JPEG round trip); imports no jax.
 """
 
 from __future__ import annotations
@@ -99,6 +113,7 @@ import hashlib
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -114,12 +129,19 @@ import torch.nn.functional as F
 
 from singleshotpose_tpu_torch import weights as W
 from singleshotpose_tpu_torch.checkpoint import Checkpointer
+from singleshotpose_tpu_torch.data import pipeline
+from singleshotpose_tpu_torch.data.pipeline import Loader, PoseDataset
+from singleshotpose_tpu_torch.data.shaded import BOX_HALF_EXTENTS
+from singleshotpose_tpu_torch.data.shaded import PTS as SHADED_PTS
+from singleshotpose_tpu_torch.data.shaded import render_frame
 from singleshotpose_tpu_torch.data.synth_multi import ADD_OBJS, OCCLUSION_CLASSES
+from singleshotpose_tpu_torch.utils.labels import mask_path_from_image
 from singleshotpose_tpu_torch.drivers import (TrainRunConfig, _ProfileWindow,
                                               _precompile_buckets,
                                               _resolve_fused_stem,
                                               _to_device,
-                                              loss_config_from_spec)
+                                              loss_config_from_spec,
+                                              run_validation)
 from singleshotpose_tpu_torch.evaluate import (EvalContext, PoseErrors,
                                                accuracy_summary, pose_metrics)
 from singleshotpose_tpu_torch.models import darknet
@@ -1939,6 +1961,256 @@ def phase_profile_gate(spec, dev, card: str) -> None:
                       f"{ran} times, not 10")
 
 
+# the device-data phase: one LINEMOD object's train split in memory (~236 MB
+# of u8 frames and masks) plus VOC-like backgrounds; a held-out split of
+# whole eval batches (the rgb and the bank path then run the same batches);
+# the bank's batches held to the CPU's over SINGLE_SCHEDULE's last, widest
+# stage; captured and eager steps fed from the bank; and the shaded
+# accuracy script at a tiny size
+DATA_FRAMES, DATA_BACKGROUNDS, DATA_EVAL_FRAMES = 192, 16, 24
+DATA_BATCHES, DATA_STEPS, DATA_TIMED = 20, 10, 20
+SHADED_TINY = dict(n_train=128, n_eval=64, epochs=3)
+
+
+def _data_corpus(root: str):
+    """Render DATA_FRAMES + DATA_EVAL_FRAMES shaded LINEMOD-size frames
+    (``data/shaded.py``) and DATA_BACKGROUNDS noise backgrounds in memory;
+    write the label files, the two lists, the mesh and a ``.data`` under
+    ``root``.  Returns (the ``.data`` path, the train list, the background
+    paths, the frames by path: images, 2-D masks, backgrounds)."""
+    rng = np.random.RandomState(50)
+    colors = rng.randint(60, 255, (6, 3))
+    os.makedirs(f"{root}/labels", exist_ok=True)
+    frames, paths = {}, []
+    for i in range(DATA_FRAMES + DATA_EVAL_FRAMES):
+        img, mask, lab, _, _ = render_frame(rng, colors)
+        path = f"{root}/JPEGImages/00{i:04d}.jpg"
+        frames[path] = img
+        frames[f"{root}/mask/{i:04d}.png"] = mask
+        np.savetxt(f"{root}/labels/00{i:04d}.txt", lab[None])
+        paths.append(path)
+    bgs = []
+    for k in range(DATA_BACKGROUNDS):
+        bgs.append(f"{root}/bg/{k:04d}.jpg")
+        frames[bgs[-1]] = rng.randint(0, 256, (375, 500, 3), np.uint8)
+    for name, part in (("train", paths[:DATA_FRAMES]),
+                       ("test", paths[DATA_FRAMES:])):
+        with open(f"{root}/{name}.txt", "w") as f:
+            f.write("\n".join(part) + "\n")
+    verts = SHADED_PTS[1:]
+    with open(f"{root}/obj.ply", "w") as f:
+        f.write("\n".join(
+            ["ply", "format ascii 1.0", f"element vertex {len(verts)}",
+             "property float x", "property float y", "property float z",
+             "element face 0", "property list uchar int vertex_indices",
+             "end_header"] + [f"{a} {b} {c}" for a, b, c in verts]) + "\n")
+    diam = float(2 * np.linalg.norm(BOX_HALF_EXTENTS))
+    with open(f"{root}/obj.data", "w") as f:
+        f.write(f"train = {root}/train.txt\nvalid = {root}/test.txt\n"
+                f"backup = {root}/backup\nmesh = {root}/obj.ply\n"
+                f"name = shaded\ndiam = {diam:.4f}\nwidth = 640\n"
+                "height = 480\nfx = 572.4114\nfy = 573.5704\n"
+                "u0 = 325.2611\nv0 = 242.0489\n")
+    return f"{root}/obj.data", f"{root}/train.txt", bgs, frames
+
+
+def _host_loader_ms(train_list: str, bgs, frames, root: str):
+    """The host Python backend's batch of 8 at 416² (PIL decode and numpy
+    augment in 8 threads, as the trainer runs it), host clock, median over
+    5 batches after one, on the same frames written as JPEGs (quality 92)
+    and PNG masks; None without Pillow."""
+    try:
+        from PIL import Image
+    except ImportError:
+        print("[device data] host Loader batch: not measured (no Pillow)")
+        return None
+    with open(train_list) as f:
+        lines = [ln.strip() for ln in f][:6 * TRAIN_BATCH]
+    masks = [mask_path_from_image(p) for p in lines]
+    for path in lines + masks + list(bgs):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(frames[path]).save(path, quality=92)
+    with open(f"{root}/host.txt", "w") as f:
+        f.write("\n".join(lines) + "\n")
+    ds = PoseDataset(f"{root}/host.txt", train=True, bg_file_names=bgs)
+    loader = Loader(ds, TRAIN_BATCH, fixed_shape=(TRAIN_SIZE, TRAIN_SIZE),
+                    seed=23, out_uint8=True, backend="python")
+    times, t = [], time.perf_counter()
+    for _ in loader:
+        times.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+    return statistics.median(times[1:])
+
+
+def phase_device_data(spec, dev, card: str) -> dict:
+    """The device-resident single-object data path (``data/device_bank.py``,
+    ``data/eval_bank.py``) on a LINEMOD-size corpus rendered in memory, the
+    loader's image decoder reading the renders: the frame bank on the card;
+    DATA_BATCHES batches of 8 through ``Loader(backend="device_bank")`` over
+    SINGLE_SCHEDULE's last stage (224²-832²) equal to the same draws on the
+    CPU bit for bit, images and labels; a 416² bank batch timed against the
+    host Python backend's on the same frames; DATA_STEPS captured batch-8
+    416² steps fed from the bank (``drivers._precompile_buckets``) equal to
+    as many eager steps on the same batches bit for bit (K2–K6 once a step,
+    counted); ``run_validation(transfer="bank")`` equal to ``"rgb"`` on a
+    held-out split; ``scripts/shaded_accuracy.py`` at a tiny size.  Returns
+    K2–K6's launches in the eager steps, and K1's in the two evals."""
+    import importlib.util
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ssp_device_data_")
+    try:
+        datacfg, train_list, bgs, frames = _data_corpus(root)
+        print(f"[device data] rendered {DATA_FRAMES} train + "
+              f"{DATA_EVAL_FRAMES} held-out 640x480 frames and "
+              f"{DATA_BACKGROUNDS} backgrounds in "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        host_ms = _host_loader_ms(train_list, bgs, frames, root)
+        with mock.patch.object(pipeline, "load_image", frames.__getitem__):
+            out = _device_data_checks(spec, dev, card, datacfg, train_list,
+                                      bgs, host_ms)
+        shaded = importlib.util.spec_from_file_location(
+            "shaded_accuracy", os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "scripts", "shaded_accuracy.py"))
+        mod = importlib.util.module_from_spec(shaded)
+        shaded.loader.exec_module(mod)
+        t = time.perf_counter()
+        res = mod.run(**SHADED_TINY, device=str(dev))
+        print(f"[device data] scripts/shaded_accuracy.py at {SHADED_TINY}: "
+              f"{res['stem']}; losses {res['epoch_losses']}; held out "
+              f"2D@5px {res['acc_2d_5px']:.2f}% ADD-0.1d "
+              f"{res['acc_add_0.1d']:.2f}% 5cm5° {res['acc_5cm5deg']:.2f}% "
+              f"mean px {res['mean_px_err']:.4f} over {res['eval_n']} frames, "
+              f"JPEG round trip {res['jpeg_round_trip']}, "
+              f"{time.perf_counter() - t:.1f} s")
+        _check(res["eval_n"] == SHADED_TINY["n_eval"] and
+               np.isfinite(res["epoch_losses"]).all() and
+               np.isfinite(res["mean_px_err"]),
+               f"the shaded accuracy script's tiny run failed: {res}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[device data] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _device_data_checks(spec, dev, card, datacfg, train_list, bgs,
+                        host_ms) -> dict:
+    nb = DATA_FRAMES // TRAIN_BATCH
+    deep = dict(seed=21, seen=70 * nb * TRAIN_BATCH, num_workers=0,
+                backend="device_bank")
+    loaders = [Loader(PoseDataset(train_list, train=True, bg_file_names=bgs),
+                      TRAIN_BATCH, device=d, **deep) for d in (dev, "cpu")]
+    t = time.perf_counter()
+    widths, diffs = [], []
+    for i, ((ci, cl), (hi, hl)) in enumerate(zip(*loaders)):
+        if i == DATA_BATCHES:
+            break
+        widths.append(ci.shape[2])
+        same = torch.equal(ci.cpu(), hi) and torch.equal(
+            cl.cpu().view(torch.int32), hl.view(torch.int32))
+        if not same:
+            diffs.append((i, int((ci.cpu() != hi).sum()),
+                          int((cl.cpu() != hl).sum())))
+    bank = loaders[0]._frame_bank
+    print(f"[device data] bank on the card: {bank.images.shape[0]} frames "
+          f"{tuple(bank.images.shape[1:3])}, {len(bgs)} backgrounds, "
+          f"{bank.nbytes() / 2**20:.1f} MiB; {DATA_BATCHES} batches of "
+          f"{TRAIN_BATCH} at widths {sorted(set(widths))}: card = CPU bit "
+          f"for bit in {DATA_BATCHES - len(diffs)} of {DATA_BATCHES} "
+          f"(images and labels); {time.perf_counter() - t:.1f} s with the "
+          f"CPU's")
+    for d in diffs[:5]:
+        print(f"[device data]   batch {d[0]} differs: {d[1]} pixels, "
+              f"{d[2]} label values")
+    _check(not diffs and len(set(widths)) > 3,
+           "the bank's batches on the card are not the CPU's")
+
+    # a 416² bank batch: host clock with a sync, and CUDA events
+    fixed = Loader(PoseDataset(train_list, train=True, bg_file_names=bgs),
+                   TRAIN_BATCH, fixed_shape=(TRAIN_SIZE, TRAIN_SIZE),
+                   seed=22, num_workers=0, backend="device_bank", device=dev)
+    it = iter(fixed)
+    batches = [next(it) for _ in range(DATA_STEPS)]
+    stream = itertools.chain.from_iterable(itertools.repeat(fixed))
+    host, events = [], []
+    for _ in range(DATA_TIMED):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        next(stream)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+        events.append(start.elapsed_time(end))
+    bank_ms = statistics.median(host)
+    print(f"[device data] {TRAIN_SIZE}² batch of {TRAIN_BATCH}: bank "
+          f"{bank_ms:.4f} ms host clock with a sync ({statistics.median(events):.4f} "
+          f"ms CUDA events), median of {DATA_TIMED}; host Python backend "
+          + (f"{host_ms:.4f} ms (PIL decode + numpy augment, 8 threads, host "
+             f"clock, median of 5), {host_ms / bank_ms:.1f}x the bank's"
+             if host_ms is not None else "not measured") + f" [{card}]")
+
+    # captured steps fed from the bank against eager steps on the same
+    # batches
+    fused = _resolve_fused_stem(TrainRunConfig(), dev)
+    (cap_state, _, cap_step), (eager_state, _, step) = \
+        (_train_setup(spec, dev, 70, fused) for _ in range(2))
+    with _counting_captures():
+        captured = _precompile_buckets(cap_step, cap_state, [TRAIN_SIZE],
+                                       TRAIN_BATCH, spec.num_keypoints)
+    del cap_step
+    _scribble(dev)
+    recorded = [c[1:] for c in _CountingGraph.captured]
+    for f in _TRAIN_COUNTED:
+        f.launches = 0
+    eager_losses = torch.stack([
+        step(eager_state, _to_device(im, dev), _to_device(lb, dev),
+             _lr(spec, i), TRAIN_EPOCH)["loss"]
+        for i, (im, lb) in enumerate(batches)])
+    torch.cuda.synchronize()
+    launches = _launches()
+    cap_losses = torch.stack([
+        captured(cap_state, _to_device(im, dev), _to_device(lb, dev),
+                 _lr(spec, i), TRAIN_EPOCH)["loss"]
+        for i, (im, lb) in enumerate(batches)])
+    torch.cuda.synchronize()
+    cap_diffs, n_tensors = _state_diffs(cap_state, eager_state)
+    same = _same_bits(cap_losses, eager_losses)
+    print(f"[device data] {DATA_STEPS} batch-{TRAIN_BATCH} {TRAIN_SIZE}² bf16 "
+          f"steps fed from the bank (u8 on the card), fused stem {fused}: "
+          f"K2-K6 recorded in the graph {recorded}, launched in the eager "
+          f"steps {launches}; losses {float(eager_losses[0]):.6g} ... "
+          f"{float(eager_losses[-1]):.6g}; captured = eager bit for bit: "
+          f"losses {same}, {n_tensors - len(cap_diffs)} of {n_tensors} state "
+          f"tensors [{card}]")
+    _check(recorded == [[1] * 5], f"K2-K6 recorded {recorded}")
+    _check(launches == [DATA_STEPS] * 5,
+           f"K2-K6 launched {launches} times in {DATA_STEPS} eager steps")
+    _check(same and not cap_diffs and bool(torch.isfinite(cap_losses).all()),
+           "the captured steps fed from the bank are not the eager steps")
+
+    # the eval bank against the rgb path on the held-out split
+    stem.stem_conv_pool_infer.launches = 0
+    kw = dict(model=eager_state.model, batch_size=TRAIN_BATCH,
+              num_workers=4, device=dev, verbose=False)
+    rgb = run_validation(datacfg, spec, transfer="rgb", **kw)
+    banked = run_validation(datacfg, spec, transfer="bank", **kw)
+    k1 = stem.stem_conv_pool_infer.launches
+    equal = all(rgb[k] == banked[k] or (np.isnan(rgb[k]) and
+                                        np.isnan(banked[k])) for k in rgb)
+    print(f"[device data] run_validation on {rgb['n_samples']} held-out "
+          f"frames at {spec.net.test_width}², bf16: bank = rgb {equal} "
+          f"(2D@5px {banked['acc_2d_proj']:.2f}%, mean px "
+          f"{banked['mean_err_2d']:.6g}); K1 launched {k1} times [{card}]")
+    _check(equal and rgb["n_samples"] == DATA_EVAL_FRAMES,
+           f"the eval bank's metrics differ from rgb: {rgb} vs {banked}")
+    _check(k1 == 2 * DATA_EVAL_FRAMES // TRAIN_BATCH,
+           f"the evals launched K1 {k1} times")
+    return {"launches": launches, "k1_launches": k1, "bank_ms": bank_ms,
+            "host_ms": host_ms}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
                                  "on one NVIDIA card.")
@@ -2005,6 +2277,10 @@ def main(argv=None) -> int:
     _free()
     aot = phase_aot_serve(spec, folded, dev, card, multi, multi_folded)
     _free()
+    # the device-resident data path: K2-K6 counted from 0 over its eager
+    # steps, K1 over its two evals
+    device_data = phase_device_data(spec, dev, card)
+    _free()
     if args.profile:
         phase_profile(spec, folded, dev, card, args.profile)
         phase_profile_k2(dev, card, args.profile, [
@@ -2038,18 +2314,22 @@ def main(argv=None) -> int:
         "source": "singleshotpose_tpu_torch/csrc/stem_serve.cu",
         "replaces": "singleshotpose_tpu/ops/stem.py:545",
         "launches": launches, "launches_multi": multi_launches[0],
+        "launches_eval_bank": device_data["k1_launches"],
         **k1_captured, **stem_numbers, "library_ms": None}, {
         "name": "max_corner_confidence", "route": "cuda",
         "source": "singleshotpose_tpu_torch/csrc/max_corner_confidence.cu",
         "replaces": "singleshotpose_tpu/ops/pallas_kernels.py:44",
         "launches": train_launches[0], "launches_multi": multi_launches[1],
+        "launches_device_data": device_data["launches"][0],
         **train_captured, **k2_numbers, "library_ms": None}]
-    for (_, name, replaces), n, n_multi in zip(
-            _STEM_KERNELS, train_launches[1:], multi_launches[2:]):
+    for (_, name, replaces), n, n_multi, n_data in zip(
+            _STEM_KERNELS, train_launches[1:], multi_launches[2:],
+            device_data["launches"][1:]):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "singleshotpose_tpu_torch/csrc/stem_train.cu",
             "replaces": replaces, "launches": n, "launches_multi": n_multi,
+            "launches_device_data": n_data,
             **train_captured, **train_stem_numbers[name],
             "library_ms": None})
     print(json.dumps({"kernels": kernels}))

@@ -3,17 +3,21 @@
   python -m singleshotpose_tpu_torch.cli train --datacfg D.data --modelcfg M
          [--initweightfile W] [--pretrain_num_epochs N] [--max_epochs N]
          [--bg_dir DIR] [--checkpoint_dir DIR [--resume]]
-         [--precompile_buckets] [--profile_dir DIR] [--device cuda]
+         [--precompile_buckets] [--profile_dir DIR] [--cache_decoded]
+         [--loader_backend auto|python|device|device_bank]
+         [--eval_transfer auto|rgb|bank] [--device cuda]
   python -m singleshotpose_tpu_torch.cli valid --datacfg D.data --modelcfg M
-         --weightfile W.weights [--batch_size N] [--device cuda]
+         --weightfile W.weights [--batch_size N] [--transfer rgb|bank]
+         [--device cuda]
   python -m singleshotpose_tpu_torch.cli train-multi --datacfg occlusion.data
          [--modelcfg M] [--initweightfile W] [--linemod_root DIR]
          [--eval_datacfgs D.data ...] [--max_epochs N] [--bg_dir DIR]
          [--checkpoint_dir DIR [--resume]] [--precompile_buckets]
-         [--profile_dir DIR] [--device cuda]
+         [--profile_dir DIR] [--cache_decoded] [--eval_transfer auto|rgb|bank]
+         [--device cuda]
   python -m singleshotpose_tpu_torch.cli valid-multi --weightfile W.weights
          [--modelcfg M] [--datacfgs D.data ... | --datacfg occlusion.data]
-         [--device cuda]
+         [--transfer rgb|bank] [--device cuda]
 
 Flags follow ``singleshotpose_tpu/cli.py`` (``train``, ``valid``,
 ``train-multi``, ``valid-multi``), with ``--checkpoint_dir`` in place of
@@ -58,7 +62,30 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
                         "launch cost); nothing on the CPU")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of steps 5-10 here")
+    p.add_argument("--cache_decoded", action="store_true",
+                   help="RAM-cache decoded images across epochs")
+    p.add_argument("--loader_backend", type=str, default="auto",
+                   choices=["auto", "python", "device", "device_bank"],
+                   help="train: auto/python (host decode and augment), "
+                        "device (host decode, augment on the card) or "
+                        "device_bank (the train split decoded once into "
+                        "device memory, augmented on the card); train-multi: "
+                        "auto/python")
+    p.add_argument("--eval_transfer", type=str, default="auto",
+                   choices=["auto", "rgb", "bank"],
+                   help="in-training eval input: rgb u8 batches from the "
+                        "host, or bank (the test split decoded once into "
+                        "device memory); auto picks bank when it fits the "
+                        "card's free memory, else rgb")
     p.add_argument("--device", type=str, default="cuda")
+
+
+def _add_transfer_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--transfer", type=str, default="rgb",
+                   choices=["rgb", "bank"],
+                   help="input path: rgb u8 batches from the host, or bank "
+                        "(the split decoded once into device memory; "
+                        "repeated evals in one process reuse it)")
 
 
 def _run_config(args, **overrides):
@@ -68,7 +95,10 @@ def _run_config(args, **overrides):
                           checkpoint_dir=args.checkpoint_dir,
                           resume=args.resume, device=args.device,
                           precompile_buckets=args.precompile_buckets,
-                          profile_dir=args.profile_dir, **overrides)
+                          profile_dir=args.profile_dir,
+                          cache_decoded=args.cache_decoded,
+                          loader_backend=args.loader_backend,
+                          eval_transfer=args.eval_transfer, **overrides)
 
 
 def cmd_train(argv: Sequence[str]) -> int:
@@ -133,6 +163,7 @@ def cmd_valid(argv: Sequence[str]) -> int:
     p.add_argument("--weightfile", type=str,
                    default="backup/ape/model_backup.weights")
     p.add_argument("--batch_size", type=int, default=16)
+    _add_transfer_flag(p)
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
     _require_file(args.datacfg, "data config")
@@ -143,7 +174,7 @@ def cmd_valid(argv: Sequence[str]) -> int:
     from .zoo import _resolve_model
     run_validation(args.datacfg, _resolve_model(args.modelcfg),
                    args.weightfile, batch_size=args.batch_size,
-                   device=args.device)
+                   transfer=args.transfer, device=args.device)
     return 0
 
 
@@ -159,6 +190,7 @@ def cmd_valid_multi(argv: Sequence[str]) -> int:
                    help="a multi .data with valid<i>/mesh<i>/diam<i> keys "
                         "(e.g. occlusion.data): evals every listed object")
     p.add_argument("--batch_size", type=int, default=16)
+    _add_transfer_flag(p)
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
     _require_file(args.weightfile, "weight file")
@@ -168,7 +200,8 @@ def cmd_valid_multi(argv: Sequence[str]) -> int:
                           run_validation_multi_sweep)
     from .zoo import _resolve_model
     spec = _resolve_model(args.modelcfg)
-    kw = dict(batch_size=args.batch_size, device=args.device)
+    kw = dict(batch_size=args.batch_size, transfer=args.transfer,
+              device=args.device)
     if args.datacfg:
         _require_file(args.datacfg, "data config")
         run_validation_multi_sweep(args.datacfg, spec, args.weightfile, **kw)

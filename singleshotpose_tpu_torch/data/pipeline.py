@@ -3,13 +3,17 @@
 The port's own copy of ``singleshotpose_tpu/data/pipeline.py``, cut to what
 the drivers run, so the port imports nothing of the JAX package;
 ``tests/test_torch_host.py`` and ``tests/test_torch_multi_host.py`` hold its
-batches equal, bit for bit, to the JAX package's
+``python`` batches equal, bit for bit, to the JAX package's
 ``Loader(backend="python")``, the multi-object scene synthesizer's
-(``synthesizer=``) included.  Left out: the decoded-image cache, the native
-C++ decoder's sampling plan and the ``native``/``device``/``device_bank``/
-``device_synth`` backends with their ``out_yuv420`` and ``mesh`` options —
-the loader here has the Python backend only, and a caller that passes one of
-those options gets a ``TypeError``.
+(``synthesizer=``) included, and ``tests/test_torch_device_data.py`` its
+``device`` and ``device_bank`` batches to JAX's.  Backends: ``python``
+(host decode and augment; ``auto`` resolves to it — the port has no native
+decoder), ``device`` (host decode, augment on the card:
+``data/device_augment.py``) and ``device_bank`` (the train split decoded
+once into device memory: ``data/device_bank.py``).  Not ported yet, and a
+``ValueError`` names the ROADMAP item: the native C++ decoder (``native``,
+and its ``out_yuv420``) and ``device_synth``.  Left out: the ``mesh``
+option.
 
 Rebuild of ``listDataset`` + torch ``DataLoader`` (reference:
 ``dataset.py:14-141``, ``train.py:56-65``):
@@ -29,10 +33,12 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..utils.labels import (label_path_from_image, mask_path_from_image,
                             read_truths, read_truths_args)
@@ -123,7 +129,8 @@ class PoseDataset:
                  aug: AugmentConfig = AugmentConfig(),
                  num_keypoints: int = 9, max_num_gt: int = 50,
                  label_path_fn: Callable[[str], str] = label_path_from_image,
-                 synthesizer: Optional[Callable] = None):
+                 synthesizer: Optional[Callable] = None,
+                 cache_decoded: bool = False):
         with open(listfile) as f:
             self.lines = [ln.strip() for ln in f if ln.strip()]
         self.train = train
@@ -133,6 +140,21 @@ class PoseDataset:
         self.max_num_gt = max_num_gt
         self.label_path_fn = label_path_fn
         self.synthesizer = synthesizer  # multi-object scene synthesis hook
+        # RAM cache of decoded image/mask arrays: LINEMOD-sized train sets
+        # (~200-1200 640×480 frames ≈ 0.2-1.1 GB) decode once, then every
+        # later epoch runs at augment speed
+        self.cache_decoded = cache_decoded
+        self._img_cache: dict = {}
+
+    def _decode_cached(self, path: str, decode: Callable[[str], np.ndarray]
+                       ) -> np.ndarray:
+        if not self.cache_decoded:
+            return decode(path)
+        arr = self._img_cache.get(path)
+        if arr is None:
+            arr = decode(path)
+            self._img_cache[path] = arr
+        return arr
 
     def __len__(self) -> int:
         return len(self.lines)
@@ -190,8 +212,9 @@ class PoseDataset:
         if self.synthesizer is not None:
             img, label = self.synthesizer(self, imgpath, shape, rng)
         else:
-            img = load_image(imgpath)
-            mask = load_image(mask_path_from_image(imgpath))
+            img = self._decode_cached(imgpath, load_image)
+            mask = self._decode_cached(mask_path_from_image(imgpath),
+                                       load_image)
             if self.bg_file_names:
                 bg = load_image(
                     self.bg_file_names[rng.randint(len(self.bg_file_names))])
@@ -214,13 +237,23 @@ class PoseDataset:
 # ---------------------------------------------------------------------------
 
 
+# loader backends not ported yet, and the ROADMAP item that ports each
+_UNPORTED = {"native": "the native C++ decoder (ROADMAP.md §1 item 6)",
+             "device_synth": "device_synth (ROADMAP.md §1 item 1)"}
+
+
 class Loader:
     """Batched, shuffled, thread-pooled iterator over a PoseDataset.
 
     One authoritative ``seen`` counter drives the multi-scale schedule; each
     batch uses a single width so the stacked array is rectangular.  Yields
-    (images (B,H,W,3) f32 — or u8 with ``out_uint8`` —, labels
-    (B, 50·(2K+3)) f32).
+    (images (B,H,W,3), labels (B, 50·(2K+3)) f32): on the ``python``
+    backend host arrays, images f32 — or u8 with ``out_uint8``; on the
+    ``device`` backend u8 images on ``device`` and host labels; on the
+    ``device_bank`` backend both on ``device``.
+
+    ``device`` (default the card) is where the two device backends put
+    their batches; a CUDA device without CUDA raises.
     """
 
     def __init__(self, dataset: PoseDataset, batch_size: int, *,
@@ -228,7 +261,8 @@ class Loader:
                  schedule: Optional[MultiScaleSchedule] = SINGLE_SCHEDULE,
                  fixed_shape: Optional[Tuple[int, int]] = None,
                  num_workers: int = 8, seed: int = 0,
-                 drop_last: bool = True, out_uint8: bool = False):
+                 drop_last: bool = True, backend: str = "auto",
+                 out_uint8: bool = False, device="cuda"):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -236,12 +270,33 @@ class Loader:
         self.schedule = schedule
         self.fixed_shape = fixed_shape
         self.rng = np.random.RandomState(seed)
-        self.pool = ThreadPoolExecutor(max_workers=num_workers) \
-            if num_workers > 0 else None
         self.drop_last = drop_last
         # yield uint8 images (normalized on the device): 4x lighter
-        # host→device copies, bit-identical values (u8/255 either side)
+        # host→device copies (the python backend; the device backends yield
+        # u8 always)
         self.out_uint8 = out_uint8
+        if backend == "auto":       # the port has no native decoder yet
+            backend = "python"
+        if backend in _UNPORTED:
+            raise ValueError(f"loader backend {backend!r} is not ported to "
+                             f"the PyTorch package yet: {_UNPORTED[backend]}")
+        if backend not in ("python", "device", "device_bank"):
+            raise ValueError(f"unknown loader backend {backend!r}")
+        self.backend = backend
+        if backend != "python":
+            if dataset.synthesizer is not None:
+                raise ValueError(f"the {backend} backend does not cover the "
+                                 "scene-synthesis path")
+            if not dataset.train:
+                raise ValueError(f"{backend} is a train-mode backend")
+            self.device = torch.device(device)
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(f"loader backend {backend!r} on "
+                                   f"{self.device}, but CUDA is not available")
+            self._frame_bank = None
+        # device_bank batches are device work alone: no host workers
+        self.pool = ThreadPoolExecutor(max_workers=num_workers) \
+            if num_workers > 0 and backend != "device_bank" else None
 
     @property
     def nbatches(self) -> int:
@@ -264,6 +319,12 @@ class Loader:
         for start in range(0, end, self.batch_size):
             idxs = order[start:start + self.batch_size]
             shape = self._batch_shape()
+            if self.backend == "device_bank":
+                yield self._device_bank_batch(idxs, shape)
+                continue
+            if self.backend == "device":
+                yield self._device_batch(idxs, shape)
+                continue
             if self.ds.train:
                 seeds = self.rng.randint(0, 2 ** 31 - 1, size=len(idxs))
                 def one(args):
@@ -288,3 +349,101 @@ class Loader:
             labels = np.stack([r[1] for r in results])
             self.seen += len(idxs)
             yield imgs, labels
+
+    def _bg_rows(self, B: int) -> np.ndarray:
+        """One background draw per sample over the full list (the device
+        backends' rng stream: these draws, then ``draw_params``)."""
+        n = len(self.ds.bg_file_names)
+        return np.array([self.rng.randint(n) for _ in range(B)], np.int64)
+
+    def _draw(self, B: int, iw: int, ih: int):
+        from .device_augment import draw_params
+        aug = self.ds.aug
+        return draw_params(self.rng, B, iw, ih, jitter=aug.jitter,
+                           hue=aug.hue, saturation=aug.saturation,
+                           exposure=aug.exposure)
+
+    def _device_bank_batch(self, idxs, shape):
+        """One single-object train batch from the device frame bank.
+
+        The first call decodes the corpus into a device-resident
+        ``DeviceFrameBank`` (``data/device_bank.py``) and logs its size;
+        afterwards each batch is device work on (bank, indices, host-drawn
+        params).  The rng stream matches the ``device`` backend draw for
+        draw (bg picks then ``draw_params``), so given equal seeds the two
+        backends yield bit-identical images.  Yields device tensors (images
+        u8, labels f32)."""
+        from .device_bank import augment_bank_batch, build_frame_bank
+
+        if self._frame_bank is None:
+            t0 = time.time()
+            bank = build_frame_bank(self.ds)
+            self._frame_bank = bank.device_put(self.device)
+            print(f"device_bank: {bank.images.shape[0]} frames, "
+                  f"{bank.nbytes() / 1e6:.0f} MB on {self.device} "
+                  f"({time.time() - t0:.1f}s to build)", flush=True)
+        bank = self._frame_bank
+        w, h = shape
+        B = len(idxs)
+        ih, iw = bank.frame_shape
+        if self.ds.bg_file_names:
+            # folded onto the bank's sampled rows
+            bg_rows = self._bg_rows(B) % bank.bgs.shape[0]
+        else:
+            bg_rows = np.zeros(B, np.int64)
+        params, _ = self._draw(B, iw, ih)
+        imgs, labels = augment_bank_batch(
+            bank, np.asarray(idxs, np.int64), bg_rows, params, out_w=w,
+            out_h=h, K=self.ds.num_keypoints)
+        self.seen += B
+        return imgs, labels
+
+    def _device_batch(self, idxs, shape):
+        """Decode on the host, augment on the device.
+
+        Yields (u8 images (B,h,w,3) on ``device``, host labels).  All source
+        images must share one native size (true for LINEMOD)."""
+        from .device_augment import augment_batch, upload
+
+        w, h = shape
+
+        def one(i):
+            imgpath = self.ds.lines[int(i)]
+            img = self.ds._decode_cached(imgpath, load_image)
+            mask = self.ds._decode_cached(mask_path_from_image(imgpath),
+                                          load_image)
+            return img, mask if mask.ndim == 3 else mask[..., None]
+
+        work = list(idxs)
+        if self.pool is not None:
+            decoded = list(self.pool.map(one, work))
+        else:
+            decoded = [one(i) for i in work]
+        # all u8: the three native-size buffers copy at 1/4 the float bytes
+        imgs = np.stack([d[0] for d in decoded])
+        ih, iw = imgs.shape[1:3]
+        masks = np.stack([d[1][..., :1] for d in decoded])
+
+        B = len(work)
+        if self.ds.bg_file_names:
+            bgs = np.stack([
+                augment.resize_nearest(
+                    load_image(self.ds.bg_file_names[r]), iw, ih)
+                for r in self._bg_rows(B)])
+        else:
+            bgs = np.zeros_like(imgs)
+            masks = np.full_like(masks, 255)
+
+        params, lab_tf = self._draw(B, iw, ih)
+        out = augment_batch(upload(imgs, self.device),
+                            upload(masks, self.device),
+                            upload(bgs, self.device), params, w, h)
+        labels = np.stack([
+            augment.transform_truths(
+                self.ds._read_truths_full(self.ds.lines[int(i)]),
+                lab_tf[b, 0], lab_tf[b, 1],
+                1.0 / lab_tf[b, 2], 1.0 / lab_tf[b, 3],
+                self.ds.num_keypoints, self.ds.max_num_gt)
+            for b, i in enumerate(work)])
+        self.seen += B
+        return out, labels

@@ -5,17 +5,23 @@ Mirrors ``run_validation``, ``run_validation_multi``,
 ``run_validation_multi_sweep``, ``run_training`` and ``run_training_multi``
 of ``singleshotpose_tpu/drivers.py``.
 
-Validation, on the ``rgb`` transfer: the host ``PoseDataset``/
-``Loader`` feed u8 batches (single object at the spec's test size, multi
-object at its train size), the serving function (fold → bf16 forward →
-decode → box pick: the best box, or one box per class) runs on the device,
-and the boxes of all batches meet the ground truth in one batched PnP +
-metric pass.
+Validation: on the ``rgb`` transfer the host ``PoseDataset``/``Loader``
+feed u8 batches (single object at the spec's test size, multi object at its
+train size); on the ``bank`` transfer the split is decoded once into a
+device-resident eval bank (``data/eval_bank.py``, LRU-cached across calls)
+with the same pixels.  The serving function (fold → bf16 forward → decode →
+box pick: the best box, or one box per class) runs on the device, and the
+boxes of all batches meet the ground truth in one batched PnP + metric
+pass.
 
-Training: the host ``Loader`` (multi-scale, u8; for OCCLUSION over scenes
-from the multi-object synthesizer) feeds the train step through pinned host
-memory — eager, or with ``precompile_buckets`` on a card replayed from one
-CUDA graph per multi-scale bucket; the reference's behaviours are kept —
+Training: the ``Loader`` (multi-scale, u8; ``loader_backend`` ``python``:
+host decode and augment, for OCCLUSION over scenes from the multi-object
+synthesizer; ``device``: augment on the card; ``device_bank``: the train
+split in device memory) feeds the train step — host batches through pinned
+memory, device batches as they are — eager, or with ``precompile_buckets``
+on a card replayed from one CUDA graph per multi-scale bucket; the
+in-training eval takes the eval bank when it fits the card's free memory
+(``eval_transfer="auto"``); the reference's behaviours are kept —
 the step LR schedule in batches, the pretrain confidence gate, an eval every
 ``eval_every`` epochs after ``eval_after``, the best accuracy saved as
 darknet ``model.weights``, ``costs.npz`` curves — and full-state
@@ -39,6 +45,7 @@ from .config import (DataConfig, data_config_from_options, occlusion_sweep,
                      read_data_cfg)
 from .data.pipeline import (MULTI_SCHEDULE, SINGLE_SCHEDULE, AugmentConfig,
                             Loader, PoseDataset)
+from .data import eval_bank
 from .data.prefetch import prefetch
 from .data.synth_multi import MultiObjectSynthesizer, SynthConfig
 from .evaluate import (EvalContext, PoseErrors, accuracy_summary,
@@ -48,6 +55,7 @@ from .ops.losses import RegionLossConfig
 from .serving import make_serving_fn
 from .training import (TrainState, capture_train_step, init_train_state,
                        make_train_step, schedule_lr)
+from .utils.memory import hbm_free_bytes
 from .utils.labels import get_all_files
 from .zoo import _resolve_model
 
@@ -125,11 +133,37 @@ def _eval_pass(spec: DarknetSpec, model: Darknet, loader, ctx: EvalContext, *,
                     "image_idx": np.concatenate(image_idx)}
 
 
+# eval transfers not ported yet, and the ROADMAP item that ports each
+_UNPORTED_TRANSFERS = {"yuv420": "ops/yuv.py with the native decoder "
+                                 "(ROADMAP.md §1 item 6)"}
+
+
+def _eval_loader(ds: PoseDataset, out_shape: Tuple[int, int], batch_size: int,
+                 num_workers: int, transfer: str, cache_key: tuple,
+                 device: torch.device):
+    """The batches of an eval pass: a host ``Loader`` of u8 batches
+    (``rgb``), or the LRU-cached eval bank of the same pixels on ``device``
+    (``bank``)."""
+    if transfer in _UNPORTED_TRANSFERS:
+        raise ValueError(f"transfer {transfer!r} is not ported to the "
+                         f"PyTorch package yet: {_UNPORTED_TRANSFERS[transfer]}")
+    if transfer == "bank":
+        return eval_bank.get_eval_bank(ds, out_shape, batch_size,
+                                       num_workers=num_workers, device=device,
+                                       cache_key=cache_key + (str(device),))
+    if transfer != "rgb":
+        raise ValueError(f"unknown transfer {transfer!r}")
+    return Loader(ds, batch_size, shuffle=False, schedule=None,
+                  fixed_shape=out_shape, num_workers=num_workers,
+                  drop_last=False, out_uint8=True)
+
+
 def run_validation(datacfg: str, modelcfg: Union[str, DarknetSpec],
                    weightfile: Optional[str] = None, *,
                    model: Optional[Darknet] = None, batch_size: int = 16,
                    num_workers: int = 8,
                    compute_dtype=torch.bfloat16, device="cuda",
+                   transfer: str = "rgb",
                    verbose: bool = True) -> Dict[str, float]:
     """Single-object eval (reference ``valid.py``): the 6D metric suite.
 
@@ -137,7 +171,12 @@ def run_validation(datacfg: str, modelcfg: Union[str, DarknetSpec],
     ``model`` (as the JAX driver takes ``params=``/``batch_stats=``; the
     trainer's eval passes its model), which must be on ``device``.
     ``device`` is where the network and PnP run; it is used as given, and a
-    CUDA device that is absent raises.
+    CUDA device that is absent raises.  ``transfer="rgb"`` streams u8
+    batches from the host; ``"bank"`` decodes the split ONCE into a
+    device-resident eval bank (``data/eval_bank.py``, LRU-cached across
+    calls): repeated evals — the in-training cadence, reference
+    ``train.py:395`` — then run with no host decode and no per-frame copy,
+    on pixels bit-identical to the rgb path's.
     """
     device = _resolve_device(device)
     dcfg = data_config_from_options(read_data_cfg(datacfg))
@@ -148,9 +187,10 @@ def run_validation(datacfg: str, modelcfg: Union[str, DarknetSpec],
     ctx = EvalContext.from_data_config(dcfg)
     ds = PoseDataset(dcfg.valid, train=False,
                      num_keypoints=spec.num_keypoints)
-    loader = Loader(ds, batch_size, shuffle=False, schedule=None,
-                    fixed_shape=(spec.net.test_width, spec.net.test_height),
-                    num_workers=num_workers, drop_last=False, out_uint8=True)
+    out_shape = (spec.net.test_width, spec.net.test_height)
+    loader = _eval_loader(ds, out_shape, batch_size, num_workers, transfer,
+                          ("single", dcfg.valid, out_shape, batch_size,
+                           spec.num_keypoints), device)
     if verbose:
         _log(f"   Testing {dcfg.name}...")
         _log(f"   Number of test samples: {len(ds)}")
@@ -183,6 +223,7 @@ def run_validation_multi(datacfg: Union[str, DataConfig],
                          model: Optional[Darknet] = None,
                          batch_size: int = 16, num_workers: int = 8,
                          compute_dtype=torch.bfloat16, device="cuda",
+                         transfer: str = "rgb",
                          verbose: bool = True) -> Dict[str, object]:
     """Multi-object OCCLUSION eval for one object (reference
     ``valid_multi.py:20-158``): class-picked boxes, ``fix_corner_order`` on
@@ -194,7 +235,9 @@ def run_validation_multi(datacfg: Union[str, DataConfig],
     spec's train size
     (``valid_multi.py:71``), labels from ``labels_occlusion/`` under the
     object's name (``dataset_multi.py:78``).  The network is
-    ``weightfile`` or ``model``, as :func:`run_validation` takes them.
+    ``weightfile`` or ``model``, as :func:`run_validation` takes them, and
+    ``transfer`` as it takes it (the bank keyed on the object too: the sweep
+    reads the same frames under each object's labels).
     """
     device = _resolve_device(device)
     if isinstance(datacfg, DataConfig):
@@ -220,9 +263,10 @@ def run_validation_multi(datacfg: Union[str, DataConfig],
     ds = PoseDataset(dcfg.valid, train=False,
                      num_keypoints=spec.num_keypoints,
                      label_path_fn=occlusion_label_path)
-    loader = Loader(ds, batch_size, shuffle=False, schedule=None,
-                    fixed_shape=(spec.net.width, spec.net.height),
-                    num_workers=num_workers, drop_last=False, out_uint8=True)
+    out_shape = (spec.net.width, spec.net.height)
+    loader = _eval_loader(ds, out_shape, batch_size, num_workers, transfer,
+                          ("multi", dcfg.valid, name, out_shape, batch_size,
+                           spec.num_keypoints), device)
     pick = ("for_class", class_id, conf_thresh) if class_id is not None \
         else ("per_class", conf_thresh)
     if verbose:
@@ -302,6 +346,14 @@ class TrainRunConfig:
     precompile_buckets: bool = False
     profile_dir: Optional[str] = None  # torch.profiler trace of a few steps
     profile_steps: Tuple[int, int] = (5, 10)
+    cache_decoded: bool = False        # RAM-cache decoded images across epochs
+    # train loader: auto|python|device|device_bank (multi: auto|python)
+    loader_backend: str = "auto"
+    # in-training eval input: "rgb" streams host batches, "bank" decodes the
+    # test split once into device memory (data/eval_bank.py); "auto" picks
+    # "bank" when the split fits the card's free memory with headroom
+    # (_resolve_eval_transfer), else "rgb"
+    eval_transfer: str = "auto"
 
 
 def _resolve_fused_stem(rc: TrainRunConfig, device: torch.device) -> bool:
@@ -316,6 +368,58 @@ def _resolve_fused_stem(rc: TrainRunConfig, device: torch.device) -> bool:
 def _count_lines(path: str) -> int:
     with open(path) as f:
         return sum(1 for line in f if line.strip())
+
+
+_EVAL_BANK_HEADROOM = 1 << 30   # keep >= 1 GB free for eval activations
+
+
+def _valid_split_frames(datacfg: Union[str, DataConfig]) -> int:
+    dc = datacfg if isinstance(datacfg, DataConfig) else \
+        data_config_from_options(read_data_cfg(datacfg))
+    try:
+        return _count_lines(dc.valid)
+    except OSError:
+        return 0
+
+
+def _bank_bytes(n_frames: int, out_shape: Tuple[int, int],
+                batch: int) -> int:
+    """u8 device footprint of an EvalBank: frames padded to a batch
+    multiple."""
+    padded = -(-max(n_frames, 1) // batch) * batch
+    return padded * out_shape[0] * out_shape[1] * 3
+
+
+def _resolve_eval_transfer(rc: "TrainRunConfig", need_bytes: int,
+                           device: torch.device) -> str:
+    """Resolve ``eval_transfer="auto"`` for one in-training eval pass
+    (``singleshotpose_tpu/drivers.py:657-700``).
+
+    The eval bank is strictly better than streaming for the repeated eval
+    cadence (reference ``train.py:395``) whenever it fits, so it is the
+    default — after a preflight: bank bytes for the split(s) + ≥1 GB
+    activation headroom must fit the free device memory.  When tight, first
+    evict the eval-bank LRU (stale banks from earlier splits), else stream
+    ``rgb`` for THIS pass (the next eval resolves again, so transient
+    pressure does not keep the run streaming).  Off CUDA there is no budget:
+    ``bank``."""
+    if rc.eval_transfer != "auto":
+        return rc.eval_transfer
+    free = hbm_free_bytes(device)
+    if free is None:
+        return "bank"
+    need = need_bytes + _EVAL_BANK_HEADROOM
+    if need <= free:
+        return "bank"
+    cached = sum(b.nbytes() for b in eval_bank._CACHE.values())
+    if cached and need <= free + cached:
+        _log(f"eval_transfer=auto: evicting {cached >> 20} MB of cached "
+             "eval banks to fit this split")
+        eval_bank.clear_cache()
+        return "bank"
+    _log(f"eval_transfer=auto: bank needs {need >> 20} MB but only "
+         f"{free >> 20} MB device memory free — streaming rgb for this eval")
+    return "rgb"
 
 
 def _init_state(spec: DarknetSpec, initweightfile: Optional[str],
@@ -409,9 +513,11 @@ def run_training(datacfg: str, modelcfg: Union[str, DarknetSpec],
                            fused_stem=_resolve_fused_stem(rc, device))
     bg_files = get_all_files(rc.bg_dir) if os.path.isdir(rc.bg_dir) else []
     ds = PoseDataset(dcfg.train, train=True, bg_file_names=bg_files,
-                     num_keypoints=spec.num_keypoints)
+                     num_keypoints=spec.num_keypoints,
+                     cache_decoded=rc.cache_decoded)
     loader = Loader(ds, batch_size, schedule=SINGLE_SCHEDULE, seen=state.seen,
-                    num_workers=rc.num_workers, seed=rc.seed, out_uint8=True)
+                    num_workers=rc.num_workers, seed=rc.seed,
+                    backend=rc.loader_backend, out_uint8=True, device=device)
     if rc.precompile_buckets:
         step = _precompile_buckets(step, state, SINGLE_SCHEDULE.all_widths,
                                    batch_size, spec.num_keypoints)
@@ -502,9 +608,11 @@ def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
     bg_files = get_all_files(rc.bg_dir) if os.path.isdir(rc.bg_dir) else []
     ds = PoseDataset(dcfg.train, train=True, bg_file_names=bg_files,
                      aug=AugmentConfig.multi(),
-                     num_keypoints=spec.num_keypoints, synthesizer=synth)
+                     num_keypoints=spec.num_keypoints, synthesizer=synth,
+                     cache_decoded=rc.cache_decoded)
     loader = Loader(ds, batch_size, schedule=MULTI_SCHEDULE, seen=state.seen,
-                    num_workers=rc.num_workers, seed=rc.seed, out_uint8=True)
+                    num_workers=rc.num_workers, seed=rc.seed,
+                    backend=rc.loader_backend, out_uint8=True)
     if rc.precompile_buckets:
         step = _precompile_buckets(step, state, MULTI_SCHEDULE.all_widths,
                                    batch_size, spec.num_keypoints)
@@ -545,11 +653,17 @@ def _multi_eval_and_keep_best(eval_datacfgs, spec, state, rc, device,
     """The in-training sweep of the model in memory: acc@50 px of each
     object, their mean to the curves and ``costs.npz``, and
     ``model.weights`` when the mean is a new best.  Returns the best."""
+    # the sweep keeps one bank per object in the LRU: budget them all
+    out_shape = (spec.net.width, spec.net.height)
+    transfer = _resolve_eval_transfer(rc, sum(
+        _bank_bytes(_valid_split_frames(dc), out_shape, rc.eval_batch_size)
+        for dc in eval_datacfgs), device)
     accs = [run_validation_multi(dc, spec, model=state.model,
                                  batch_size=rc.eval_batch_size,
                                  num_workers=rc.num_workers,
                                  compute_dtype=rc.compute_dtype,
-                                 device=device)["acc_table"][50]
+                                 device=device,
+                                 transfer=transfer)["acc_table"][50]
             for dc in eval_datacfgs]
     mean_acc = float(np.mean(accs))
     history["testing_iters"].append(processed)
@@ -564,9 +678,11 @@ def _multi_eval_and_keep_best(eval_datacfgs, spec, state, rc, device,
     return mean_acc
 
 
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host batch to ``device``; to a card through pinned memory, without
-    waiting for the copy."""
+def _to_device(a, device: torch.device) -> torch.Tensor:
+    """A batch on ``device``: a tensor (a device backend's) as it is; a host
+    array to a card through pinned memory, without waiting for the copy."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     t = torch.from_numpy(a)
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
@@ -665,10 +781,14 @@ def _eval_and_keep_best(datacfg, spec, state, rc, device, backupdir, history,
     """The in-training eval of the model in memory: the curves to
     ``costs.npz``, and ``model.weights`` when the 2D accuracy is a new best
     (reference ``train.py:395-409``).  Returns the best accuracy."""
+    out_shape = (spec.net.test_width, spec.net.test_height)
+    transfer = _resolve_eval_transfer(rc, _bank_bytes(
+        _valid_split_frames(datacfg), out_shape, rc.eval_batch_size), device)
     summary = run_validation(datacfg, spec, model=state.model,
                              batch_size=rc.eval_batch_size,
                              num_workers=rc.num_workers,
-                             compute_dtype=rc.compute_dtype, device=device)
+                             compute_dtype=rc.compute_dtype, device=device,
+                             transfer=transfer)
     acc = summary["acc_2d_proj"]
     history["testing_iters"].append(processed)
     history["testing_accuracies"].append(acc)

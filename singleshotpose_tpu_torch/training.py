@@ -28,6 +28,7 @@ import dataclasses
 import time
 from typing import Callable, Dict, List, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from .models.darknet import Darknet
@@ -37,6 +38,10 @@ __all__ = ["TrainState", "init_train_state", "schedule_lr", "sgd_update",
            "make_train_step", "CapturedTrainStep", "capture_train_step"]
 
 Scalar = Union[float, int, torch.Tensor]
+
+# f32(1/255): XLA compiles the JAX step's ``u8 / 255.0`` into a multiply by
+# this reciprocal, so a u8 batch enters the port's step with JAX's bits
+_INV255 = float(np.float32(1) / np.float32(255))
 
 
 @dataclasses.dataclass
@@ -129,8 +134,9 @@ def make_train_step(loss_cfg: RegionLossConfig, *,
                     fused_stem: bool = False) -> Callable:
     """The train step ``step(state, images, target, lr, epoch) -> stats``.
 
-    ``images`` NHWC, uint8 (divided by 255 on the device) or float in
-    [0, 1]; ``target`` (B, 50·(2K+3)); ``lr`` the learning rate already
+    ``images`` NHWC, uint8 (scaled to [0, 1] on the device as the JAX
+    package's compiled step scales it: times f32(1/255), the multiply XLA
+    makes of its ``/ 255.0``) or float in [0, 1]; ``target`` (B, 50·(2K+3)); ``lr`` the learning rate already
     divided by the batch size and ``epoch``, which gates the confidence
     term, each a number or a 0-dim tensor on the images' device.  The step
     runs forward (training-mode BN), the region loss, backward and
@@ -146,12 +152,12 @@ def make_train_step(loss_cfg: RegionLossConfig, *,
         model, opt = state.model, state.optimizer
         dev = images.device
         if not images.is_floating_point():
-            # a device-tensor divisor keeps it a true division on the card,
-            # where a Python-scalar divisor becomes a multiply by 1/255
-            div = scale_u8.get(dev)
-            if div is None:
-                div = scale_u8[dev] = torch.full((), 255.0, device=dev)
-            images = images.float() / div
+            # f32(1/255) on the device, held here: a CUDA graph of the step
+            # reads it
+            scale = scale_u8.get(dev)
+            if scale is None:
+                scale = scale_u8[dev] = torch.full((), _INV255, device=dev)
+            images = images.float() * scale
         model.train()
         head = model(images, compute_dtype, fused_stem)
         loss, stats = region_loss(
@@ -192,7 +198,7 @@ class CapturedTrainStep:
                  lr: torch.Tensor, epoch: torch.Tensor,
                  capture_seconds: Dict[Tuple[int, ...], float]):
         # the graphs read tensors that only ``step`` holds (its u8
-        # divisor): freed, their memory would be reused under the graphs
+        # scale): freed, their memory would be reused under the graphs
         self._step = step
         self._state = state
         self._graphs = graphs          # images shape -> (graph, images, stats)

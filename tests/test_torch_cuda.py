@@ -700,3 +700,96 @@ def test_aot_serving_refuses_to_capture_while_a_batcher_runs(dev):
     fn = aot_serving(spec, folded, batch=1, width=64, height=64)
     idle.close()
     assert fn(np.zeros((1, 64, 64, 3), np.uint8)).shape == (1, 21)
+
+
+# ---------------------------------------------------------------------------
+# the device-resident data path: plain PyTorch ops, held to the CPU's bits
+# ---------------------------------------------------------------------------
+
+
+def _frame_bank(dev, seed=0, N=5, H=48, W=64, NB=3):
+    from singleshotpose_tpu_torch.data.device_bank import DeviceFrameBank
+    rng = np.random.RandomState(seed)
+    imgs = rng.randint(0, 256, (N, H, W, 3), np.uint8)
+    imgs[:, ::3] = imgs[:, ::3, :, :1]                  # grey: saturation 0
+    imgs[:, 1::7] = 0                                   # black: value 0
+    masks = ((rng.rand(N, H, W) > 0.4) * 255).astype(np.uint8)
+    truths = np.zeros((N, 50, 21), np.float32)
+    n_rows = np.array([1, 2, 0, 1, 3][:N], np.int32)
+    for i in range(N):
+        truths[i, :n_rows[i]] = rng.uniform(0.05, 0.95, (n_rows[i], 21))
+    bgs = rng.randint(0, 256, (NB, H, W, 3), np.uint8)
+    bank = DeviceFrameBank(*map(torch.from_numpy,
+                                (imgs, masks, truths, n_rows, bgs)))
+    return bank, bank.device_put(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ow,oh,jitter,hue", [
+    (96, 96, 0.2, 0.1),      # the trainers' augmentation
+    (61, 47, 0.45, 0.5),     # a width not divisible by 4; crops partly out
+    (416, 416, 0.3, 1.0)])   # of the frame; hue shifts of both signs
+def test_bank_batch_on_the_card_equals_the_cpu(dev, ow, oh, jitter, hue):
+    """The bank's batch (images u8, labels f32) has the CPU's bits: every
+    op rounds on its own, divisions are true IEEE divisions on both, and the
+    fused multiply-adds are emulated exactly in f64."""
+    from singleshotpose_tpu_torch.data.device_augment import draw_params
+    from singleshotpose_tpu_torch.data.device_bank import augment_bank_batch
+    host, card = _frame_bank(dev)
+    B = 8
+    rng = np.random.RandomState(ow)
+    idxs, bg_idxs = rng.randint(0, 5, B), rng.randint(0, 3, B)
+    params, _ = draw_params(rng, B, 64, 48, jitter=jitter, hue=hue,
+                            saturation=1.5, exposure=1.5)
+    assert (params.dhue < 0).any() and (params.dhue > 0).any()
+    assert (params.pleft < 0).any()
+    want = augment_bank_batch(host, idxs, bg_idxs, params, out_w=ow, out_h=oh)
+    got = augment_bank_batch(card, idxs, bg_idxs, params, out_w=ow, out_h=oh)
+    assert got[0].is_cuda and got[0].dtype == torch.uint8
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu().view(torch.int32),
+                       want[1].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_device_augment_on_the_card_equals_the_cpu(dev):
+    """``augment_batch``'s u8 path and its float alpha-blend path."""
+    from singleshotpose_tpu_torch.data.device_augment import (augment_batch,
+                                                              draw_params)
+    rng = np.random.RandomState(5)
+    B, H, W = 4, 48, 64
+    imgs = torch.from_numpy(rng.randint(0, 256, (B, H, W, 3), np.uint8))
+    masks = torch.from_numpy(((rng.rand(B, H, W, 1) > 0.5) * 255)
+                             .astype(np.uint8))
+    bgs = torch.from_numpy(rng.randint(0, 256, (B, H, W, 3), np.uint8))
+    params, _ = draw_params(rng, B, W, H, jitter=0.4, hue=0.5,
+                            saturation=1.5, exposure=1.5)
+    for args in ((imgs, masks, bgs),
+                 (imgs.float() / 255, torch.from_numpy(
+                     rng.rand(B, H, W, 1).astype(np.float32)),
+                  bgs.float() / 255)):
+        want = augment_batch(*args, params, 61, 47)
+        got = augment_batch(*(a.to(dev) for a in args), params, 61, 47)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_eval_bank_on_the_card_holds_the_rgb_batches(dev, tmp_path):
+    from PIL import Image
+    from singleshotpose_tpu_torch.data.eval_bank import build_eval_bank
+    from singleshotpose_tpu_torch.data.pipeline import Loader, PoseDataset
+    rng = np.random.RandomState(2)
+    paths = []
+    for i in range(5):
+        p = tmp_path / f"{i:06d}.png"
+        Image.fromarray(rng.randint(0, 256, (48, 64, 3), np.uint8)).save(p)
+        paths.append(str(p))
+    lst = tmp_path / "test.txt"
+    lst.write_text("\n".join(paths) + "\n")
+    ds = PoseDataset(str(lst), train=False)
+    bank = build_eval_bank(ds, (40, 32), 2, num_workers=0, device=dev)
+    assert bank.images.is_cuda and bank.n == 5
+    host = list(Loader(ds, 2, shuffle=False, schedule=None, fixed_shape=(40, 32),
+                       num_workers=0, drop_last=False, out_uint8=True))
+    for (bi, _), (hi, _) in zip(bank, host):
+        assert torch.equal(bi[:len(hi)].cpu(), torch.from_numpy(hi))
