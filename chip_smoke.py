@@ -84,12 +84,28 @@ phases; any failure propagates and the exit code is nonzero:
      10 eager steps on the same batches bit for bit (K2–K6 once a step);
      ``run_validation(transfer="bank")`` equal to ``"rgb"`` on a held-out
      split (K1 once a batch); ``scripts/shaded_accuracy.py`` at 128 train and
-     64 held-out frames, 3 epochs.
+     64 held-out frames, 3 epochs;
+ 15. device synth: a multi-object corpus (13 classes x 16 shaded 640x480
+     renders, ~256 MB, 16 backgrounds; ``scripts/shaded_accuracy_multi.py``
+     builds it) in a scene bank on the card; batch-32 416² scenes drawn on
+     the card, composited on u8 levels (the masks are binary) and in f32,
+     equal the CPU's f32 composite from the same draws bit for bit (images
+     and labels) at two (attempts, propose_scale); the synth's ms per batch
+     (CUDA events, 10 repeats) and objects per scene at attempts 30/16/6 x
+     propose_scale 1/4; 10 captured f32 ``yolo_pose_multi`` steps fed from
+     it (``drivers._precompile_buckets(image_dtype=float32)``) equal to 10
+     eager steps on the same scenes bit for bit (K2–K6 once a step); the
+     synth-fed captured step against the captured step on scenes in memory,
+     in turns; ``run_training_multi(loader_backend="device_synth",
+     precompile_buckets=True)`` for one epoch on the frames as a LINEMOD
+     tree (f32 graphs, K2–K6 once in each); the host synthesizer's batch on
+     the same frames as files.
 
 Phases 4–5 and 9 are the serving paths and phase 7's fused steps and phase
 10 the training paths: each kernel's launch count is set to 0 just before
 its path and read just after; so are phase 14's eager steps fed from the
-bank (K2–K6) and its two evals (K1).  On the captured paths (11–13) a kernel's
+bank (K2–K6) and its two evals (K1), and phase 15's eager steps fed from
+the synth (K2–K6).  On the captured paths (11–13) a kernel's
 wrapper runs only while a graph records it, so what is counted there is
 captures: the graphs that recorded it (and their replays, each of which
 launches it once).  The line before the last is the kernel summary (JSON:
@@ -98,8 +114,9 @@ captures and replays on the captured ones, error, kernel and plain ms,
 bound and what sets it);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card;
 without one it exits nonzero before any result.  Reads image files only in
-phase 14, and only when Pillow imports there (to time the host loader, and
-the shaded script's JPEG round trip); imports no jax.
+phases 14 and 15, and only when Pillow imports there (to time the host
+loader and the host synthesizer, and the shaded script's JPEG round trip);
+imports no jax.
 """
 
 from __future__ import annotations
@@ -130,6 +147,11 @@ import torch.nn.functional as F
 from singleshotpose_tpu_torch import weights as W
 from singleshotpose_tpu_torch.checkpoint import Checkpointer
 from singleshotpose_tpu_torch.data import pipeline
+from singleshotpose_tpu_torch.data.device_synth import (DeviceSynthStatic,
+                                                        SynthDraws,
+                                                        binary_masks,
+                                                        draw_synth,
+                                                        synthesize_batch)
 from singleshotpose_tpu_torch.data.pipeline import Loader, PoseDataset
 from singleshotpose_tpu_torch.data.shaded import BOX_HALF_EXTENTS
 from singleshotpose_tpu_torch.data.shaded import PTS as SHADED_PTS
@@ -141,6 +163,7 @@ from singleshotpose_tpu_torch.drivers import (TrainRunConfig, _ProfileWindow,
                                               _resolve_fused_stem,
                                               _to_device,
                                               loss_config_from_spec,
+                                              run_training_multi,
                                               run_validation)
 from singleshotpose_tpu_torch.evaluate import (EvalContext, PoseErrors,
                                                accuracy_summary, pose_metrics)
@@ -159,7 +182,8 @@ from singleshotpose_tpu_torch.serving import (MicroBatcher, aot_serving,
                                               make_serving_fn)
 from singleshotpose_tpu_torch.training import (init_train_state,
                                                make_train_step, schedule_lr)
-from singleshotpose_tpu_torch.zoo import yolo_pose_multi, yolo_pose_single
+from singleshotpose_tpu_torch.zoo import (occlusion_datacfg, yolo_pose_multi,
+                                          yolo_pose_single)
 
 # K1 (B, H, W): the last is the single-object serve's, (16, 416, 416) the
 # multi-object serve's
@@ -1972,6 +1996,16 @@ DATA_BATCHES, DATA_STEPS, DATA_TIMED = 20, 10, 20
 SHADED_TINY = dict(n_train=128, n_eval=64, epochs=3)
 
 
+def _script(name: str):
+    """``scripts/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _data_corpus(root: str):
     """Render DATA_FRAMES + DATA_EVAL_FRAMES shaded LINEMOD-size frames
     (``data/shaded.py``) and DATA_BACKGROUNDS noise backgrounds in memory;
@@ -2055,7 +2089,6 @@ def phase_device_data(spec, dev, card: str) -> dict:
     counted); ``run_validation(transfer="bank")`` equal to ``"rgb"`` on a
     held-out split; ``scripts/shaded_accuracy.py`` at a tiny size.  Returns
     K2–K6's launches in the eager steps, and K1's in the two evals."""
-    import importlib.util
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="ssp_device_data_")
     try:
@@ -2068,13 +2101,8 @@ def phase_device_data(spec, dev, card: str) -> dict:
         with mock.patch.object(pipeline, "load_image", frames.__getitem__):
             out = _device_data_checks(spec, dev, card, datacfg, train_list,
                                       bgs, host_ms)
-        shaded = importlib.util.spec_from_file_location(
-            "shaded_accuracy", os.path.join(os.path.dirname(
-                os.path.abspath(__file__)), "scripts", "shaded_accuracy.py"))
-        mod = importlib.util.module_from_spec(shaded)
-        shaded.loader.exec_module(mod)
         t = time.perf_counter()
-        res = mod.run(**SHADED_TINY, device=str(dev))
+        res = _script("shaded_accuracy").run(**SHADED_TINY, device=str(dev))
         print(f"[device data] scripts/shaded_accuracy.py at {SHADED_TINY}: "
               f"{res['stem']}; losses {res['epoch_losses']}; held out "
               f"2D@5px {res['acc_2d_5px']:.2f}% ADD-0.1d "
@@ -2211,6 +2239,369 @@ def _device_data_checks(spec, dev, card, datacfg, train_list, bgs,
             "host_ms": host_ms}
 
 
+# the device-synth phase: a multi-object corpus (13 classes x 16 shaded
+# 640x480 renders, ~256 MB, and 16 backgrounds; scripts/
+# shaded_accuracy_multi.py builds it) in a scene bank on the card; batch-32
+# 416² scenes held to the CPU's from the same draws at SYNTH_BIT_KNOBS; the
+# synth timed at every (attempts, propose_scale) of SYNTH_KNOBS; captured
+# f32 multi steps fed from it against eager ones; the host synthesizer's
+# batch on the same frames
+SYNTH_FRAMES_PER_CLASS = 16
+SYNTH_KNOBS = tuple((a, s) for a in (30, 16, 6) for s in (1, 4))
+SYNTH_BIT_KNOBS = ((30, 4), (6, 1))
+SYNTH_TIMED, SYNTH_WARMUP, SYNTH_STEPS, SYNTH_HOST_BATCHES = 10, 2, 10, 3
+
+
+def _objects_per_scene(labels: torch.Tensor) -> float:
+    rows = labels.view(labels.shape[0], -1, 21)[:, :, 1:]
+    return float((rows.abs().sum(-1) > 0).sum(-1).float().mean())
+
+
+def _synth(bank, idx, gen, st, binary=True):
+    """One batch of ``idx``'s scenes at MULTI_SIZE² from ``gen``'s draws,
+    on u8 levels (``binary``, the shaded masks are) or in f32: (draws,
+    images, labels)."""
+    H, W = bank.frame_shape
+    draws = draw_synth(gen, len(idx), bank, bank.base_class[idx].long(), st,
+                       W, H)
+    return (draws, *synthesize_batch(bank, idx, draws, out_w=MULTI_SIZE,
+                                     out_h=MULTI_SIZE, st=st, binary=binary))
+
+
+def _synth_tree(host_bank, root: str):
+    """The bank's frames as a LINEMOD tree under ``root``: per class
+    ``<obj>/labels/*.txt`` and ``<obj>/train.txt``, a train list of every
+    frame and an OCCLUSION ``.data``, and the frames by path (images, masks,
+    backgrounds) for a decoder that reads them from memory.  Returns (the
+    ``.data`` path, the train list, the background paths, the frames)."""
+    nf = SYNTH_FRAMES_PER_CLASS
+    frames, lines = {}, []
+    for c, obj in enumerate(OCCLUSION_CLASSES):
+        os.makedirs(f"{root}/{obj}/labels", exist_ok=True)
+        paths = []
+        for j in range(nf):
+            i = c * nf + j
+            path = f"{root}/{obj}/JPEGImages/00{j:04d}.jpg"
+            frames[path] = host_bank.images[i].numpy()
+            frames[mask_path_from_image(path)] = host_bank.masks[i].numpy()
+            np.savetxt(f"{root}/{obj}/labels/00{j:04d}.txt",
+                       host_bank.labels[i].numpy()[None])
+            paths.append(path)
+        with open(f"{root}/{obj}/train.txt", "w") as f:
+            f.write("\n".join(paths) + "\n")
+        lines += paths
+    bgs = [f"{root}/bg{k:02d}.jpg" for k in range(host_bank.bgs.shape[0])]
+    frames.update(zip(bgs, host_bank.bgs.numpy()))
+    with open(f"{root}/train_multi.txt", "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(f"{root}/occlusion.data", "w") as f:
+        f.write(occlusion_datacfg(linemod_root=root,
+                                  train_list=f"{root}/train_multi.txt",
+                                  backup_root=f"{root}/backup"))
+    return f"{root}/occlusion.data", f"{root}/train_multi.txt", bgs, frames
+
+
+def _host_synth_ms(train_list: str, bgs, frames, root: str):
+    """The host synthesizer's batch of MULTI_TRAIN_BATCH scenes at
+    MULTI_SIZE² (``Loader(backend="python")``, PIL decode and numpy
+    compositing in 8 threads, as the multi trainer runs it), host clock,
+    median over SYNTH_HOST_BATCHES batches after one, on ``_synth_tree``'s
+    frames written as files (JPEG quality 92, PNG masks); (ms, objects per
+    scene), or None without Pillow."""
+    try:
+        from PIL import Image
+    except ImportError:
+        print("[device synth] host synthesizer batch: not measured (no "
+              "Pillow)")
+        return None
+    from singleshotpose_tpu_torch.data.synth_multi import (
+        MultiObjectSynthesizer, SynthConfig)
+    for path, a in frames.items():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(a).save(path, **({} if path.endswith(".png")
+                                         else {"quality": 92}))
+    ds = PoseDataset(train_list, train=True, bg_file_names=bgs,
+                     aug=pipeline.AugmentConfig.multi(),
+                     synthesizer=MultiObjectSynthesizer(
+                         SynthConfig(linemod_root=root)))
+    loader = Loader(ds, MULTI_TRAIN_BATCH,
+                    fixed_shape=(MULTI_SIZE, MULTI_SIZE), seed=24,
+                    out_uint8=True, backend="python")
+    times, objs, t = [], [], time.perf_counter()
+    for i, (_, labels) in enumerate(loader):
+        times.append((time.perf_counter() - t) * 1e3)
+        objs.append(_objects_per_scene(torch.from_numpy(labels)))
+        if i == SYNTH_HOST_BATCHES:
+            break
+        t = time.perf_counter()
+    return statistics.median(times[1:]), float(np.mean(objs))
+
+
+def _synth_trainer(multi, dev, card: str, datacfg: str, root: str, frames):
+    """``drivers.run_training_multi`` on the tree of ``_synth_tree``, as a
+    user runs ``train-multi --loader_backend device_synth
+    --precompile_buckets``: the decoder reads the frames from memory, the
+    full-width ``yolo_pose_multi`` from seeded weights, one epoch at batch
+    32; its graphs are captured for f32 images (a u8 batch would find
+    none), K2–K6 recorded once in each.  Returns the epoch's steps."""
+    rc = TrainRunConfig(loader_backend="device_synth",
+                        precompile_buckets=True, max_epochs_override=1,
+                        num_workers=0, log_every=2, bg_dir=f"{root}/no_bg",
+                        eval_every=20, eval_after=-1)
+    t = time.perf_counter()
+    with mock.patch.object(pipeline, "load_image", frames.__getitem__), \
+            _counting_captures():
+        result = run_training_multi(datacfg, multi, None, 0, None, root, rc)
+    per_graph = [c[1:] for c in _CountingGraph.captured]
+    losses = result["history"]["training_losses"]
+    steps = len(OCCLUSION_CLASSES) * SYNTH_FRAMES_PER_CLASS \
+        // MULTI_TRAIN_BATCH
+    print(f"[device synth] run_training_multi(loader_backend='device_synth',"
+          f" precompile_buckets=True), yolo_pose_multi batch "
+          f"{MULTI_TRAIN_BATCH}, one epoch: {len(losses)} steps, losses "
+          + " ".join(f"{x:.6g}" for x in losses) + f"; seen "
+          f"{result['state'].seen}; {len(per_graph)} f32 graphs, K2-K6 "
+          f"recorded in each {per_graph[0] if per_graph else None}; "
+          f"{time.perf_counter() - t:.1f} s [{card}]")
+    _check(len(losses) == steps and np.isfinite(losses).all()
+           and result["state"].seen == steps * MULTI_TRAIN_BATCH,
+           "run_training_multi on device_synth did not train its epoch")
+    _check(per_graph == [[1] * 5] * len(MULTI_SCHEDULE.all_widths),
+           f"K2-K6 recorded {per_graph}")
+    return len(losses)
+
+
+def phase_device_synth(multi, dev, card: str) -> dict:
+    """The multi-object scene synthesis on the card (``data/
+    device_synth.py``), on a corpus of 13 classes × SYNTH_FRAMES_PER_CLASS
+    shaded renders in a scene bank on the card: batch-32 416² scenes drawn
+    on the card, composited on u8 levels (the masks are binary) and in f32,
+    equal, bit for bit, the CPU's f32 composite from the same draws (images
+    and labels) at SYNTH_BIT_KNOBS; the synth's ms per batch (CUDA events,
+    SYNTH_TIMED repeats) and objects per scene at each (attempts,
+    propose_scale) of SYNTH_KNOBS on u8 levels, and at the default in f32;
+    SYNTH_STEPS captured f32 steps of the
+    full-width ``yolo_pose_multi`` fed from the synth (the multi trainer's
+    ``device_synth`` knobs: attempts 30, propose_scale 4; graphs from
+    ``drivers._precompile_buckets(image_dtype=float32)``) equal to as many
+    eager steps on the same scenes (losses and every state tensor; K2–K6
+    once a step, counted in the eager steps); the synth-fed captured step
+    timed against the captured step on scenes in memory, in turns;
+    ``run_training_multi(loader_backend="device_synth",
+    precompile_buckets=True)`` for one epoch on the frames as a LINEMOD
+    tree; the host synthesizer's batch on the same frames.  Returns K2–K6's
+    launches in the eager steps."""
+    t_phase = time.perf_counter()
+    mod = _script("shaded_accuracy_multi")
+    palettes, extents = mod.palettes_and_extents()
+    host = mod.shaded_scene_bank(SYNTH_FRAMES_PER_CLASS, palettes, extents)
+    render_s = time.perf_counter() - t_phase
+    _check(binary_masks(host), "the shaded masks are not binary")
+    t = time.perf_counter()
+    bank = host.device_put(dev)
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t
+    N, B = bank.images.shape[0], MULTI_TRAIN_BATCH
+    print(f"[device synth] scene bank: {N} frames "
+          f"{tuple(bank.images.shape[1:3])}, {bank.bgs.shape[0]} "
+          f"backgrounds, {bank.nbytes()} bytes; rendered in {render_s:.2f} s,"
+          f" on the card in {put_s:.4f} s [{card}]")
+
+    for attempts, ps in SYNTH_BIT_KNOBS:
+        st = DeviceSynthStatic(attempts=attempts, propose_scale=ps)
+        idx = torch.randperm(N, generator=torch.Generator().manual_seed(
+            attempts))[:B].to(dev)
+        draws, ci, cl = _synth(bank, idx, torch.Generator(
+            device=dev).manual_seed(attempts + ps), st)
+        t = time.perf_counter()
+        hi, hl = synthesize_batch(host, idx.cpu(), SynthDraws(
+            *(d.cpu() for d in draws)), out_w=MULTI_SIZE, out_h=MULTI_SIZE,
+            st=st)
+        cpu_s = time.perf_counter() - t
+        fi, fl = synthesize_batch(bank, idx, draws, out_w=MULTI_SIZE,
+                                  out_h=MULTI_SIZE, st=st)
+        diffs = [(int((a.cpu().view(torch.int32) != hi.view(torch.int32))
+                      .sum()), int((b.cpu().view(torch.int32)
+                                    != hl.view(torch.int32)).sum()))
+                 for a, b in ((ci, cl), (fi, fl))]
+        print(f"[device synth] attempts {attempts}, propose_scale {ps}: "
+              f"{B} scenes at {MULTI_SIZE}² drawn on the card; the card's "
+              f"u8-level composite / its f32 composite = the CPU's f32 "
+              f"composite from the same draws: " + " / ".join(
+                  f"{hi.numel() - p} of {hi.numel()} pixel values, "
+                  f"{hl.numel() - q} of {hl.numel()} label values"
+                  for p, q in diffs) +
+              f"; {_objects_per_scene(cl):.4f} objects a scene; the CPU's "
+              f"batch {cpu_s:.2f} s")
+        _check(diffs == [(0, 0), (0, 0)],
+               "the card's scenes are not the CPU's from the same draws")
+        _check(_objects_per_scene(cl) > 2, "the synth placed no companions")
+
+    synth_ms = {}
+    # every knob on u8 levels (the trainers' path on these masks), then the
+    # default knob's f32 composite
+    for attempts, ps, binary in (*((a, s, True) for a, s in SYNTH_KNOBS),
+                                 (30, 4, False)):
+        st = DeviceSynthStatic(attempts=attempts, propose_scale=ps)
+        gen = torch.Generator(device=dev).manual_seed(90)
+        times, objs = [], []
+        for r in range(SYNTH_WARMUP + SYNTH_TIMED):
+            idx = (torch.arange(B, device=dev) + r * B) % N
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, _, labels = _synth(bank, idx, gen, st, binary)
+            end.record()
+            end.synchronize()
+            if r >= SYNTH_WARMUP:
+                times.append(start.elapsed_time(end))
+                objs.append(_objects_per_scene(labels))
+        synth_ms[f"{attempts}/{ps}" + ("" if binary else "/f32")] = \
+            statistics.median(times)
+        print(f"[device synth] attempts {attempts}, propose_scale {ps}, "
+              f"{'u8-level' if binary else 'f32'} composite: "
+              f"batch of {B} at {MULTI_SIZE}² (draws + synthesis) "
+              f"{statistics.median(times):.4f} ms CUDA events, median of "
+              f"{SYNTH_TIMED} (min {min(times):.4f}, max {max(times):.4f}); "
+              f"{float(np.mean(objs)):.4f} objects a scene over "
+              f"{SYNTH_TIMED * B} scenes [{card}]")
+
+    # captured f32 steps fed from the synth against eager steps on the same
+    # scenes
+    fused = _resolve_fused_stem(TrainRunConfig(), dev)
+    (cap_state, _, cap_step), (eager_state, _, step) = \
+        (_train_setup(multi, dev, 80, fused, multi=True) for _ in range(2))
+    st = DeviceSynthStatic(propose_scale=4)
+    gen = torch.Generator(device=dev).manual_seed(81)
+    batches = [_synth(bank, (torch.arange(B, device=dev) + i * B) % N, gen,
+                      st)[1:] for i in range(SYNTH_STEPS)]
+    with _counting_captures():
+        captured = _precompile_buckets(cap_step, cap_state, [MULTI_SIZE], B,
+                                       multi.num_keypoints,
+                                       image_dtype=torch.float32)
+    del cap_step
+    _scribble(dev)
+    recorded = [c[1:] for c in _CountingGraph.captured]
+    torch.cuda.synchronize()
+    # the device-synth path: every K2-K6 launch counted from here came
+    # from its eager steps
+    for f in _TRAIN_COUNTED:
+        f.launches = 0
+    eager_losses = torch.stack([
+        step(eager_state, im, lb, _lr(multi, i), 1)["loss"]
+        for i, (im, lb) in enumerate(batches)])
+    torch.cuda.synchronize()
+    launches = _launches()
+    cap_losses = torch.stack([
+        captured(cap_state, im, lb, _lr(multi, i), 1)["loss"]
+        for i, (im, lb) in enumerate(batches)])
+    torch.cuda.synchronize()
+    cap_diffs, n_tensors = _state_diffs(cap_state, eager_state)
+    same = _same_bits(cap_losses, eager_losses)
+    print(f"[device synth] {SYNTH_STEPS} batch-{B} {MULTI_SIZE}² bf16 multi "
+          f"steps fed from the synth (f32 on the card), fused stem {fused}: "
+          f"K2-K6 recorded in the graph {recorded}, launched in the eager "
+          f"steps {launches}; losses {float(eager_losses[0]):.6g} ... "
+          f"{float(eager_losses[-1]):.6g}; captured = eager bit for bit: "
+          f"losses {same}, {n_tensors - len(cap_diffs)} of {n_tensors} state "
+          f"tensors [{card}]")
+    for name, n, d in cap_diffs[:10]:
+        print(f"[device synth]   captured != eager: {name}: {n} elements, "
+              f"max|d| {d:.6g}")
+    _check(recorded == [[1] * 5], f"K2-K6 recorded {recorded}")
+    _check(launches == [SYNTH_STEPS] * 5,
+           f"K2-K6 launched {launches} times in {SYNTH_STEPS} eager steps")
+    _check(same and not cap_diffs and bool(torch.isfinite(cap_losses).all()),
+           "the captured steps fed from the synth are not the eager steps")
+
+    def fed(i):
+        _, im, lb = _synth(bank, (torch.arange(B, device=dev) + i * B) % N,
+                           gen, st)
+        captured(cap_state, im, lb, _lr(multi, 0), 1)
+
+    def in_memory(i):
+        captured(cap_state, *batches[i % len(batches)], _lr(multi, 0), 1)
+
+    turns = {"in memory": [], "synth-fed": []}
+    for which in ("in memory", "synth-fed", "synth-fed", "in memory"):
+        fn = in_memory if which == "in memory" else fed
+        times = []
+        for i in range(TIMED_STEPS + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        turns[which].append(statistics.median(times[1:]))
+    print(f"[device synth] captured {MULTI_SIZE}² batch-{B} step in turns "
+          f"in memory/synth-fed/synth-fed/in memory, median of {TIMED_STEPS} "
+          f"steps each (host clock, sync each step; synth-fed: draws, "
+          f"synthesis and the step): " + "; ".join(
+              f"{k} " + " ".join(f"{x:.4f}" for x in v)
+              for k, v in turns.items()) + f" [{card}]")
+
+    del captured, cap_state, eager_state, step, batches
+    _free()
+    root = tempfile.mkdtemp(prefix="ssp_device_synth_")
+    try:
+        datacfg, train_list, bgs, frames = _synth_tree(host, root)
+        _synth_trainer(multi, dev, card, datacfg, root, frames)
+        host_synth = _host_synth_ms(train_list, bgs, frames, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if host_synth is not None:
+        print(f"[device synth] host synthesizer: batch of {B} at "
+              f"{MULTI_SIZE}² {host_synth[0]:.4f} ms (PIL decode + numpy "
+              f"compositing, 8 threads, host clock, median of "
+              f"{SYNTH_HOST_BATCHES}), {host_synth[1]:.4f} objects a scene; "
+              f"{host_synth[0] / synth_ms['30/4']:.1f}x the card's batch at "
+              f"attempts 30, propose_scale 4 [{card}]")
+    print(f"[device synth] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "synth_ms": synth_ms}
+
+
+def phase_profile_synth(dev, card: str, out_dir: str) -> None:
+    """Where the scene synth's time goes (``--profile``): a batch of
+    MULTI_TRAIN_BATCH scenes at MULTI_SIZE² (attempts 30, propose_scale 4,
+    draws and synthesis) on phase 15's bank, composited on u8 levels and in
+    f32: each its host-clock median (sync each call) first, then device time
+    by kernel family over PROFILE_CALLS profiled calls, the heaviest
+    kernels, and the device's idle share against that median."""
+    os.makedirs(out_dir, exist_ok=True)
+    mod = _script("shaded_accuracy_multi")
+    bank = mod.shaded_scene_bank(SYNTH_FRAMES_PER_CLASS,
+                                 *mod.palettes_and_extents()).device_put(dev)
+    st = DeviceSynthStatic(attempts=30, propose_scale=4)
+    gen = torch.Generator(device=dev).manual_seed(91)
+    idx = torch.arange(MULTI_TRAIN_BATCH, device=dev)
+    calls = {f"{k} composite": functools.partial(_synth, bank, idx, gen, st,
+                                                 binary)
+             for k, binary in (("u8-level", True), ("f32", False))}
+    host = {k: _host_ms(fn, iters=20) for k, fn in calls.items()}
+    for i, (what, fn) in enumerate(calls.items()):
+        path = os.path.join(out_dir, f"synth_trace_{i}.json")
+        by_family, busy, by_name = _profile(fn, PROFILE_CALLS, path)
+        busy_ms = busy / 1e3 / PROFILE_CALLS
+        total = sum(by_family.values())
+        with open(path) as f:
+            launches = sum(e.get("cat") == "kernel"
+                           for e in json.load(f)["traceEvents"])
+        print(f"[profile] synth batch {MULTI_TRAIN_BATCH} at {MULTI_SIZE}², "
+              f"{what}: host clock {host[what]:.4f} ms/call (median of 20, "
+              f"sync each call); device busy {busy_ms:.4f} ms/call over "
+              f"{PROFILE_CALLS} profiled calls; idle share "
+              f"{1 - busy_ms / host[what]:.4f}; {launches / PROFILE_CALLS:.1f}"
+              f" kernel launches a call, {len(by_name)} distinct kernels; "
+              f"trace {path} [{card}]")
+        for fam, us in by_family.most_common():
+            print(f"[profile]   {fam}: {us / 1e3 / PROFILE_CALLS:.4f} ms/call "
+                  f"({us / total:.2%} of device time)")
+        for name, us in by_name.most_common(8):
+            print(f"[profile]   kernel {us / 1e3 / PROFILE_CALLS:.4f} "
+                  f"ms/call [{_family(name)}] {name[:110]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
                                  "on one NVIDIA card.")
@@ -2221,8 +2612,8 @@ def main(argv=None) -> int:
                          "K2-K6 and their plain versions on the device, the "
                          "multi-object serve and batch-32 step, the captured "
                          "step's and the batch-1 graph serve's idle share, "
-                         "and the fused against the unfused step at batch "
-                         "64; "
+                         "the fused against the unfused step at batch 64, "
+                         "and the scene synth's batch; "
                          "chrome traces go to OUT_DIR")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
@@ -2281,6 +2672,10 @@ def main(argv=None) -> int:
     # steps, K1 over its two evals
     device_data = phase_device_data(spec, dev, card)
     _free()
+    # the multi-object device-synth path: K2-K6 counted from 0 over its
+    # eager steps
+    device_synth = phase_device_synth(multi, dev, card)
+    _free()
     if args.profile:
         phase_profile(spec, folded, dev, card, args.profile)
         phase_profile_k2(dev, card, args.profile, [
@@ -2291,6 +2686,7 @@ def main(argv=None) -> int:
         phase_profile_multi(multi, multi_folded, dev, card, args.profile)
         phase_profile_captured(spec, folded, dev, card, args.profile)
         phase_profile_gate(spec, dev, card)
+        phase_profile_synth(dev, card, args.profile)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     # no single PyTorch call computes any of these functions: library_ms
@@ -2299,7 +2695,9 @@ def main(argv=None) -> int:
     # train step); captures: the CUDA graphs that recorded the kernel on
     # the captured single-object path (K1 the aot serve, K2-K6 the captured
     # train step), captures_multi on the multi-object one; replays(_multi):
-    # those graphs' replays in the phase, each launching it once
+    # those graphs' replays in the phase, each launching it once;
+    # launches_device_data, launches_device_synth: the eager steps fed from
+    # the frame bank (phase 14) and from the scene synth (phase 15)
     def captured_counts(c):
         return {"captures": c["captures"], "replays": c["replays"]}
 
@@ -2321,15 +2719,16 @@ def main(argv=None) -> int:
         "replaces": "singleshotpose_tpu/ops/pallas_kernels.py:44",
         "launches": train_launches[0], "launches_multi": multi_launches[1],
         "launches_device_data": device_data["launches"][0],
+        "launches_device_synth": device_synth["launches"][0],
         **train_captured, **k2_numbers, "library_ms": None}]
-    for (_, name, replaces), n, n_multi, n_data in zip(
+    for (_, name, replaces), n, n_multi, n_data, n_synth in zip(
             _STEM_KERNELS, train_launches[1:], multi_launches[2:],
-            device_data["launches"][1:]):
+            device_data["launches"][1:], device_synth["launches"][1:]):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "singleshotpose_tpu_torch/csrc/stem_train.cu",
             "replaces": replaces, "launches": n, "launches_multi": n_multi,
-            "launches_device_data": n_data,
+            "launches_device_data": n_data, "launches_device_synth": n_synth,
             **train_captured, **train_stem_numbers[name],
             "library_ms": None})
     print(json.dumps({"kernels": kernels}))

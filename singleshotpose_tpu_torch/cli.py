@@ -14,7 +14,8 @@
          [--eval_datacfgs D.data ...] [--max_epochs N] [--bg_dir DIR]
          [--checkpoint_dir DIR [--resume]] [--precompile_buckets]
          [--profile_dir DIR] [--cache_decoded] [--eval_transfer auto|rgb|bank]
-         [--device cuda]
+         [--loader_backend auto|python|device_synth [--synth_attempts N]
+         [--synth_propose_scale N]] [--device cuda]
   python -m singleshotpose_tpu_torch.cli valid-multi --weightfile W.weights
          [--modelcfg M] [--datacfgs D.data ... | --datacfg occlusion.data]
          [--transfer rgb|bank] [--device cuda]
@@ -65,12 +66,23 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--cache_decoded", action="store_true",
                    help="RAM-cache decoded images across epochs")
     p.add_argument("--loader_backend", type=str, default="auto",
-                   choices=["auto", "python", "device", "device_bank"],
+                   choices=["auto", "python", "device", "device_bank",
+                            "device_synth"],
                    help="train: auto/python (host decode and augment), "
                         "device (host decode, augment on the card) or "
                         "device_bank (the train split decoded once into "
                         "device memory, augmented on the card); train-multi: "
-                        "auto/python")
+                        "auto/python (host synthesis) or device_synth (the "
+                        "corpus in device memory, scenes composited on the "
+                        "card)")
+    p.add_argument("--synth_attempts", type=int, default=None,
+                   help="device_synth: parallel placement proposals per "
+                        "companion (default: the host synthesizer's "
+                        "max_attempts, its drop law; lower = faster, fewer "
+                        "objects in crowded scenes)")
+    p.add_argument("--synth_propose_scale", type=int, default=4,
+                   help="device_synth: mask-overlap test resolution divisor "
+                        "(1 = the host's full-resolution ratio)")
     p.add_argument("--eval_transfer", type=str, default="auto",
                    choices=["auto", "rgb", "bank"],
                    help="in-training eval input: rgb u8 batches from the "
@@ -98,6 +110,8 @@ def _run_config(args, **overrides):
                           profile_dir=args.profile_dir,
                           cache_decoded=args.cache_decoded,
                           loader_backend=args.loader_backend,
+                          synth_attempts=args.synth_attempts,
+                          synth_propose_scale=args.synth_propose_scale,
                           eval_transfer=args.eval_transfer, **overrides)
 
 

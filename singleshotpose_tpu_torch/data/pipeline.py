@@ -5,15 +5,17 @@ the drivers run, so the port imports nothing of the JAX package;
 ``tests/test_torch_host.py`` and ``tests/test_torch_multi_host.py`` hold its
 ``python`` batches equal, bit for bit, to the JAX package's
 ``Loader(backend="python")``, the multi-object scene synthesizer's
-(``synthesizer=``) included, and ``tests/test_torch_device_data.py`` its
-``device`` and ``device_bank`` batches to JAX's.  Backends: ``python``
-(host decode and augment; ``auto`` resolves to it — the port has no native
-decoder), ``device`` (host decode, augment on the card:
-``data/device_augment.py``) and ``device_bank`` (the train split decoded
-once into device memory: ``data/device_bank.py``).  Not ported yet, and a
+(``synthesizer=``) included, ``tests/test_torch_device_data.py`` its
+``device`` and ``device_bank`` batches to JAX's, and
+``tests/test_torch_device_synth.py`` its ``device_synth`` scenes to JAX's
+from the same draws.  Backends: ``python`` (host decode and augment;
+``auto`` resolves to it — the port has no native decoder), ``device`` (host
+decode, augment on the card: ``data/device_augment.py``), ``device_bank``
+(the train split decoded once into device memory: ``data/device_bank.py``)
+and ``device_synth`` (the multi-object corpus in device memory, scenes
+synthesized on the card: ``data/device_synth.py``).  Not ported yet, and a
 ``ValueError`` names the ROADMAP item: the native C++ decoder (``native``,
-and its ``out_yuv420``) and ``device_synth``.  Left out: the ``mesh``
-option.
+and its ``out_yuv420``).  Left out: the ``mesh`` option.
 
 Rebuild of ``listDataset`` + torch ``DataLoader`` (reference:
 ``dataset.py:14-141``, ``train.py:56-65``):
@@ -238,8 +240,8 @@ class PoseDataset:
 
 
 # loader backends not ported yet, and the ROADMAP item that ports each
-_UNPORTED = {"native": "the native C++ decoder (ROADMAP.md §1 item 6)",
-             "device_synth": "device_synth (ROADMAP.md §1 item 1)"}
+_UNPORTED = {"native": "the native C++ decoder (ROADMAP.md §1 item 6)"}
+_BACKENDS = ("python", "device", "device_bank", "device_synth")
 
 
 class Loader:
@@ -250,10 +252,14 @@ class Loader:
     (images (B,H,W,3), labels (B, 50·(2K+3)) f32): on the ``python``
     backend host arrays, images f32 — or u8 with ``out_uint8``; on the
     ``device`` backend u8 images on ``device`` and host labels; on the
-    ``device_bank`` backend both on ``device``.
+    ``device_bank`` backend both on ``device``; on the ``device_synth``
+    backend f32 images in [0, 1] and labels, both on ``device``.
 
-    ``device`` (default the card) is where the two device backends put
-    their batches; a CUDA device without CUDA raises.
+    ``device`` (default the card) is where the device backends put their
+    batches; a CUDA device without CUDA raises.  ``synth_attempts`` and
+    ``synth_propose_scale``: ``device_synth``'s placement proposals per
+    companion (None: the synthesizer's ``max_attempts``) and its overlap
+    test's resolution divisor (``DeviceSynthStatic.from_config``).
     """
 
     def __init__(self, dataset: PoseDataset, batch_size: int, *,
@@ -262,7 +268,9 @@ class Loader:
                  fixed_shape: Optional[Tuple[int, int]] = None,
                  num_workers: int = 8, seed: int = 0,
                  drop_last: bool = True, backend: str = "auto",
-                 out_uint8: bool = False, device="cuda"):
+                 out_uint8: bool = False, device="cuda",
+                 synth_attempts: Optional[int] = None,
+                 synth_propose_scale: int = 4):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -280,11 +288,17 @@ class Loader:
         if backend in _UNPORTED:
             raise ValueError(f"loader backend {backend!r} is not ported to "
                              f"the PyTorch package yet: {_UNPORTED[backend]}")
-        if backend not in ("python", "device", "device_bank"):
+        if backend not in _BACKENDS:
             raise ValueError(f"unknown loader backend {backend!r}")
         self.backend = backend
         if backend != "python":
-            if dataset.synthesizer is not None:
+            if backend == "device_synth":
+                if getattr(dataset.synthesizer, "cfg", None) is None:
+                    raise ValueError(
+                        "the device_synth backend needs a PoseDataset with a "
+                        "MultiObjectSynthesizer (its SynthConfig seeds the "
+                        "scene bank)")
+            elif dataset.synthesizer is not None:
                 raise ValueError(f"the {backend} backend does not cover the "
                                  "scene-synthesis path")
             if not dataset.train:
@@ -293,10 +307,13 @@ class Loader:
             if self.device.type == "cuda" and not torch.cuda.is_available():
                 raise RuntimeError(f"loader backend {backend!r} on "
                                    f"{self.device}, but CUDA is not available")
-            self._frame_bank = None
-        # device_bank batches are device work alone: no host workers
+            self._frame_bank = self._synth_bank = None
+            self._synth_attempts = synth_attempts
+            self._synth_propose_scale = synth_propose_scale
+            self._synth_static = None
+        # the bank backends' batches are device work alone: no host workers
         self.pool = ThreadPoolExecutor(max_workers=num_workers) \
-            if num_workers > 0 and backend != "device_bank" else None
+            if num_workers > 0 and backend in ("python", "device") else None
 
     @property
     def nbatches(self) -> int:
@@ -319,6 +336,9 @@ class Loader:
         for start in range(0, end, self.batch_size):
             idxs = order[start:start + self.batch_size]
             shape = self._batch_shape()
+            if self.backend == "device_synth":
+                yield self._device_synth_batch(idxs, shape)
+                continue
             if self.backend == "device_bank":
                 yield self._device_bank_batch(idxs, shape)
                 continue
@@ -362,6 +382,45 @@ class Loader:
         return draw_params(self.rng, B, iw, ih, jitter=aug.jitter,
                            hue=aug.hue, saturation=aug.saturation,
                            exposure=aug.exposure)
+
+    def _device_synth_batch(self, idxs, shape):
+        """One multi-object batch synthesized on the device.
+
+        The first call decodes the whole LINEMOD corpus into a
+        device-resident ``DeviceSceneBank`` (``data/device_synth.py``) and
+        logs its size and build time; afterwards each batch is device work
+        on (bank, indices, draws), the draws from a ``torch.Generator`` on
+        the device seeded from the loader's host stream.  Yields device
+        tensors (images f32 in [0, 1], labels f32)."""
+        from . import device_synth as DS
+        from .device_augment import upload
+
+        if self._synth_bank is None:
+            scfg = self.ds.synthesizer.cfg
+            t0 = time.time()
+            bank = DS.build_scene_bank(scfg, self.ds.lines,
+                                       self.ds.bg_file_names)
+            self._synth_binary = DS.binary_masks(bank)
+            self._synth_bank = bank.device_put(self.device)
+            self._synth_static = DS.DeviceSynthStatic.from_config(
+                scfg, attempts=self._synth_attempts,
+                propose_scale=self._synth_propose_scale)
+            print(f"device_synth bank: {bank.images.shape[0]} frames, "
+                  f"{bank.nbytes() / 1e6:.0f} MB on {self.device} "
+                  f"({time.time() - t0:.1f}s to build)", flush=True)
+        bank, st = self._synth_bank, self._synth_static
+        w, h = shape
+        ih, iw = bank.frame_shape
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(self.rng.randint(2 ** 31 - 1)))
+        base_idx = upload(np.asarray(idxs, np.int64), self.device)
+        draws = DS.draw_synth(gen, len(idxs), bank,
+                              bank.base_class[base_idx].long(), st, iw, ih)
+        imgs, labels = DS.synthesize_batch(bank, base_idx, draws, out_w=w,
+                                           out_h=h, st=st,
+                                           binary=self._synth_binary)
+        self.seen += len(idxs)
+        return imgs, labels
 
     def _device_bank_batch(self, idxs, shape):
         """One single-object train batch from the device frame bank.

@@ -17,7 +17,8 @@ pass.
 Training: the ``Loader`` (multi-scale, u8; ``loader_backend`` ``python``:
 host decode and augment, for OCCLUSION over scenes from the multi-object
 synthesizer; ``device``: augment on the card; ``device_bank``: the train
-split in device memory) feeds the train step — host batches through pinned
+split in device memory; for OCCLUSION ``device_synth``: the corpus in device
+memory, f32 scenes synthesized on the card) feeds the train step — host batches through pinned
 memory, device batches as they are — eager, or with ``precompile_buckets``
 on a card replayed from one CUDA graph per multi-scale bucket; the
 in-training eval takes the eval bank when it fits the card's free memory
@@ -347,8 +348,15 @@ class TrainRunConfig:
     profile_dir: Optional[str] = None  # torch.profiler trace of a few steps
     profile_steps: Tuple[int, int] = (5, 10)
     cache_decoded: bool = False        # RAM-cache decoded images across epochs
-    # train loader: auto|python|device|device_bank (multi: auto|python)
+    # train loader: auto|python|device|device_bank (multi:
+    # auto|python|device_synth)
     loader_backend: str = "auto"
+    # device_synth's placement knobs (the multi trainer with loader_backend
+    # "device_synth"): proposals per companion (None: the host
+    # synthesizer's max_attempts, its drop law) and the overlap test's
+    # resolution divisor (data/device_synth.py)
+    synth_attempts: Optional[int] = None
+    synth_propose_scale: int = 4
     # in-training eval input: "rgb" streams host batches, "bank" decodes the
     # test split once into device memory (data/eval_bank.py); "auto" picks
     # "bank" when the split fits the card's free memory with headroom
@@ -571,9 +579,21 @@ def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
     (:func:`run_validation_multi`), the best ``model.weights`` kept on the
     mean of their acc@50 px (``train_multi.py:277``, ``417-421``).  The
     state, checkpoints, resume and device are as :func:`run_training` has
-    them.
+    them.  Loader backends: ``python`` (``auto``; the host synthesizer, u8)
+    or ``device_synth`` (f32 scenes synthesized on ``run_cfg.device``, with
+    ``synth_attempts``/``synth_propose_scale``; ``precompile_buckets``
+    captures f32 graphs); the single-object backends raise.
     """
     rc = run_cfg or TrainRunConfig(eval_every=20, eval_after=-1)
+    backend = rc.loader_backend
+    if backend in ("native", "device", "device_bank"):
+        raise ValueError(
+            f"loader_backend={backend!r} does not cover the scene-synthesis "
+            "path; use 'python' (the host synthesizer, default) or "
+            "'device_synth' (the corpus in device memory, "
+            "data/device_synth.py)")
+    if backend == "auto":
+        backend = "python"
     device = _resolve_device(rc.device)
     dcfg = data_config_from_options(read_data_cfg(datacfg))
     spec = _resolve_model(modelcfg)
@@ -610,12 +630,18 @@ def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
                      aug=AugmentConfig.multi(),
                      num_keypoints=spec.num_keypoints, synthesizer=synth,
                      cache_decoded=rc.cache_decoded)
+    # device_synth yields f32 scenes on the device, the host synthesizer u8
+    on_device = backend == "device_synth"
     loader = Loader(ds, batch_size, schedule=MULTI_SCHEDULE, seen=state.seen,
                     num_workers=rc.num_workers, seed=rc.seed,
-                    backend=rc.loader_backend, out_uint8=True)
+                    backend=backend, out_uint8=not on_device, device=device,
+                    synth_attempts=rc.synth_attempts,
+                    synth_propose_scale=rc.synth_propose_scale)
     if rc.precompile_buckets:
-        step = _precompile_buckets(step, state, MULTI_SCHEDULE.all_widths,
-                                   batch_size, spec.num_keypoints)
+        step = _precompile_buckets(
+            step, state, MULTI_SCHEDULE.all_widths, batch_size,
+            spec.num_keypoints,
+            image_dtype=torch.float32 if on_device else torch.uint8)
 
     history: Dict[str, List] = {"training_iters": [], "training_losses": [],
                                 "testing_iters": [], "testing_accuracies": []}
@@ -691,12 +717,15 @@ def _to_device(a, device: torch.device) -> torch.Tensor:
 
 def _precompile_buckets(step: Callable, state: TrainState,
                         widths: Sequence[int], batch: int,
-                        num_keypoints: int) -> Callable:
+                        num_keypoints: int,
+                        image_dtype: torch.dtype = torch.uint8) -> Callable:
     """Pay for every multi-scale bucket before epoch 0
     (``singleshotpose_tpu/drivers.py:905-930``).  Returns the step to train
     with.
 
-    On a card: ``step`` captured as one CUDA graph per width
+    On a card: ``step`` captured as one CUDA graph per width for images of
+    ``image_dtype`` (u8 from the host loaders and the single-object banks,
+    f32 from ``device_synth``)
     (:func:`~singleshotpose_tpu_torch.training.capture_train_step`), after
     warm-up steps that leave the state as it was; a failed capture raises.
     On the CPU, eager PyTorch has nothing to compile: ``step`` itself.
@@ -707,7 +736,7 @@ def _precompile_buckets(step: Callable, state: TrainState,
         return step
     t_all = time.time()
     captured = capture_train_step(step, state, widths, batch,
-                                  50 * (2 * num_keypoints + 3))
+                                  50 * (2 * num_keypoints + 3), image_dtype)
     for shape, s in captured.capture_seconds.items():
         _log(f"captured bucket {shape[2]}px in {s:.1f}s")
     _log(f"captured {len(widths)} buckets in {time.time() - t_all:.1f}s; "

@@ -20,6 +20,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .data.device_augment import INV255
 from .models.darknet import DarknetSpec, apply_folded
 from .ops.decode import (best_box_for_class, best_boxes, best_boxes_per_class,
                          decode_grid)
@@ -40,16 +41,17 @@ def make_serving_fn(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]
     """The serving function ``images → boxes`` over the folded weights of
     :func:`~singleshotpose_tpu_torch.models.darknet.fold_batchnorm`.
 
-    ``images``: NHWC, uint8 (normalized on the device) or float in [0, 1],
+    ``images``: NHWC, uint8 (scaled on the device by f32(1/255), as JAX's
+    compiled serve scales it) or float in [0, 1],
     a tensor or a numpy array; it runs on the device the weights are on.
     """
     if pick is not None and pick[0] not in _PICKS:
         raise ValueError(f"unknown pick {pick!r}")
     K, C, nA = spec.num_keypoints, spec.num_classes, spec.num_anchors
     device = _device(folded)
-    # a device-tensor divisor: true division on the card too, where a
-    # Python-scalar divisor becomes a multiply by its reciprocal
-    u8_scale = torch.full((), 255.0, device=device)
+    # f32(1/255) on the device, as XLA compiles JAX's ``u8 / 255.0``; held
+    # by this closure, since the serve graphs of ``aot_serving`` read it
+    u8_scale = torch.full((), INV255, device=device)
     if pick is not None and pick[0] == "for_class":
         # the class on the device once: a host copy in every call would wait
         # for the stream, and a CUDA graph cannot record one
@@ -60,7 +62,7 @@ def make_serving_fn(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]
     def serve(images):
         images = torch.as_tensor(images).to(device)
         if not images.is_floating_point():
-            images = images.float() / u8_scale
+            images = images.float() * u8_scale
         head = apply_folded(spec, folded, images, compute_dtype=compute_dtype)
         decoded = decode_grid(head.float(), K, C, nA)
         if pick is None or pick[0] == "grid":

@@ -28,9 +28,9 @@ import dataclasses
 import time
 from typing import Callable, Dict, List, Sequence, Tuple, Union
 
-import numpy as np
 import torch
 
+from .data.device_augment import INV255
 from .models.darknet import Darknet
 from .ops.losses import RegionLossConfig, region_loss
 
@@ -38,10 +38,6 @@ __all__ = ["TrainState", "init_train_state", "schedule_lr", "sgd_update",
            "make_train_step", "CapturedTrainStep", "capture_train_step"]
 
 Scalar = Union[float, int, torch.Tensor]
-
-# f32(1/255): XLA compiles the JAX step's ``u8 / 255.0`` into a multiply by
-# this reciprocal, so a u8 batch enters the port's step with JAX's bits
-_INV255 = float(np.float32(1) / np.float32(255))
 
 
 @dataclasses.dataclass
@@ -152,11 +148,12 @@ def make_train_step(loss_cfg: RegionLossConfig, *,
         model, opt = state.model, state.optimizer
         dev = images.device
         if not images.is_floating_point():
-            # f32(1/255) on the device, held here: a CUDA graph of the step
-            # reads it
+            # f32(1/255) on the device (XLA compiles the JAX step's
+            # ``u8 / 255.0`` into a multiply by it), held here: a CUDA graph
+            # of the step reads it
             scale = scale_u8.get(dev)
             if scale is None:
-                scale = scale_u8[dev] = torch.full((), _INV255, device=dev)
+                scale = scale_u8[dev] = torch.full((), INV255, device=dev)
             images = images.float() * scale
         model.train()
         head = model(images, compute_dtype, fused_stem)
@@ -237,10 +234,12 @@ _WARMUP_STEPS = 2
 
 
 def capture_train_step(step: Callable, state: TrainState,
-                       widths: Sequence[int], batch: int, label_dim: int
+                       widths: Sequence[int], batch: int, label_dim: int,
+                       image_dtype: torch.dtype = torch.uint8
                        ) -> CapturedTrainStep:
     """``step`` (from :func:`make_train_step`) recorded as one CUDA graph
-    per width: images (batch, w, w, 3) u8, target (batch,
+    per width: images (batch, w, w, 3) of ``image_dtype`` (u8, or f32 for
+    the batches ``device_synth`` makes on the card), target (batch,
     label_dim), lr and epoch 0-dim tensors — the counterpart of the JAX
     package's ``_precompile_buckets`` (``singleshotpose_tpu/drivers.py:
     905-930``), which compiles the step once per multi-scale bucket.
@@ -263,6 +262,8 @@ def capture_train_step(step: Callable, state: TrainState,
     if device.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA device; the state is on "
                          f"{device}")
+    if image_dtype not in (torch.uint8, torch.float32):
+        raise ValueError(f"images are u8 or f32, not {image_dtype}")
     params = list(state.model.parameters())
     live = [*params, *state.model.buffers(),
             *_momentum_buffers(state.optimizer, params)]
@@ -277,7 +278,7 @@ def capture_train_step(step: Callable, state: TrainState,
     try:
         for w in widths:
             t0 = time.perf_counter()
-            images = torch.zeros((batch, w, w, 3), dtype=torch.uint8,
+            images = torch.zeros((batch, w, w, 3), dtype=image_dtype,
                                  device=device)
             side.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(side):

@@ -19,6 +19,9 @@ stem's tensor-core conv); the sums of K3 and K5 rel 1e-5 of max|ref|; K6's
 dW rel 1e-4 of max|ref|.  The captured paths hold the CUDA graphs to the
 eager calls bit for bit; there the kernels' ``launches`` counters count
 captures (a wrapper runs while a graph records it, not when it replays).
+The device-resident data paths (plain PyTorch ops: the frame bank, the
+augment, the eval bank, the scene synth) hold the card's batches to the
+CPU's bits.
 """
 
 import json
@@ -28,7 +31,8 @@ import pytest
 import torch
 
 from singleshotpose_tpu_torch.drivers import (TrainRunConfig, _ProfileWindow,
-                                              _precompile_buckets, _to_device)
+                                              _precompile_buckets, _to_device,
+                                              loss_config_from_spec)
 from singleshotpose_tpu_torch.models.darknet import (DarknetSpec, Darknet,
                                                      apply_folded,
                                                      fold_batchnorm)
@@ -42,7 +46,8 @@ from singleshotpose_tpu_torch.ops.losses import RegionLossConfig
 from singleshotpose_tpu_torch.serving import (MicroBatcher, aot_serving,
                                               make_serving_fn)
 
-from torch_port_helpers import K2_PATTERNS, TINY_BLOCKS, k2_inputs, k2_valid
+from torch_port_helpers import (K2_PATTERNS, TINY_BLOCKS, TINY_MULTI_BLOCKS,
+                                k2_inputs, k2_valid)
 
 
 @pytest.fixture
@@ -793,3 +798,120 @@ def test_eval_bank_on_the_card_holds_the_rgb_batches(dev, tmp_path):
                        num_workers=0, drop_last=False, out_uint8=True))
     for (bi, _), (hi, _) in zip(bank, host):
         assert torch.equal(bi[:len(hi)].cpu(), torch.from_numpy(hi))
+
+
+# ---------------------------------------------------------------------------
+# on-device multi-object scene synthesis: plain PyTorch ops, held to the
+# CPU's bits
+# ---------------------------------------------------------------------------
+
+
+def _scene_bank(seed=2, N=12, H=48, W=64, binary=False):
+    """12 frames of 6 classes with soft masks (every composite product
+    matters to the bits; ``binary``: 0 or 255), each class with 7
+    companions (7 of them empty), and 3 backgrounds, on the CPU."""
+    from singleshotpose_tpu_torch.data.device_synth import DeviceSceneBank
+    rng = np.random.RandomState(seed)
+    imgs = rng.randint(0, 256, (N, H, W, 3)).astype(np.uint8)
+    masks = np.zeros((N, H, W), np.uint8)
+    labels = np.zeros((N, 21), np.float32)
+    for i in range(N):
+        y0, x0 = rng.randint(0, H // 2), rng.randint(0, W // 2)
+        hh, ww = rng.randint(8, H // 2), rng.randint(8, W // 2)
+        masks[i, y0:y0 + hh, x0:x0 + ww] = rng.randint(0, 256, (hh, ww))
+        labels[i, 0] = i // 2
+        labels[i, 1:19] = rng.uniform(0.0, 1.0, 18)
+    if binary:
+        masks = ((masks > 127) * 255).astype(np.uint8)
+    obj_start = np.zeros(13, np.int32)
+    obj_count = np.zeros(13, np.int32)
+    obj_start[:6], obj_count[:6] = np.arange(6) * 2, 2
+    comp = np.full((14, 8), -1, np.int32)
+    for c in range(13):
+        comp[c, :7] = [o for o in range(13) if o != c][:7]
+    return DeviceSceneBank(*map(torch.from_numpy, (
+        imgs, masks, labels, obj_start, obj_count, comp,
+        rng.randint(0, 256, (3, H, W, 3)).astype(np.uint8),
+        np.arange(N, dtype=np.int32), (np.arange(N) // 2).astype(np.int32))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binary", [False, True], ids=["soft", "binary"])
+@pytest.mark.parametrize("ps,attempts,ow,oh", [
+    (4, 30, 96, 96), (1, 6, 64, 48), (4, 3, 416, 416)])
+def test_scene_synthesis_on_the_card_equals_the_cpu(dev, ps, attempts, ow,
+                                                    oh, binary):
+    """Draws made on the card by a card generator, copied to the CPU: the
+    card's scenes and labels have the CPU's f32 composite's bits (true
+    divisions on both, the fused multiply-adds emulated exactly in f64); on
+    binary masks the card composites on u8 levels."""
+    from singleshotpose_tpu_torch.data.device_synth import (
+        DeviceSynthStatic, SynthDraws, binary_masks, draw_synth,
+        synthesize_batch)
+    host = _scene_bank(binary=binary)
+    assert binary_masks(host) == binary
+    card = host.device_put(dev)
+    st = DeviceSynthStatic(jitter=0.1, shift=20, attempts=attempts,
+                           propose_scale=ps)
+    idx = torch.tensor([0, 3, 7, 10, 11, 5], device=dev)
+    draws = draw_synth(torch.Generator(device=dev).manual_seed(ow), 6, card,
+                       card.base_class[idx].long(), st, 64, 48)
+    assert draws.offset.is_cuda
+    got = synthesize_batch(card, idx, draws, out_w=ow, out_h=oh, st=st,
+                           binary=binary)
+    want = synthesize_batch(host, idx.cpu(), SynthDraws(
+        *(d.cpu() for d in draws)), out_w=ow, out_h=oh, st=st)
+    assert got[0].is_cuda and got[0].dtype == torch.float32
+    assert torch.equal(got[0].cpu().view(torch.int32),
+                       want[0].view(torch.int32))
+    assert torch.equal(got[1].cpu().view(torch.int32),
+                       want[1].view(torch.int32))
+    assert int((want[1].view(6, 50, 21)[:, :, 1:].abs().sum(-1) > 0)
+               .sum()) > 6                    # companions were pasted
+
+
+@pytest.mark.cuda
+def test_captured_f32_steps_equal_eager_steps(dev):
+    """Graphs captured for f32 scenes from the synthesizer (as the multi
+    trainer captures them for ``device_synth``) replay the eager steps' bits;
+    a u8 batch finds no graph."""
+    from singleshotpose_tpu_torch.data.device_synth import (
+        DeviceSynthStatic, draw_synth, synthesize_batch)
+    spec = DarknetSpec(TINY_MULTI_BLOCKS)
+    cfg = loss_config_from_spec(spec, pretrain_num_epochs=0, im_width=640,
+                                im_height=480, multi=True)
+
+    def state():
+        return init_train_state(
+            Darknet(spec, generator=torch.Generator().manual_seed(3),
+                    device=dev), weight_decay=1e-3, momentum=0.9)
+
+    eager, cap = state(), state()
+    bank = _scene_bank().device_put(dev)
+    st = DeviceSynthStatic(jitter=0.1, shift=20, attempts=8, propose_scale=4)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    batches = []
+    for i in range(4):
+        idx = torch.arange(2, device=dev) + 2 * i
+        batches.append(synthesize_batch(
+            bank, idx, draw_synth(gen, 2, bank, bank.base_class[idx].long(),
+                                  st, 64, 48), out_w=64, out_h=64, st=st))
+    captured = capture_train_step(make_train_step(cfg, fused_stem=True), cap,
+                                  (64,), 2, 50 * 21,
+                                  image_dtype=torch.float32)
+    _scribble(dev)
+    step = make_train_step(cfg, fused_stem=True)
+    for x, t in batches:
+        got = captured(cap, x, t, 1e-3, 1)["loss"]
+        want = step(eager, x, t, 1e-3, 1)["loss"]
+        assert torch.equal(_bits(got), _bits(want))
+    torch.cuda.synchronize()
+    for (k, a), b in zip(cap.model.state_dict().items(),
+                         eager.model.state_dict().values()):
+        assert torch.equal(_bits(a), _bits(b)), k
+    for p, q in zip(cap.model.parameters(), eager.model.parameters()):
+        assert torch.equal(_bits(cap.optimizer.state[p]["momentum_buffer"]),
+                           _bits(eager.optimizer.state[q]["momentum_buffer"]))
+    with pytest.raises(ValueError, match="no graph captured"):
+        captured(cap, (batches[0][0] * 255).to(torch.uint8), batches[0][1],
+                 1e-3, 1)

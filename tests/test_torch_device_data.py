@@ -248,7 +248,12 @@ def test_step_scales_u8_as_jax(tiny):
 
 
 @pytest.mark.parametrize("backend,match", [
-    ("native", "not ported.*item 6"), ("device_synth", "not ported.*item 1"),
+    ("native", "not ported.*item 6"),
+    # device_synth is ported now (tests/test_torch_device_synth.py): the
+    # case keeps its id and holds that a dataset without a scene
+    # synthesizer is refused
+    pytest.param("device_synth", "device_synth backend needs a PoseDataset",
+                 id="device_synth-not ported.*item 1"),
     ("frobnicate", "unknown loader backend")])
 def test_unported_backends_raise(tiny, backend, match):
     lst, bgs = tiny

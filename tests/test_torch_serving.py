@@ -216,8 +216,8 @@ import singleshotpose_tpu_torch
 from singleshotpose_tpu_torch import (checkpoint, cli, config, drivers,
                                       evaluate, serving, training, weights,
                                       zoo)
-from singleshotpose_tpu_torch.data import (augment, pipeline, prefetch,
-                                           synth_multi)
+from singleshotpose_tpu_torch.data import (augment, device_synth, pipeline,
+                                           prefetch, synth_multi)
 from singleshotpose_tpu_torch.models import darknet, layers
 from singleshotpose_tpu_torch.ops import (confidence, cuda_build, decode,
                                           losses, max_corner_confidence, pnp,
