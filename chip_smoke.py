@@ -13,10 +13,11 @@ anchors, the same backbone — through the entry points a user calls, in
 phases; any failure propagates and the exit code is nonzero:
 
   1. device: the card's name and power limit; TF32 off for convs and matmuls;
-  2. build: the three CUDA sources, one nvcc each, started together
+  2. build: the four CUDA sources, one nvcc each, started together
      (``csrc/stem_serve.cu``, ``csrc/max_corner_confidence.cu``,
-     ``csrc/stem_train.cu``); K1's, K3's and K6's SASS hold HMMA
-     instructions (their products run on the tensor cores);
+     ``csrc/stem_train.cu``, ``csrc/int8_conv.cu``); K1's, K3's and K6's
+     SASS hold HMMA instructions and the int8 conv's IMMA (their products
+     run on the tensor cores);
   3. kernels against plain: each kernel (K1 the serving stem, K2 the max
      corner confidence, K3–K6 the train stem) vs its plain PyTorch version
      at the main paths' shapes (K1 also at the multi-object serve's batch
@@ -99,13 +100,29 @@ phases; any failure propagates and the exit code is nonzero:
      in turns; ``run_training_multi(loader_backend="device_synth",
      precompile_buckets=True)`` for one epoch on the frames as a LINEMOD
      tree (f32 graphs, K2–K6 once in each); the host synthesizer's batch on
-     the same frames as files.
+     the same frames as files;
+ 16. int8: the int8 conv (``csrc/int8_conv.cu``) against its plain twin
+     (``F.unfold`` + ``torch._int_mm``) bit for bit at every int8 conv's
+     shape of the single-object serve at batch 8 and 1, 672², and of the
+     multi serve at batch 16, 416², and at four odd shapes (C_in = 3 at an
+     odd width, the 4-byte and byte copies, an odd C_out); per layer the
+     kernel's, the twin's and ``_int_mm``'s device ms (a CUDA graph of 10
+     calls) and the bound; then ``make_serving_fn`` and ``aot_serving`` on
+     the int8 pytree (``models/quantize.py``, per-channel scales calibrated
+     on the batch served): boxes at batch 8 and 1, 672², and the multi
+     per-class boxes at batch 16 equal the twin-fed serve's bit for bit,
+     eager and graph; within JAX's 0.05 of the bf16 serve's at its picked
+     cells; int8 and bf16 serves timed in turns; ``cli quantize`` on a
+     rendered held-out split, its ``.npz`` = the in-memory pytree (tensors
+     and boxes), and ``run_validation(quantize=the .npz / True)`` on the
+     card.
 
 Phases 4–5 and 9 are the serving paths and phase 7's fused steps and phase
 10 the training paths: each kernel's launch count is set to 0 just before
 its path and read just after; so are phase 14's eager steps fed from the
 bank (K2–K6) and its two evals (K1), and phase 15's eager steps fed from
-the synth (K2–K6).  On the captured paths (11–13) a kernel's
+the synth (K2–K6), and phase 16's int8 serves and evals (the int8
+conv).  On the captured paths (11–13) a kernel's
 wrapper runs only while a graph records it, so what is counted there is
 captures: the graphs that recorded it (and their replays, each of which
 launches it once).  The line before the last is the kernel summary (JSON:
@@ -171,7 +188,7 @@ from singleshotpose_tpu_torch.models import darknet
 from singleshotpose_tpu_torch.models import layers as L
 from singleshotpose_tpu_torch.models.darknet import (Darknet, apply_folded,
                                                      fold_batchnorm)
-from singleshotpose_tpu_torch.ops import cuda_build, stem, targets
+from singleshotpose_tpu_torch.ops import cuda_build, int8_conv, stem, targets
 from singleshotpose_tpu_torch.ops import max_corner_confidence as mcc
 from singleshotpose_tpu_torch.ops.decode import best_boxes_per_class
 from singleshotpose_tpu_torch.ops.losses import region_loss
@@ -296,11 +313,12 @@ def phase_device() -> str:
     return smi
 
 
-def _sass_report(lib: str, kernel: str):
+def _sass_report(lib: str, kernel: str, op: str = "HMMA"):
     """For each compiled instance of ``kernel`` in the built library
     ``lib`` (a template has one for each of its arguments): the start of its
-    mangled name, its number of HMMA instructions and its resource usage
-    line, read with the toolkit's cuobjdump."""
+    mangled name, its number of ``op`` instructions (HMMA: bf16 tensor-core
+    products; IMMA: int8 ones) and its resource usage line, read with the
+    toolkit's cuobjdump."""
     tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
 
     def dump(flag):
@@ -308,7 +326,7 @@ def _sass_report(lib: str, kernel: str):
                               text=True, check=True).stdout
 
     sections = dump("--dump-sass").split("Function : ")[1:]
-    hmma = {sec.split("\n", 1)[0].strip(): sec.count("HMMA")
+    hmma = {sec.split("\n", 1)[0].strip(): sec.count(op)
             for sec in sections if kernel in sec.split("\n", 1)[0]}
     lines = dump("--dump-resource-usage").splitlines()
     usage = {line.split("Function", 1)[1].strip(" :"): lines[i + 1].strip()
@@ -321,18 +339,21 @@ def _sass_report(lib: str, kernel: str):
 def phase_build() -> None:
     t0 = time.perf_counter()
     paths = cuda_build.build_libraries(
-        ["stem_serve", "max_corner_confidence", "stem_train"])
+        ["stem_serve", "max_corner_confidence", "stem_train", "int8_conv"])
     stem._library()
     mcc._library()
     stem._train_library()
+    int8_conv._library()
     print(f"[build] {', '.join(paths)} in {time.perf_counter() - t0:.2f} s "
           "(one nvcc per source, in parallel)")
-    for tag, lib, kernel in (("K1", paths[0], "stem_serve_kernel"),
-                             ("K3", paths[2], "stem_conv_stats_kernel"),
-                             ("K6", paths[2], "stem_bwd_dw_kernel")):
-        report = _sass_report(lib, kernel)
+    for tag, lib, kernel, op in (
+            ("K1", paths[0], "stem_serve_kernel", "HMMA"),
+            ("K3", paths[2], "stem_conv_stats_kernel", "HMMA"),
+            ("K6", paths[2], "stem_bwd_dw_kernel", "HMMA"),
+            ("int8 conv", paths[3], "int8_conv_kernel", "IMMA")):
+        report = _sass_report(lib, kernel, op)
         for name, hmma, usage in report:
-            print(f"[build] {tag} {name}: {hmma} HMMA instructions in its "
+            print(f"[build] {tag} {name}: {hmma} {op} instructions in its "
                   f"SASS; {usage}")
         _check(report and all(hmma > 0 for _, hmma, _ in report),
                f"{tag}'s product does not run on the tensor cores")
@@ -1565,6 +1586,10 @@ def _family(name: str) -> str:
     its name (the first rule that matches)."""
     if "stem_serve_kernel" in name:
         return "K1 stem"
+    if "int8_conv_kernel" in name:
+        return "int8 conv kernel"
+    if "<double" in name or "double>" in name:
+        return "f64 elementwise (exact FMAs: the int8 dequant, the synth)"
     if "max_corner_confidence_kernel" in name:
         return "K2 max corner confidence"
     for kernel, family in (("stem_conv_stats_kernel", "K3 train stem conv"),
@@ -2602,6 +2627,451 @@ def phase_profile_synth(dev, card: str, out_dir: str) -> None:
                   f"ms/call [{_family(name)}] {name[:110]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the int8 serving path (models/quantize.py, csrc/int8_conv.cu)
+# ---------------------------------------------------------------------------
+
+# int8 tensor cores, dense, H100 SXM at 700 W (NVIDIA's data sheet)
+INT8_OPS = 1979e12
+INT8_CALIB = 8        # calibration frames, as `cli quantize --calib_images`
+INT8_TIMED = 10       # CUDA-event timings a turn
+# (batch, size) of each serve whose int8 convs the kernel is held at: the
+# single-object serve at batch 8 and 1, 672²; the multi serve at batch 16, 416²
+INT8_SERVES = ((MODEL_BATCH, SIZE), (1, SIZE))
+# misaligned and odd cases: (B, H, W, C_in, C_out, ksize, stride, pad, byte
+# offset of the input): the first conv's C_in = 3 at an odd width, the
+# 4-byte copies, an input 1 byte off alignment, an odd C_out
+INT8_ODD = ((2, 37, 23, 3, 32, 3, 1, 1, 0), (1, 13, 11, 36, 40, 3, 1, 1, 0),
+            (2, 11, 9, 64, 64, 3, 1, 1, 1), (1, 9, 7, 16, 7, 1, 1, 0, 0))
+
+
+def _int8_layers(spec, size: int):
+    """(conv spec, input height) of each conv that ``quantize_folded``
+    quantizes by default (all but the head), the input square at ``size``."""
+    from singleshotpose_tpu_torch.models import quantize as Q
+    skip = Q.default_skip_layers(spec)
+    heights, h, out = [], size, []
+    for lspec in spec.layers:
+        if isinstance(lspec, darknet.ConvSpec):
+            if lspec.name not in skip:
+                out.append((lspec, h))
+            h = (h + 2 * lspec.pad - lspec.size) // lspec.stride + 1
+        elif isinstance(lspec, darknet.MaxPoolSpec) and lspec.stride > 1:
+            h = (h - lspec.size) // lspec.stride + 1
+        elif isinstance(lspec, darknet.ReorgSpec):
+            h //= lspec.stride
+        elif isinstance(lspec, darknet.RouteSpec):
+            h = heights[lspec.layers[0]]
+        heights.append(h)
+    return out
+
+
+def _graph_ms(fn, calls: int = 10, reps: int = 5) -> float:
+    """Device ms a call of ``fn``: ``calls`` calls recorded in one CUDA
+    graph, its replay timed with CUDA events, the median of ``reps``; no
+    host work between the calls."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def _int8_case(dev, g, B, H, W, C, N, ksize, offset=0):
+    flat = torch.randint(-127, 128, (B * H * W * C + 16,), generator=g,
+                         device=dev, dtype=torch.int32).to(torch.int8)
+    x = flat[offset:offset + B * H * W * C].view(B, H, W, C)
+    wq = torch.randint(-127, 128, (ksize, ksize, C, N), generator=g,
+                       device=dev, dtype=torch.int32).to(torch.int8)
+    return x, int8_conv.pack_weights(wq)
+
+
+def _int8_bound(x, wk, y, ksize) -> dict:
+    """int8 in, packed weights in, int32 out over the HBM rate; 2·M·N·K
+    over the int8 tensor cores' rate."""
+    M, N = y.numel() // y.shape[-1], y.shape[-1]
+    K = ksize * ksize * x.shape[-1]
+    return _bound(_nbytes(x, wk, y), 2 * M * N * K, INT8_OPS)
+
+
+def phase_int8_kernel(spec, multi, dev, card: str) -> dict:
+    """The int8 conv against its plain twin, bit for bit, at every quantized
+    conv's shape of the single-object serve (batch 8 and 1, 672²) and the
+    multi serve (batch 16, 416²), and at INT8_ODD; per layer the kernel's,
+    the twin's and ``torch._int_mm``'s (on the twin's im2col matrix) device
+    ms a call (:func:`_graph_ms`) and the bound.  Returns the batch-8 672²
+    serve's sums, its layers one after another."""
+    g = torch.Generator(device=dev).manual_seed(160)
+    t0 = time.perf_counter()
+    worst = 0
+    for B, H, W, C, N, ks, st, pad, off in INT8_ODD:
+        x, wk = _int8_case(dev, g, B, H, W, C, N, ks, off)
+        got = int8_conv.int8_conv(x, wk, ks, st, pad)
+        ref = int8_conv.int8_conv_reference(x, wk, ks, st, pad)
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref)
+        print(f"[int8] ({B},{H},{W},{C})->{N} {ks}x{ks} offset {off}: copy "
+              f"width {int8_conv.copy_width(x)} bytes; kernel = twin bit for "
+              f"bit: {same}")
+        _check(same, f"int8 conv != twin at ({B},{H},{W},{C})->{N}")
+    result = None
+    for tag, net, cases in (("yolo_pose_single", spec, INT8_SERVES),
+                            ("yolo_pose_multi", multi,
+                             ((MULTI_SERVE_BATCH, MULTI_SIZE),))):
+        for B, size in cases:
+            totals = collections.Counter()
+            bound_parts = collections.Counter()
+            for lspec, h in _int8_layers(net, size):
+                ks, C, N = lspec.size, lspec.in_filters, lspec.filters
+                x, wk = _int8_case(dev, g, B, h, h, C, N, ks)
+                got = int8_conv.int8_conv(x, wk, ks, lspec.stride, lspec.pad)
+                ref = int8_conv.int8_conv_reference(x, wk, ks, lspec.stride,
+                                                    lspec.pad)
+                torch.cuda.synchronize()
+                diff = int((got.long() - ref.long()).abs().max())
+                worst = max(worst, diff)
+                _check(diff == 0, f"int8 conv != twin at {lspec.name} "
+                                  f"({B},{h},{h},{C})")
+                a, wt = int8_conv.im2col_operands(x, wk, ks, lspec.stride,
+                                                  lspec.pad)
+                del ref
+                ms = _graph_ms(lambda: int8_conv.int8_conv(
+                    x, wk, ks, lspec.stride, lspec.pad))
+                plain = _graph_ms(lambda: int8_conv.int8_conv_reference(
+                    x, wk, ks, lspec.stride, lspec.pad), calls=3)
+                lib = _graph_ms(lambda: torch._int_mm(a, wt))
+                bound = _int8_bound(x, wk, got, ks)
+                totals.update({"ms": ms, "plain_ms": plain, "library_ms": lib,
+                               "bound_ms": bound["bound_ms"]})
+                bound_parts[bound["bound_by"]] += bound["bound_ms"]
+                print(f"[int8] {tag} ({B},{size},{size}) {lspec.name} "
+                      f"({B},{h},{h},{C})->{N} {ks}x{ks}: = twin bit for bit; "
+                      f"device ms a call: kernel {ms:.4f}, twin {plain:.4f}, "
+                      f"_int_mm on its im2col {lib:.4f}; bound "
+                      f"{bound['bound_ms']:.4f} ({bound['bound_by']}), kernel "
+                      f"at {bound['bound_ms'] / ms:.1%} of it [{card}]")
+                del x, wk, got, a, wt
+            print(f"[int8] {tag} ({B},{size},{size}), {len(_int8_layers(net, size))} "
+                  f"int8 convs: kernel {totals['ms']:.4f} ms, twin "
+                  f"{totals['plain_ms']:.4f}, _int_mm {totals['library_ms']:.4f}, "
+                  f"bound {totals['bound_ms']:.4f} ms [{card}]")
+            if result is None:
+                result = {"max_abs_err": worst, "ms": totals["ms"],
+                          "plain_ms": totals["plain_ms"],
+                          "library_ms": totals["library_ms"],
+                          "bound_ms": totals["bound_ms"],
+                          "bound_by": bound_parts.most_common(1)[0][0]}
+            _free()
+    result["max_abs_err"] = worst
+    print(f"[int8] kernel phase {time.perf_counter() - t0:.1f} s")
+    return result
+
+
+def _int8_params(spec, folded, frames):
+    """The int8 pytree of ``folded`` with per-channel scales calibrated on
+    the u8 ``frames`` / 255, as ``valid --quantize`` calibrates on the batch
+    it then serves first."""
+    from singleshotpose_tpu_torch.models import quantize as Q
+    amax = Q.calibrate_activations(
+        spec, folded, frames.float() / torch.full((), 255.0,
+                                                  device=frames.device),
+        per_channel=True)
+    return Q.quantize_folded(spec, folded, amax)
+
+
+def _gaps_at_picks(grid8, grid16, classes: int = 0):
+    """(max|d keypoint|, max|d confidence|) between two decoded grids at
+    the cells the bf16 grid picks: each image's most confident cell, or with
+    ``classes`` each image's most confident cell of each class — the boxes
+    the serve returns, held where a random net's near-tied picks cannot
+    fall on different cells.  Also the gaps over every cell."""
+    score = grid16.det_conf[:, :, None] * grid16.cls_probs if classes \
+        else grid16.det_conf[:, :, None]
+    idx = score.argmax(dim=1)                             # (B, C or 1)
+    kp = (grid8.corners - grid16.corners).abs().amax(dim=-1)
+    conf = (grid8.det_conf - grid16.det_conf).abs()
+    return (float(kp.gather(1, idx).max()), float(conf.gather(1, idx).max()),
+            float(kp.max()), float(conf.max()))
+
+
+def _time_spread(fn, iters: int = INT8_TIMED):
+    """(median, min, max) ms of ``fn()`` with CUDA events, after 3 calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), min(times), max(times)
+
+
+def _twin_fed(fn, *args):
+    """``fn(*args)`` with the int8 forward's conv the plain twin."""
+    from singleshotpose_tpu_torch.models import quantize as Q
+    with mock.patch.object(Q, "int8_conv", int8_conv.int8_conv_reference):
+        return fn(*args)
+
+
+def phase_int8_serve(spec, folded, multi, multi_folded, dev, card: str):
+    """The int8 serve (``make_serving_fn`` and ``aot_serving`` over the
+    int8 pytree): at batch 8 and 1, 672², and the multi per-class serve at
+    batch 16, 416²; the boxes equal the twin-fed serve's bit for bit, eager
+    and graph; within JAX's 0.05 (normalized keypoints, confidence,
+    ``tests/test_quantize.py:97-109``) of the bf16 folded serve's at the
+    cells it picks (:func:`_gaps_at_picks`); int8 and bf16 serves timed in
+    turns.  Each int8 pytree is calibrated on the batch it serves, as
+    ``valid --quantize`` calibrates on its first batch.
+    Returns the int8 conv's launches (single, multi) in the eager serves
+    and its captures and replays in the graphs."""
+    gen = torch.Generator().manual_seed(163)
+    frames = torch.randint(0, 256, (MODEL_BATCH, SIZE, SIZE, 3), generator=gen,
+                           dtype=torch.uint8).to(dev)
+    x = {MODEL_BATCH: frames, 1: frames[:1].clone()}
+    q = _int8_params(spec, folded, frames)
+    n_q = sum("wq" in v for v in q.values())
+    _check(n_q == 22, f"{n_q} quantized convs, not 22")
+    serve = make_serving_fn(spec, q, pick=("best",))
+    grid8 = make_serving_fn(spec, q)
+    bf16 = make_serving_fn(spec, folded, pick=("best",))
+    bf16_grid = make_serving_fn(spec, folded)
+    # the main path: every int8 conv launch counted from here came from it
+    int8_conv.int8_conv.launches = 0
+    boxes = {b: serve(xb) for b, xb in x.items()}
+    torch.cuda.synchronize()
+    launches = int8_conv.int8_conv.launches
+    _check(launches == 2 * n_q, f"the int8 serves launched the int8 conv "
+                                f"{launches} times, not {2 * n_q}")
+    for b, xb in x.items():
+        twin = _twin_fed(serve, xb)
+        _check(_same_bits(boxes[b], twin),
+               f"batch-{b} int8 boxes differ from the twin-fed serve's")
+    kp_gap, conf_gap, kp_all, conf_all = _gaps_at_picks(
+        grid8(frames), bf16_grid(frames))
+    box_gap = (boxes[MODEL_BATCH] - bf16(frames)).abs()
+    print(f"[int8 serve] yolo_pose_single {SIZE}²: {n_q} int8 convs (the head "
+          f"conv bf16), per-channel scales calibrated on the {MODEL_BATCH} "
+          f"served frames; the int8 conv launched {launches} times in a "
+          f"batch-8 and a batch-1 serve; boxes = the twin-fed serve's bit for "
+          f"bit (batch 8 and 1); against the bf16 serve at its best cells: "
+          f"max|d keypoint| {kp_gap:.6g}, max|d confidence| {conf_gap:.6g} "
+          f"(JAX's limits 0.05); every cell: {kp_all:.6g}, {conf_all:.6g}; "
+          f"the best boxes themselves: max|d keypoint| "
+          f"{float(box_gap[:, :18].max()):.6g}, max|d confidence| "
+          f"{float(box_gap[:, 18].max()):.6g} [{card}]")
+    _check(kp_gap < 0.05 and conf_gap < 0.05,
+           f"int8 vs bf16: keypoints {kp_gap}, confidence {conf_gap}")
+
+    before = int8_conv.int8_conv.launches
+    fns = {b: aot_serving(spec, q, batch=b, width=SIZE, height=SIZE)
+           for b in x}
+    captured = int8_conv.int8_conv.launches - before
+    _scribble(dev)
+    for b, xb in x.items():
+        mark = int8_conv.int8_conv.launches
+        out = fns[b](xb)
+        _check(int8_conv.int8_conv.launches == mark,
+               "a graph replay ran the int8 wrapper")
+        _check(_same_bits(out, boxes[b]),
+               f"the batch-{b} int8 graph's boxes differ from the eager serve")
+    _check(captured == 2 * 2 * n_q, f"{captured} int8 wrapper runs in the "
+           f"warm-ups and captures of two graphs, not {4 * n_q}")
+    times = {}
+    for b, xb in x.items():
+        for name, fn in (("int8 eager", serve), ("bf16 eager", bf16),
+                         ("int8 graph", fns[b])):
+            times[(b, name)] = []
+        for which in ("int8 eager", "bf16 eager", "int8 graph",
+                      "int8 graph", "bf16 eager", "int8 eager"):
+            fn = {"int8 eager": serve, "bf16 eager": bf16,
+                  "int8 graph": fns[b]}[which]
+            times[(b, which)].append(_time_spread(functools.partial(fn, xb)))
+    for (b, name), turns in times.items():
+        print(f"[int8 serve] {SIZE}² batch {b} {name}: CUDA events, median "
+              f"(min-max) of {INT8_TIMED} per turn: " + ", ".join(
+                  f"{m:.4f} ({lo:.4f}-{hi:.4f})" for m, lo, hi in turns)
+              + f" ms [{card}]")
+    replays = sum(fn.replays for fn in fns.values())
+    del fns
+    _free()
+
+    pick = ("per_class", multi.net.conf_thresh)
+    mframes = torch.randint(0, 256, (MULTI_SERVE_BATCH, MULTI_SIZE,
+                                     MULTI_SIZE, 3), generator=gen,
+                            dtype=torch.uint8).to(dev)
+    mq = _int8_params(multi, multi_folded, mframes)
+    mserve = make_serving_fn(multi, mq, pick=pick)
+    mbf16 = make_serving_fn(multi, multi_folded, pick=pick)
+    int8_conv.int8_conv.launches = 0
+    mboxes = mserve(mframes)
+    torch.cuda.synchronize()
+    launches_multi = int8_conv.int8_conv.launches
+    _check(launches_multi == n_q, f"the multi int8 serve launched the int8 "
+                                  f"conv {launches_multi} times")
+    _check(_same_bits(mboxes, _twin_fed(mserve, mframes)),
+           "multi int8 boxes differ from the twin-fed serve's")
+    mkp, mconf, mkp_all, mconf_all = _gaps_at_picks(
+        make_serving_fn(multi, mq)(mframes),
+        make_serving_fn(multi, multi_folded)(mframes), multi.num_classes)
+    before = int8_conv.int8_conv.launches
+    mfn = aot_serving(multi, mq, batch=MULTI_SERVE_BATCH, width=MULTI_SIZE,
+                      height=MULTI_SIZE, pick=pick)
+    mcaptured = int8_conv.int8_conv.launches - before
+    _scribble(dev)
+    _check(_same_bits(mfn(mframes), mboxes),
+           "the multi int8 graph's boxes differ from the eager serve's")
+    mturns = {"int8 eager": [], "bf16 eager": [], "int8 graph": []}
+    for which in ("int8 eager", "bf16 eager", "int8 graph", "int8 graph",
+                  "bf16 eager", "int8 eager"):
+        fn = {"int8 eager": mserve, "bf16 eager": mbf16,
+              "int8 graph": mfn}[which]
+        mturns[which].append(_time_spread(functools.partial(fn, mframes)))
+    print(f"[int8 serve] yolo_pose_multi per-class {MULTI_SIZE}² batch "
+          f"{MULTI_SERVE_BATCH}: the int8 conv launched {launches_multi} "
+          f"times; boxes = the twin-fed serve's and the graph's bit for bit; "
+          f"against bf16 at its best cell of each class: max|d keypoint| "
+          f"{mkp:.6g}, max|d confidence| {mconf:.6g}; every cell: "
+          f"{mkp_all:.6g}, {mconf_all:.6g}; CUDA events, median (min-max) of "
+          f"{INT8_TIMED} per turn: " + "; ".join(
+              f"{k} " + ", ".join(f"{m:.4f} ({lo:.4f}-{hi:.4f})"
+                                  for m, lo, hi in v)
+              for k, v in mturns.items()) + f" ms [{card}]")
+    _check(mkp < 0.05 and mconf < 0.05,
+           f"multi int8 vs bf16: keypoints {mkp}, confidence {mconf}")
+    out = {"launches": launches, "launches_multi": launches_multi,
+           "captures": captured // 2 // n_q, "replays": replays,
+           "captures_multi": mcaptured // 2 // n_q,
+           "replays_multi": mfn.replays}
+    del mfn
+    _free()
+    return out
+
+
+def phase_int8_cli(spec, model, dev, card: str) -> int:
+    """``cli quantize`` on a held-out split rendered in memory, its ``.npz``
+    re-loaded: the same tensors and the same boxes as the pytree built in
+    memory from the same calibration batch; ``run_validation`` with
+    ``quantize=`` that path and ``quantize=True`` (per-channel scales from
+    the first batch) on the card.  Returns the int8 conv's launches in the
+    two evals."""
+    from singleshotpose_tpu_torch.cli import main as cli_main
+    from singleshotpose_tpu_torch.models import quantize as Q
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ssp_int8_")
+    try:
+        datacfg, _, _, frames = _data_corpus(root)
+        wfile, qfile = f"{root}/model.weights", f"{root}/q.npz"
+        W.save_weights(spec, model.state_dict(), wfile)
+        with mock.patch.object(pipeline, "load_image", frames.__getitem__):
+            _check(cli_main(["quantize", "--datacfg", datacfg, "--modelcfg",
+                             "yolo-pose", "--weightfile", wfile, "--out",
+                             qfile, "--calib_images", str(INT8_CALIB),
+                             "--device", "cuda"]) == 0, "cli quantize failed")
+            from singleshotpose_tpu_torch.config import (
+                data_config_from_options, read_data_cfg)
+            ds = PoseDataset(data_config_from_options(
+                read_data_cfg(datacfg)).valid, train=False)
+            images, _ = next(iter(Loader(
+                ds, INT8_CALIB, shuffle=False, schedule=None,
+                fixed_shape=(SIZE, SIZE), num_workers=2, drop_last=False,
+                out_uint8=True)))
+            calib = torch.as_tensor(images).to(dev).float() \
+                / torch.full((), 255.0, device=dev)
+            folded = fold_batchnorm(model)
+            mem = Q.quantize_folded(spec, folded, Q.calibrate_activations(
+                spec, folded, calib, per_channel=True))
+            loaded = Q.load_quantized(qfile, device=dev)
+            same = all(_same_bits(loaded[k][f], v) for k, d in mem.items()
+                       for f, v in d.items())
+            x = torch.as_tensor(images).to(dev)
+            b_file = make_serving_fn(spec, loaded, pick=("best",))(x)
+            b_mem = make_serving_fn(spec, mem, pick=("best",))(x)
+            int8_conv.int8_conv.launches = 0
+            res_file = run_validation(datacfg, "yolo-pose", None,
+                                      quantize=qfile, batch_size=8,
+                                      num_workers=2, device="cuda",
+                                      verbose=False)
+            res_true = run_validation(datacfg, "yolo-pose", wfile,
+                                      quantize=True, batch_size=8,
+                                      num_workers=2, device="cuda",
+                                      verbose=False)
+            torch.cuda.synchronize()
+            launches = int8_conv.int8_conv.launches
+        n = DATA_EVAL_FRAMES
+        print(f"[int8 cli] cli quantize on {INT8_CALIB} of {n} held-out "
+              f"frames -> q.npz ({os.path.getsize(qfile)} bytes): its tensors "
+              f"= the in-memory pytree's bits: {same}; its boxes = the "
+              f"in-memory pytree's bit for bit: {_same_bits(b_file, b_mem)}; "
+              f"run_validation(quantize=q.npz) / (quantize=True) on {n} "
+              f"frames: {res_file['n_samples']} / {res_true['n_samples']} "
+              f"samples, mean px {res_file['mean_err_2d']:.4f} / "
+              f"{res_true['mean_err_2d']:.4f} (random weights), the int8 conv "
+              f"launched {launches} times; {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
+        _check(same and _same_bits(b_file, b_mem),
+               "the cli's artifact differs from the in-memory pytree")
+        _check(res_file["n_samples"] == res_true["n_samples"] == n and
+               np.isfinite(res_file["mean_err_2d"]) and
+               np.isfinite(res_true["mean_err_2d"]), "the int8 evals failed")
+        _check(launches == 2 * 22 * (-(-n // 8)),
+               f"the int8 evals launched the int8 conv {launches} times")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def phase_profile_int8(spec, folded, dev, card: str, out_dir: str) -> None:
+    """The int8 serve's device time by kernel family and its idle share
+    (``--profile``), at batch 8 and 1, 672², against the unprofiled host
+    clock, as :func:`phase_profile` reads the bf16 serve."""
+    gen = torch.Generator().manual_seed(164)
+    q = _int8_params(spec, folded, torch.randint(
+        0, 256, (MODEL_BATCH, SIZE, SIZE, 3), generator=gen,
+        dtype=torch.uint8).to(dev))
+    serve = make_serving_fn(spec, q, pick=("best",))
+    os.makedirs(out_dir, exist_ok=True)
+    for B in (MODEL_BATCH, 1):
+        x = torch.randint(0, 256, (B, SIZE, SIZE, 3), generator=gen,
+                          dtype=torch.uint8).to(dev)
+        host = _host_ms(lambda: serve(x))
+        path = os.path.join(out_dir, f"int8_serve_trace_b{B}.json")
+        by_family, busy, _ = _profile(lambda: serve(x), PROFILE_CALLS, path)
+        busy_ms = busy / 1e3 / PROFILE_CALLS
+        total = sum(by_family.values())
+        print(f"[profile] int8 serve batch {B}, {SIZE}²: host clock "
+              f"{host:.4f} ms/call (median of 30, sync each call); device "
+              f"busy {busy_ms:.4f} ms/call over {PROFILE_CALLS} profiled "
+              f"calls; idle share {1 - busy_ms / host:.4f}; trace {path} "
+              f"[{card}]")
+        for fam, us in by_family.most_common():
+            print(f"[profile]   {fam}: {us / 1e3 / PROFILE_CALLS:.4f} ms/call "
+                  f"({us / total:.2%} of device time)")
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
                                  "on one NVIDIA card.")
@@ -2613,7 +3083,7 @@ def main(argv=None) -> int:
                          "multi-object serve and batch-32 step, the captured "
                          "step's and the batch-1 graph serve's idle share, "
                          "the fused against the unfused step at batch 64, "
-                         "and the scene synth's batch; "
+                         "the scene synth's batch, and the int8 serve; "
                          "chrome traces go to OUT_DIR")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
@@ -2676,6 +3146,13 @@ def main(argv=None) -> int:
     # eager steps
     device_synth = phase_device_synth(multi, dev, card)
     _free()
+    # the int8 serving path: its conv held to the twin at every shape, then
+    # the serves (every int8 conv launch counted from 0 in each) and the CLI
+    int8_numbers = phase_int8_kernel(spec, multi, dev, card)
+    int8_counts = phase_int8_serve(spec, folded, multi, multi_folded, dev,
+                                   card)
+    int8_eval = phase_int8_cli(spec, model, dev, card)
+    _free()
     if args.profile:
         phase_profile(spec, folded, dev, card, args.profile)
         phase_profile_k2(dev, card, args.profile, [
@@ -2687,6 +3164,7 @@ def main(argv=None) -> int:
         phase_profile_captured(spec, folded, dev, card, args.profile)
         phase_profile_gate(spec, dev, card)
         phase_profile_synth(dev, card, args.profile)
+        phase_profile_int8(spec, folded, dev, card, args.profile)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     # no single PyTorch call computes any of these functions: library_ms
@@ -2731,6 +3209,16 @@ def main(argv=None) -> int:
             "launches_device_data": n_data, "launches_device_synth": n_synth,
             **train_captured, **train_stem_numbers[name],
             "library_ms": None})
+    # int8_conv: no Pallas original (JAX leaves its int8 conv to XLA); its
+    # numbers are the sums over the 22 int8 convs of the batch-8 672² serve,
+    # library_ms torch._int_mm on the twin's im2col matrices; launches in
+    # the eager int8 serves (batch 8 and 1; the multi serve), launches_eval
+    # in phase 16's two evals, captures/replays in the int8 serve graphs
+    kernels.append({
+        "name": "int8_conv", "route": "cuda",
+        "source": "singleshotpose_tpu_torch/csrc/int8_conv.cu",
+        "replaces": None, **int8_counts, "launches_eval": int8_eval,
+        **int8_numbers})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

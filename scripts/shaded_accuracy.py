@@ -20,7 +20,10 @@ the confidence term off (epoch flag 0) for the first 20 % of the epochs,
 then on (100, past ``pretrain_num_epochs`` 15); weight decay 0, momentum
 0.9.  Then ``run_validation(transfer="bank")`` scores the held-out frames
 in bf16: 2D reprojection within 5 px, ADD within 0.1 of the diameter, 5 cm
-5°, and the mean pixel error.
+5°, and the mean pixel error; and again with ``quantize=True``, the int8
+column (``models/quantize.py``: per-channel activation scales calibrated
+on the first eval batch, as the JAX package's ``run_validation`` does; on a
+card the int8 conv kernel).
 
 Frames go through a JPEG round trip (quality 92) as the JAX recipe's do,
 when Pillow imports; without it they never touch disk — the loader's image
@@ -216,14 +219,23 @@ def _train_and_eval(datacfg, base, n_train, epochs, batch, size, seed,
                              batch_size=batch, num_workers=2,
                              compute_dtype=torch.bfloat16, device=device,
                              transfer="bank", verbose=False)
-    _log(f"held out, bf16, eval bank: 2D@5px {summary['acc_2d_proj']:.2f}%, "
-         f"ADD-0.1d {summary['acc_add_0.1d']:.2f}%, 5cm5° "
-         f"{summary['acc_5cm5deg']:.2f}%, mean px error "
-         f"{summary['mean_err_2d']:.4f} over {summary['n_samples']} frames")
+    int8 = run_validation(datacfg, spec, model=state.model,
+                          batch_size=batch, num_workers=2,
+                          compute_dtype=torch.bfloat16, device=device,
+                          transfer="bank", quantize=True, verbose=False)
+    for tag, res in (("bf16", summary), ("int8", int8)):
+        _log(f"held out, {tag}, eval bank: 2D@5px {res['acc_2d_proj']:.2f}%, "
+             f"ADD-0.1d {res['acc_add_0.1d']:.2f}%, 5cm5° "
+             f"{res['acc_5cm5deg']:.2f}%, mean px error "
+             f"{res['mean_err_2d']:.4f} over {res['n_samples']} frames")
     return {"acc_2d_5px": summary["acc_2d_proj"],
             "acc_add_0.1d": summary["acc_add_0.1d"],
             "acc_5cm5deg": summary["acc_5cm5deg"],
             "mean_px_err": summary["mean_err_2d"],
+            "int8_acc_2d_5px": int8["acc_2d_proj"],
+            "int8_acc_add_0.1d": int8["acc_add_0.1d"],
+            "int8_acc_5cm5deg": int8["acc_5cm5deg"],
+            "int8_mean_px_err": int8["mean_err_2d"],
             "eval_n": summary["n_samples"], "stem": stem,
             "epoch_losses": losses, "train_s": train_s, "epochs": epochs,
             "batch": batch, "size": size}

@@ -28,8 +28,11 @@ true occlusion (``render_scene_multi``, seed 900), go through the bf16
 serving function at batch 64 (one box per class, confidence 0.05), and each
 object's box for its class is scored with the per-class ``pose_metrics``:
 2D reprojection within 5 and 10 px, and the mean pixel error, over the 192
-instances.  Only the bf16 column: the JAX figure's int8 column waits for
-the port's int8 path.
+instances.  Then the int8 column on the same scenes: the net quantized as
+``run_validation(quantize=True)`` quantizes it (``models/quantize.py``:
+per-channel activation scales calibrated on the batch it then serves, the
+eval driver's rounding; on a card the int8 conv kernel), served and scored
+the same way.
 
 An accuracy run, not a benchmark, and a stand-in, not parity (the initial
 weights and the random streams differ from the JAX run's).  It prints the
@@ -65,6 +68,8 @@ from singleshotpose_tpu_torch.evaluate import (EvalContext,  # noqa: E402
                                                pose_metrics)
 from singleshotpose_tpu_torch.models.darknet import (  # noqa: E402
     Darknet, fold_batchnorm, stem_supported)
+from singleshotpose_tpu_torch.models.quantize import (  # noqa: E402
+    calibrate_activations, quantize_folded)
 from singleshotpose_tpu_torch.serving import make_serving_fn  # noqa: E402
 from singleshotpose_tpu_torch.training import (  # noqa: E402
     init_train_state, make_train_step)
@@ -236,8 +241,44 @@ def run(frames_per_class: int = 160, steps: int = 9000, batch: int = 32,
     _sync(device)
     train_s = time.perf_counter() - t_train
 
-    serve = make_serving_fn(spec, fold_batchnorm(state.model),
-                            pick=("per_class", CONF))
+    folded = fold_batchnorm(state.model)
+    errs = _score(make_serving_fn(spec, folded, pick=("per_class", CONF)),
+                  eimgs, egts, extents)
+    eimgs_dev = torch.as_tensor(eimgs).to(device)
+    int8 = quantize_folded(spec, folded, calibrate_activations(
+        spec, folded, eimgs_dev.float() / torch.full((), 255.0,
+                                                     device=device),
+        per_channel=True))
+    errs8 = _score(make_serving_fn(spec, int8, pick=("per_class", CONF),
+                                   scales_as_constants=False),
+                   eimgs_dev, egts, extents)
+    result = {"acc_2d_5px": 100.0 * float((errs <= 5).mean()),
+              "acc_2d_10px": 100.0 * float((errs <= 10).mean()),
+              "mean_px_err": float(errs.mean()), "eval_n": int(errs.size),
+              "int8_acc_2d_5px": 100.0 * float((errs8 <= 5).mean()),
+              "int8_acc_2d_10px": 100.0 * float((errs8 <= 10).mean()),
+              "int8_mean_px_err": float(errs8.mean()),
+              "objects_per_scene": float(objects) / (steps * batch),
+              "chunk_losses": chunk_losses, "train_s": train_s,
+              "ms_per_step": 1e3 * train_s / steps, "steps": steps,
+              "batch": batch, "size": size,
+              "frames_per_class": frames_per_class,
+              "bank_bytes": bank.nbytes(), "render_s": render_s,
+              "bank_put_s": put_s, "fused_stem": ran_fused,
+              "wall_s": time.perf_counter() - t0, "device": str(device),
+              "card": _card() if device.type == "cuda" else "cpu"}
+    _log(f"held out, bf16: 2D@5px {result['acc_2d_5px']:.2f}%, 2D@10px "
+         f"{result['acc_2d_10px']:.2f}%, mean px error "
+         f"{result['mean_px_err']:.4f} over {result['eval_n']} objects")
+    _log(f"held out, int8: 2D@5px {result['int8_acc_2d_5px']:.2f}%, 2D@10px "
+         f"{result['int8_acc_2d_10px']:.2f}%, mean px error "
+         f"{result['int8_mean_px_err']:.4f}")
+    return result
+
+
+def _score(serve, eimgs, egts, extents) -> np.ndarray:
+    """The 2D reprojection error of each held-out object's box of its
+    class, served by ``serve`` (one box per class)."""
     boxes = serve(eimgs).float().cpu().numpy()              # (n, 13, 21)
     by_cls = {}
     for b, scene in enumerate(egts):
@@ -254,23 +295,7 @@ def run(frames_per_class: int = 160, steps: int = 9000, batch: int = 32,
                          np.stack([p[1] for p in pairs]).astype(np.float32),
                          ctx)
         errs.extend(np.atleast_1d(m["err_2d"]).tolist())
-    errs = np.asarray(errs)
-    result = {"acc_2d_5px": 100.0 * float((errs <= 5).mean()),
-              "acc_2d_10px": 100.0 * float((errs <= 10).mean()),
-              "mean_px_err": float(errs.mean()), "eval_n": int(errs.size),
-              "objects_per_scene": float(objects) / (steps * batch),
-              "chunk_losses": chunk_losses, "train_s": train_s,
-              "ms_per_step": 1e3 * train_s / steps, "steps": steps,
-              "batch": batch, "size": size,
-              "frames_per_class": frames_per_class,
-              "bank_bytes": bank.nbytes(), "render_s": render_s,
-              "bank_put_s": put_s, "fused_stem": ran_fused,
-              "wall_s": time.perf_counter() - t0, "device": str(device),
-              "card": _card() if device.type == "cuda" else "cpu"}
-    _log(f"held out, bf16: 2D@5px {result['acc_2d_5px']:.2f}%, 2D@10px "
-         f"{result['acc_2d_10px']:.2f}%, mean px error "
-         f"{result['mean_px_err']:.4f} over {result['eval_n']} objects")
-    return result
+    return np.asarray(errs)
 
 
 def main(argv=None) -> int:

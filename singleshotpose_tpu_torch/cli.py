@@ -8,7 +8,7 @@
          [--eval_transfer auto|rgb|bank] [--device cuda]
   python -m singleshotpose_tpu_torch.cli valid --datacfg D.data --modelcfg M
          --weightfile W.weights [--batch_size N] [--transfer rgb|bank]
-         [--device cuda]
+         [--quantize [Q.npz]] [--save] [--add_s] [--device cuda]
   python -m singleshotpose_tpu_torch.cli train-multi --datacfg occlusion.data
          [--modelcfg M] [--initweightfile W] [--linemod_root DIR]
          [--eval_datacfgs D.data ...] [--max_epochs N] [--bg_dir DIR]
@@ -18,10 +18,15 @@
          [--synth_propose_scale N]] [--device cuda]
   python -m singleshotpose_tpu_torch.cli valid-multi --weightfile W.weights
          [--modelcfg M] [--datacfgs D.data ... | --datacfg occlusion.data]
-         [--transfer rgb|bank] [--device cuda]
+         [--transfer rgb|bank] [--quantize] [--device cuda]
+  python -m singleshotpose_tpu_torch.cli quantize --datacfg D.data
+         --modelcfg M --weightfile W.weights --out Q.npz [--calib_images 32]
+         [--act_scales per_channel|scalar] [--device cuda]
 
 Flags follow ``singleshotpose_tpu/cli.py`` (``train``, ``valid``,
-``train-multi``, ``valid-multi``), with ``--checkpoint_dir`` in place of
+``train-multi``, ``valid-multi``, ``quantize``; the ``.npz`` of
+``quantize`` is the JAX package's format, so either package serves the
+other's), with ``--checkpoint_dir`` in place of
 ``--orbax_dir``; ``--modelcfg`` also takes
 the zoo names ``yolo-pose``, ``yolo-pose-multi``, ``yolo-pose-pre``.  The
 default device is ``cuda``: without a CUDA device a command fails rather
@@ -177,18 +182,36 @@ def cmd_valid(argv: Sequence[str]) -> int:
     p.add_argument("--weightfile", type=str,
                    default="backup/ape/model_backup.weights")
     p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--save", action="store_true",
+                   help="dump per-frame R/t/corners + predictions .mat")
+    p.add_argument("--quantize", nargs="?", const=True, default=False,
+                   metavar="QNPZ",
+                   help="serve the backbone convs in int8 (the int8 conv "
+                        "kernel on a card): the bare flag calibrates on the "
+                        "first batch; a .npz from `quantize` serves that "
+                        "artifact (no --weightfile needed)")
+    p.add_argument("--add_s", action="store_true",
+                   help="score the 3D-transform metric as ADD-S (nearest-"
+                        "neighbour vertex distance), the protocol for "
+                        "symmetric objects; default: index-matched ADD, as "
+                        "the reference")
     _add_transfer_flag(p)
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
     _require_file(args.datacfg, "data config")
-    _require_file(args.weightfile, "weight file")
+    if isinstance(args.quantize, str):
+        _require_file(args.quantize, "quantized artifact")
+    else:
+        _require_file(args.weightfile, "weight file")
 
     _require_device(args.device)
     from .drivers import run_validation
     from .zoo import _resolve_model
     run_validation(args.datacfg, _resolve_model(args.modelcfg),
-                   args.weightfile, batch_size=args.batch_size,
-                   transfer=args.transfer, device=args.device)
+                   None if isinstance(args.quantize, str) else args.weightfile,
+                   batch_size=args.batch_size, transfer=args.transfer,
+                   quantize=args.quantize, add_s=args.add_s, save=args.save,
+                   device=args.device)
     return 0
 
 
@@ -204,6 +227,9 @@ def cmd_valid_multi(argv: Sequence[str]) -> int:
                    help="a multi .data with valid<i>/mesh<i>/diam<i> keys "
                         "(e.g. occlusion.data): evals every listed object")
     p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--quantize", action="store_true",
+                   help="serve the backbone convs in int8 (first-batch "
+                        "calibration per object)")
     _add_transfer_flag(p)
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
@@ -215,7 +241,7 @@ def cmd_valid_multi(argv: Sequence[str]) -> int:
     from .zoo import _resolve_model
     spec = _resolve_model(args.modelcfg)
     kw = dict(batch_size=args.batch_size, transfer=args.transfer,
-              device=args.device)
+              quantize=args.quantize, device=args.device)
     if args.datacfg:
         _require_file(args.datacfg, "data config")
         run_validation_multi_sweep(args.datacfg, spec, args.weightfile, **kw)
@@ -229,8 +255,67 @@ def cmd_valid_multi(argv: Sequence[str]) -> int:
     return 0
 
 
+def cmd_quantize(argv: Sequence[str]) -> int:
+    """Calibrate and quantize a trained net into an int8 ``.npz``
+    (``singleshotpose_tpu/cli.py:253-307``)."""
+    p = argparse.ArgumentParser(
+        prog="singleshotpose_tpu_torch.cli quantize",
+        description="calibrate + quantize a trained net to an int8 .npz")
+    p.add_argument("--datacfg", type=str, required=True,
+                   help=".data whose valid list supplies calibration images")
+    p.add_argument("--modelcfg", type=str, default="cfg/yolo-pose.cfg")
+    p.add_argument("--weightfile", type=str, required=True)
+    p.add_argument("--out", type=str, required=True, help="output .npz path")
+    p.add_argument("--calib_images", type=int, default=32,
+                   help="number of calibration images (one batch)")
+    p.add_argument("--act_scales", choices=("per_channel", "scalar"),
+                   default="per_channel",
+                   help="activation scale granularity: per_channel folds "
+                        "per-input-channel ranges into the weights, scalar "
+                        "is plain absmax")
+    p.add_argument("--device", type=str, default="cuda")
+    args = p.parse_args(argv)
+    _require_file(args.datacfg, "data config")
+    _require_file(args.weightfile, "weight file")
+    _require_device(args.device)
+
+    import torch
+    from . import weights as W
+    from .config import data_config_from_options, read_data_cfg
+    from .data.pipeline import Loader, PoseDataset
+    from .models.darknet import Darknet, fold_batchnorm
+    from .models.quantize import (calibrate_activations, quantize_folded,
+                                  save_quantized)
+    from .zoo import _resolve_model
+
+    spec = _resolve_model(args.modelcfg)
+    model = Darknet(spec, device=args.device)
+    model.load_state_dict(W.load_weights(spec, args.weightfile)[1])
+    dcfg = data_config_from_options(read_data_cfg(args.datacfg))
+    ds = PoseDataset(dcfg.valid, train=False,
+                     num_keypoints=spec.num_keypoints)
+    n = min(args.calib_images, len(ds))
+    loader = Loader(ds, n, shuffle=False, schedule=None,
+                    fixed_shape=(spec.net.test_width, spec.net.test_height),
+                    num_workers=2, drop_last=False, out_uint8=True)
+    images, _ = next(iter(loader))
+    # JAX divides eagerly; a device-tensor divisor keeps the card's true
+    calib = torch.as_tensor(images).to(args.device).float() \
+        / torch.full((), 255.0, device=args.device)
+    folded = fold_batchnorm(model)
+    amax = calibrate_activations(
+        spec, folded, calib, per_channel=args.act_scales == "per_channel")
+    qp = quantize_folded(spec, folded, amax)
+    save_quantized(args.out, qp)
+    nq = sum(1 for v in qp.values() if "wq" in v)
+    print(f"quantized {nq}/{len(qp)} conv layers on {n} calibration images "
+          f"-> {args.out}")
+    return 0
+
+
 COMMANDS = {"train": cmd_train, "valid": cmd_valid,
-            "train-multi": cmd_train_multi, "valid-multi": cmd_valid_multi}
+            "train-multi": cmd_train_multi, "valid-multi": cmd_valid_multi,
+            "quantize": cmd_quantize}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -10,9 +10,11 @@ feed u8 batches (single object at the spec's test size, multi object at its
 train size); on the ``bank`` transfer the split is decoded once into a
 device-resident eval bank (``data/eval_bank.py``, LRU-cached across calls)
 with the same pixels.  The serving function (fold → bf16 forward → decode →
-box pick: the best box, or one box per class) runs on the device, and the
-boxes of all batches meet the ground truth in one batched PnP + metric
-pass.
+box pick: the best box, or one box per class; with ``quantize`` the int8
+forward of ``models/quantize.py``, calibrated on the first batch or loaded
+from an ``.npz``) runs on the device, and the boxes of all batches meet the
+ground truth in one batched PnP + metric pass (ADD-S with ``add_s``;
+per-frame dumps with ``save``).
 
 Training: the ``Loader`` (multi-scale, u8; ``loader_backend`` ``python``:
 host decode and augment, for OCCLUSION over scenes from the multi-object
@@ -33,6 +35,7 @@ checkpoints (``checkpoint.py``) give a real resume; ``profile_dir`` writes a
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -52,6 +55,8 @@ from .data.synth_multi import MultiObjectSynthesizer, SynthConfig
 from .evaluate import (EvalContext, PoseErrors, accuracy_summary,
                        multi_accuracy_table, pose_metrics)
 from .models.darknet import Darknet, DarknetSpec, fold_batchnorm
+from .models.quantize import (calibrate_activations, load_quantized,
+                              quantize_folded)
 from .ops.losses import RegionLossConfig
 from .serving import make_serving_fn
 from .training import (TrainState, capture_train_step, init_train_state,
@@ -87,20 +92,59 @@ def _load_model(spec: DarknetSpec, weightfile: Optional[str],
     return model
 
 
-def _eval_pass(spec: DarknetSpec, model: Darknet, loader, ctx: EvalContext, *,
-               compute_dtype, device, pick: Tuple = ("best",),
-               fix_gt_corners: bool = False) -> Tuple[PoseErrors, Dict]:
+def _eval_params(spec: DarknetSpec, model: Optional[Darknet], loader, *,
+                 compute_dtype, device, quantize: Union[bool, str]):
+    """The serving params of an eval pass and the batches to run them on
+    (``singleshotpose_tpu/drivers.py:172-210``): the folded weights; with
+    ``quantize="<path>.npz"`` the int8 artifact of ``cli quantize`` /
+    ``save_quantized`` (no float weights needed); with ``quantize=True``
+    the model quantized with per-channel activation scales calibrated on
+    the loader's first batch, which is chained back in front, so it is
+    decoded once."""
+    if isinstance(quantize, str):
+        return load_quantized(quantize, device=device), loader
+    folded = fold_batchnorm(model)
+    if not quantize:
+        return folded, loader
+    it = iter(loader)
+    first = next(it, None)
+    if first is None:
+        raise ValueError("quantize=True needs a non-empty loader for "
+                         "calibration")
+    calib = torch.as_tensor(first[0]).to(device)
+    if not calib.is_floating_point():
+        # JAX divides eagerly here (not the compiled serve's 1/255 multiply);
+        # a device-tensor divisor keeps the card's division true
+        calib = calib.float() / torch.full((), 255.0, device=device)
+    amax = calibrate_activations(spec, folded, calib,
+                                 compute_dtype=compute_dtype,
+                                 per_channel=True)
+    return quantize_folded(spec, folded, amax), itertools.chain([first], it)
+
+
+def _eval_pass(spec: DarknetSpec, model: Optional[Darknet], loader,
+               ctx: EvalContext, *, compute_dtype, device,
+               pick: Tuple = ("best",), fix_gt_corners: bool = False,
+               quantize: Union[bool, str] = False,
+               add_s: bool = False) -> Tuple[PoseErrors, Dict]:
     """Boxes for every batch (launched as the prefetch thread decodes the
     next batch), then one metric pass.  ``pick`` is the serving function's:
     ``("best",)`` gives a box an image; ``("per_class", conf)`` a box a
     class, and each GT is paired with the box of its own class
-    (``valid_multi.py:118-123``).  Returns (PoseErrors, artifacts with
-    ``corners_gt``, ``corners_pr`` (pixels) and ``image_idx``; empty when
-    there is no ground truth)."""
+    (``valid_multi.py:118-123``).  ``quantize``: serve int8
+    (:func:`_eval_params`), its scales rounded as JAX's eval driver rounds
+    them (arguments of its compiled forward: ``x / sa``).  ``add_s``: score
+    the 3D metric as ADD-S.  Returns (PoseErrors, artifacts with
+    ``corners_gt``, ``corners_pr`` (pixels), ``image_idx`` and the
+    ``metrics``; empty when there is no ground truth)."""
     K = spec.num_keypoints
-    serve = make_serving_fn(spec, fold_batchnorm(model), pick=pick,
-                            compute_dtype=compute_dtype)
-    pending = [(serve(images), labels) for images, labels in prefetch(loader)]
+    params, stream = _eval_params(spec, model, loader,
+                                  compute_dtype=compute_dtype, device=device,
+                                  quantize=quantize)
+    serve = make_serving_fn(spec, params, pick=pick,
+                            compute_dtype=compute_dtype,
+                            scales_as_constants=False)
+    pending = [(serve(images), labels) for images, labels in prefetch(stream)]
 
     # the GT slots of each image up to its first empty one, in the
     # reference's image-then-slot order (valid.py:117-130)
@@ -128,9 +172,10 @@ def _eval_pass(spec: DarknetSpec, model: Darknet, loader, ctx: EvalContext, *,
     scale = np.tile(np.array([ctx.im_width, ctx.im_height], np.float32), K)
     gt = (np.concatenate(all_gt) * scale).reshape(-1, K, 2)
     pr = (np.concatenate(all_pr) * scale).reshape(-1, K, 2)
-    errors.extend(pose_metrics(gt, pr, ctx, fix_gt_corners=fix_gt_corners,
-                               device=device))
-    return errors, {"corners_gt": gt, "corners_pr": pr,
+    metrics = pose_metrics(gt, pr, ctx, fix_gt_corners=fix_gt_corners,
+                           symmetric=add_s, device=device)
+    errors.extend(metrics)
+    return errors, {"corners_gt": gt, "corners_pr": pr, "metrics": metrics,
                     "image_idx": np.concatenate(image_idx)}
 
 
@@ -165,6 +210,8 @@ def run_validation(datacfg: str, modelcfg: Union[str, DarknetSpec],
                    num_workers: int = 8,
                    compute_dtype=torch.bfloat16, device="cuda",
                    transfer: str = "rgb",
+                   quantize: Union[bool, str] = False, add_s: bool = False,
+                   save: bool = False,
                    verbose: bool = True) -> Dict[str, float]:
     """Single-object eval (reference ``valid.py``): the 6D metric suite.
 
@@ -178,11 +225,21 @@ def run_validation(datacfg: str, modelcfg: Union[str, DarknetSpec],
     calls): repeated evals — the in-training cadence, reference
     ``train.py:395`` — then run with no host decode and no per-frame copy,
     on pixels bit-identical to the rgb path's.
+
+    ``quantize=True`` serves the backbone convs in int8 (per-channel
+    weights, activation scales calibrated on the first batch:
+    ``models/quantize.py``; on a card the int8 conv kernel);
+    ``quantize="<path>.npz"`` serves an artifact of ``cli quantize``, with
+    no weightfile.  ``add_s=True`` scores the 3D metric as ADD-S (nearest
+    vertex, for symmetric objects); the default is the reference's ADD.
+    ``save=True`` writes per-frame R/t/corner files under
+    ``<backup>/test/{gt,pr}/`` and a predictions ``.mat``
+    (``valid.py:186-197,231-233``).
     """
     device = _resolve_device(device)
     dcfg = data_config_from_options(read_data_cfg(datacfg))
     spec = _resolve_model(modelcfg)
-    if model is None:
+    if model is None and not isinstance(quantize, str):
         model = _load_model(spec, weightfile, device)
 
     ctx = EvalContext.from_data_config(dcfg)
@@ -195,9 +252,12 @@ def run_validation(datacfg: str, modelcfg: Union[str, DarknetSpec],
     if verbose:
         _log(f"   Testing {dcfg.name}...")
         _log(f"   Number of test samples: {len(ds)}")
-    errors, _ = _eval_pass(spec, model, loader, ctx,
-                           compute_dtype=compute_dtype, device=device)
+    errors, artifacts = _eval_pass(spec, model, loader, ctx,
+                                   compute_dtype=compute_dtype, device=device,
+                                   quantize=quantize, add_s=add_s)
     summary = accuracy_summary(errors, ctx.diam)
+    if save and artifacts:
+        _save_predictions(dcfg, ds, artifacts)
     if verbose:
         _log(f"Results of {dcfg.name}")
         _log("   Acc using 5 px 2D Projection = "
@@ -214,6 +274,41 @@ def run_validation(datacfg: str, modelcfg: Union[str, DarknetSpec],
     return summary
 
 
+def _save_predictions(dcfg: DataConfig, ds: PoseDataset, artifacts) -> None:
+    """Per-frame R/t/corner dumps and a consolidated ``.mat``
+    (``singleshotpose_tpu/drivers.py:427-478``; reference
+    ``valid.py:186-197,231-233``).  Each row maps back to its image, and a
+    frame with several GTs numbers them ``_obj<k>``."""
+    backup = dcfg.backup or "backup"
+    m = artifacts["metrics"]
+    gt_dir = os.path.join(backup, "test", "gt")
+    pr_dir = os.path.join(backup, "test", "pr")
+    os.makedirs(gt_dir, exist_ok=True)
+    os.makedirs(pr_dir, exist_ok=True)
+    image_idx = artifacts["image_idx"]
+    for i in range(artifacts["corners_gt"].shape[0]):
+        src = int(image_idx[i])
+        stem = os.path.splitext(os.path.basename(
+            ds.lines[src] if src < len(ds.lines) else f"{src:06d}"))[0]
+        if (image_idx == image_idx[i]).sum() > 1:
+            stem = f"{stem}_obj{int((image_idx[:i] == image_idx[i]).sum())}"
+        for d, kind in ((gt_dir, "gt"), (pr_dir, "pr")):
+            np.savetxt(os.path.join(d, f"R_{stem}.txt"), m[f"R_{kind}"][i])
+            np.savetxt(os.path.join(d, f"t_{stem}.txt"), m[f"t_{kind}"][i])
+            np.savetxt(os.path.join(d, f"corners_{stem}.txt"),
+                       artifacts[f"corners_{kind}"][i])
+    try:
+        import scipy.io
+    except ImportError:
+        _log("scipy unavailable: skipped predictions .mat dump")
+        return
+    scipy.io.savemat(
+        os.path.join(backup, f"predictions_linemod_{dcfg.name}.mat"),
+        {"R_gts": m["R_gt"], "t_gts": m["t_gt"],
+         "corner_gts": artifacts["corners_gt"], "R_prs": m["R_pr"],
+         "t_prs": m["t_pr"], "corner_prs": artifacts["corners_pr"]})
+
+
 # occlusion eval sweep objects (reference valid_multi.py:160-177)
 OCCLUSION_EVAL_OBJECTS = ("ape", "can", "cat", "duck", "glue", "holepuncher")
 
@@ -225,6 +320,7 @@ def run_validation_multi(datacfg: Union[str, DataConfig],
                          batch_size: int = 16, num_workers: int = 8,
                          compute_dtype=torch.bfloat16, device="cuda",
                          transfer: str = "rgb",
+                         quantize: Union[bool, str] = False,
                          verbose: bool = True) -> Dict[str, object]:
     """Multi-object OCCLUSION eval for one object (reference
     ``valid_multi.py:20-158``): class-picked boxes, ``fix_corner_order`` on
@@ -238,7 +334,8 @@ def run_validation_multi(datacfg: Union[str, DataConfig],
     object's name (``dataset_multi.py:78``).  The network is
     ``weightfile`` or ``model``, as :func:`run_validation` takes them, and
     ``transfer`` as it takes it (the bank keyed on the object too: the sweep
-    reads the same frames under each object's labels).
+    reads the same frames under each object's labels), ``quantize`` as it
+    takes it (``True`` calibrates on this object's first batch).
     """
     device = _resolve_device(device)
     if isinstance(datacfg, DataConfig):
@@ -248,7 +345,7 @@ def run_validation_multi(datacfg: Union[str, DataConfig],
         options = read_data_cfg(datacfg)
         dcfg = data_config_from_options(options)
     spec = _resolve_model(modelcfg)
-    if model is None:
+    if model is None and not isinstance(quantize, str):
         model = _load_model(spec, weightfile, device)
     conf_thresh = spec.net.conf_thresh
     name = dcfg.name
@@ -274,7 +371,7 @@ def run_validation_multi(datacfg: Union[str, DataConfig],
         _log(f"   Testing {name}...")
     errors, _ = _eval_pass(spec, model, loader, ctx, pick=pick,
                            fix_gt_corners=True, compute_dtype=compute_dtype,
-                           device=device)
+                           device=device, quantize=quantize)
     table = multi_accuracy_table(errors.errs_2d)
     if verbose:
         for th, acc in table.items():

@@ -26,7 +26,7 @@ import torch
 
 from .config import DataConfig
 from .ops.pnp import pnp_batched
-from .utils.geometry import (calc_pts_diameter, fix_corner_order,
+from .utils.geometry import (adi, calc_pts_diameter, fix_corner_order,
                              get_3D_corners, get_camera_intrinsic)
 from .utils.meshply import MeshPly
 
@@ -103,13 +103,16 @@ def gt_corner_boxes(target_row: np.ndarray, num_keypoints: int = 9,
 
 def pose_metrics(corners2d_gt: np.ndarray, corners2d_pr: np.ndarray,
                  ctx: EvalContext, *, pnp_iters: int = 15,
-                 fix_gt_corners: bool = False,
+                 fix_gt_corners: bool = False, symmetric: bool = False,
                  device="cpu") -> Dict[str, np.ndarray]:
     """Batched metrics for (B, 9, 2) pixel-space keypoints.  The ground-truth
     and predicted poses come from one 2B-frame PnP solve on ``device``; the
     five error families follow ``valid.py:137-177`` of the reference.
     ``fix_gt_corners`` applies the OCCLUSION GT corner permutation
-    (``valid_multi.py:132``)."""
+    (``valid_multi.py:132``).  ``symmetric=True`` scores the 3D error as
+    ADD-S (each GT-posed vertex to its nearest predicted one, :func:`adi`
+    on ``device``) instead of the index-matched ADD: the protocol for
+    symmetric objects (eggbox, glue), opt-in as in the JAX package."""
     B = corners2d_gt.shape[0]
     gt = np.asarray(corners2d_gt, np.float32)
     pr = np.asarray(corners2d_pr, np.float32)
@@ -138,7 +141,11 @@ def pose_metrics(corners2d_gt: np.ndarray, corners2d_pr: np.ndarray,
         return pix[:, :2] / pix[:, 2:3]
 
     err_2d = np.linalg.norm(proj(cam_gt) - proj(cam_pr), axis=1).mean(axis=1)
-    err_3d = np.linalg.norm(cam_gt - cam_pr, axis=1).mean(axis=1)
+    if symmetric:
+        err_3d = np.array([adi(cam_pr[b].T, cam_gt[b].T, device)
+                           for b in range(B)], np.float32)
+    else:
+        err_3d = np.linalg.norm(cam_gt - cam_pr, axis=1).mean(axis=1)
     return {"err_2d": err_2d, "err_3d": err_3d, "err_trans": err_trans,
             "err_angle": err_angle, "err_corner2d": err_corner,
             "R_gt": R_gt, "R_pr": R_pr, "t_gt": t_gt, "t_pr": t_pr}

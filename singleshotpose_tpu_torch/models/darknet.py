@@ -249,6 +249,35 @@ def _activate(x: torch.Tensor, activation: str) -> torch.Tensor:
     return x
 
 
+def _walk_other(spec: DarknetSpec, lspec, i: int, x: torch.Tensor,
+                cache: Dict[int, torch.Tensor], fc_params) -> torch.Tensor:
+    """Layer ``i`` of a type other than conv and max pool on NCHW ``x``
+    (``cache`` holds the outputs a later layer re-reads) — shared by
+    :func:`_walk` and the int8 interpreter of ``models/quantize.py``, as
+    ``DarknetSpec._walk_other`` is in the JAX package."""
+    if isinstance(lspec, ReorgSpec):
+        return L.reorg(x, lspec.stride)
+    if isinstance(lspec, RouteSpec):
+        srcs = [cache[j] for j in lspec.layers]
+        return srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
+    if isinstance(lspec, ShortcutSpec):
+        return _activate(cache[lspec.from_layer] + cache[i - 1],
+                         lspec.activation)
+    if isinstance(lspec, AvgPoolSpec):
+        return L.global_avg_pool(x)
+    if isinstance(lspec, SoftmaxSpec):
+        return F.softmax(x, dim=1)
+    if isinstance(lspec, ConnectedSpec):
+        w, b = fc_params(lspec)
+        # flatten in NHWC order, as the JAX forward does
+        flat = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1) \
+            if x.dim() == 4 else x
+        return _activate(flat.float() @ w.t().float() + b, lspec.activation)
+    if isinstance(lspec, RegionSpec):
+        return x
+    raise ValueError(f"unhandled layer spec {lspec!r}")
+
+
 def _walk(spec: DarknetSpec, x: torch.Tensor, conv_fn, fc_params,
           start: int = 0) -> torch.Tensor:
     """Run ``spec.layers[start:]`` on NCHW ``x``.  ``conv_fn(spec, x)``
@@ -261,26 +290,8 @@ def _walk(spec: DarknetSpec, x: torch.Tensor, conv_fn, fc_params,
         elif isinstance(lspec, MaxPoolSpec):
             x = L.max_pool(x, lspec.size, lspec.stride) if lspec.stride > 1 \
                 else L.max_pool_stride1(x)
-        elif isinstance(lspec, ReorgSpec):
-            x = L.reorg(x, lspec.stride)
-        elif isinstance(lspec, RouteSpec):
-            srcs = [cache[j] for j in lspec.layers]
-            x = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
-        elif isinstance(lspec, ShortcutSpec):
-            x = _activate(cache[lspec.from_layer] + cache[i - 1],
-                          lspec.activation)
-        elif isinstance(lspec, AvgPoolSpec):
-            x = L.global_avg_pool(x)
-        elif isinstance(lspec, SoftmaxSpec):
-            x = F.softmax(x, dim=1)
-        elif isinstance(lspec, ConnectedSpec):
-            w, b = fc_params(lspec)
-            # flatten in NHWC order, as the JAX forward does
-            flat = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1) \
-                if x.dim() == 4 else x
-            x = _activate(flat.float() @ w.t().float() + b, lspec.activation)
-        elif not isinstance(lspec, RegionSpec):
-            raise ValueError(f"unhandled layer spec {lspec!r}")
+        else:
+            x = _walk_other(spec, lspec, i, x, cache, fc_params)
         if i in spec._live:
             cache[i] = x
     return x

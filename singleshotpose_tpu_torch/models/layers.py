@@ -84,14 +84,34 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.1) -> torch.Tensor:
     return torch.where(x >= 0, x, x * _rounded(negative_slope, x.dtype))
 
 
+def _window_max(x: torch.Tensor, size: int, stride: int) -> torch.Tensor:
+    """VALID max pool as the elementwise max of the window's strided
+    slices: exact for any dtype (CUDA's ``max_pool2d`` has no int8)."""
+    ho = (x.shape[2] - size) // stride + 1
+    wo = (x.shape[3] - size) // stride + 1
+    out = None
+    for dy in range(size):
+        for dx in range(size):
+            v = x[:, :, dy:dy + stride * (ho - 1) + 1:stride,
+                  dx:dx + stride * (wo - 1) + 1:stride]
+            out = v if out is None else torch.maximum(out, v)
+    return out
+
+
 def max_pool(x: torch.Tensor, size: int, stride: int) -> torch.Tensor:
-    """Max pool, VALID padding (torch ``nn.MaxPool2d(size, stride)``)."""
+    """Max pool, VALID padding (torch ``nn.MaxPool2d(size, stride)``); an
+    integer (the int8 serve's) ``x`` pools through :func:`_window_max`."""
+    if not x.is_floating_point():
+        return _window_max(x, size, stride)
     return F.max_pool2d(x, size, stride)
 
 
 def max_pool_stride1(x: torch.Tensor) -> torch.Tensor:
     """Stride-1 2×2 max pool with replicate pad right/bottom
     (``singleshotpose_tpu/models/layers.py:126-132``)."""
+    if not x.is_floating_point():
+        x = torch.cat([x, x[:, :, :, -1:]], dim=3)
+        return _window_max(torch.cat([x, x[:, :, -1:]], dim=2), 2, 1)
     return F.max_pool2d(F.pad(x, (0, 1, 0, 1), mode="replicate"), 2, 1)
 
 

@@ -4,9 +4,10 @@ end for either.
 
 Mirrors ``make_serving_fn``, ``aot_serving`` and ``MicroBatcher`` of
 ``singleshotpose_tpu/serving.py``: the same pick modes, single- and
-multi-object, the same bucket and deadline policy.  Where JAX compiles a
-serving executable ahead of time, the port records a CUDA graph.  Results
-come back to the host with ``.cpu()``.
+multi-object, the same bucket and deadline policy, over folded bf16 weights
+or an int8 pytree (``models/quantize.py``), told apart by what the params
+hold.  Where JAX compiles a serving executable ahead of time, the port
+records a CUDA graph.  Results come back to the host with ``.cpu()``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from .data.device_augment import INV255
 from .models.darknet import DarknetSpec, apply_folded
+from .models.quantize import Int8Forward
 from .ops.decode import (best_box_for_class, best_boxes, best_boxes_per_class,
                          decode_grid)
 
@@ -36,19 +38,39 @@ Pick = Optional[Tuple]
 _PICKS = ("grid", "best", "per_class", "for_class")
 
 
+def _is_quantized(params) -> bool:
+    """An int8 pytree: a layer holds ``wq``
+    (``singleshotpose_tpu/serving.py:53``)."""
+    return any(isinstance(v, dict) and "wq" in v for v in params.values())
+
+
 def make_serving_fn(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
-                    *, pick: Pick = None, compute_dtype=torch.bfloat16):
-    """The serving function ``images → boxes`` over the folded weights of
-    :func:`~singleshotpose_tpu_torch.models.darknet.fold_batchnorm`.
+                    *, pick: Pick = None, compute_dtype=torch.bfloat16,
+                    scales_as_constants: bool = True):
+    """The serving function ``images → boxes`` over ``folded``: the folded
+    weights of :func:`~singleshotpose_tpu_torch.models.darknet.fold_batchnorm`
+    (bf16 forward, the serving stem's kernel), or an int8 pytree of
+    ``models.quantize`` (``quantize_folded`` / ``load_quantized``: the int8
+    forward, its convs on the int8 kernel), told apart by content as JAX's
+    ``make_serving_fn`` tells them.  The int8 pytree's scales and re-packed
+    weights are held by this closure.
 
     ``images``: NHWC, uint8 (scaled on the device by f32(1/255), as JAX's
     compiled serve scales it) or float in [0, 1],
     a tensor or a numpy array; it runs on the device the weights are on.
+    ``scales_as_constants`` (int8 only): round as JAX's serve compiled with
+    the weights closed over (True), or as its eval driver, which passes them
+    as arguments (False); ``models.quantize.apply_quantized`` has the two
+    forms.
     """
     if pick is not None and pick[0] not in _PICKS:
         raise ValueError(f"unknown pick {pick!r}")
     K, C, nA = spec.num_keypoints, spec.num_classes, spec.num_anchors
     device = _device(folded)
+    int8 = None
+    if _is_quantized(folded):
+        int8 = Int8Forward(spec, folded,
+                           scales_as_constants=scales_as_constants)
     # f32(1/255) on the device, as XLA compiles JAX's ``u8 / 255.0``; held
     # by this closure, since the serve graphs of ``aot_serving`` read it
     u8_scale = torch.full((), INV255, device=device)
@@ -61,9 +83,16 @@ def make_serving_fn(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]
     @torch.inference_mode()
     def serve(images):
         images = torch.as_tensor(images).to(device)
-        if not images.is_floating_point():
-            images = images.float() * u8_scale
-        head = apply_folded(spec, folded, images, compute_dtype=compute_dtype)
+        if int8 is not None:
+            u8 = not images.is_floating_point()
+            head = int8(images.float() if u8 else images,
+                        compute_dtype=compute_dtype,
+                        input_scale=INV255 if u8 else None)
+        else:
+            if not images.is_floating_point():
+                images = images.float() * u8_scale
+            head = apply_folded(spec, folded, images,
+                                compute_dtype=compute_dtype)
         decoded = decode_grid(head.float(), K, C, nA)
         if pick is None or pick[0] == "grid":
             return decoded
@@ -73,11 +102,14 @@ def make_serving_fn(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]
             return best_boxes_per_class(decoded, pick[1])
         return best_box_for_class(decoded, pick[1], pick[2])
 
+    serve.int8 = int8
     return serve
 
 
 def _device(folded: Dict[str, Dict[str, torch.Tensor]]) -> torch.device:
-    return next(iter(folded.values()))["w"].device
+    """Where the weights are: every conv and connected layer, folded or
+    int8, has a bias ``b``."""
+    return torch.as_tensor(next(iter(folded.values()))["b"]).device
 
 
 def _map(fn, out):
@@ -104,7 +136,8 @@ def aot_serving(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
     first request (``singleshotpose_tpu/serving.py:aot_serving``).
 
     On a card the function's body — u8 normalize, the folded forward with
-    the serving stem's kernel, decode and the pick — is recorded once as a
+    the serving stem's kernel (or, over an int8 pytree, the int8 forward
+    with the int8 conv kernel), decode and the pick — is recorded once as a
     CUDA graph after a warm-up call.  Each call copies its frames (a tensor
     or a numpy array) into the graph's input on the current stream, replays
     the graph (counted in the function's ``replays``) and returns a clone of
@@ -154,7 +187,8 @@ def aot_serving(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
 
     replay.replays = 0
     # the graph reads tensors that only ``serve`` holds (the u8 divisor, a
-    # for_class pick's class): freed, their memory would be reused under it
+    # for_class pick's class, the int8 forward's scales and packed
+    # weights): freed, their memory would be reused under it
     replay.serve = serve
     return replay
 

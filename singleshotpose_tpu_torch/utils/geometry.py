@@ -1,18 +1,20 @@
 """Geometry primitives the port's evaluation uses: camera intrinsics, 3D
-bbox corners, object diameter, the OCCLUSION corner order.
+bbox corners, object diameter, the OCCLUSION corner order, and the ADD-S
+distance ``adi``.
 
 The port's own copy of the functions of ``singleshotpose_tpu/utils/geometry.py``
-that ``evaluate.py`` calls (numpy only), so the port imports nothing of the
-JAX package; ``tests/test_torch_host.py`` and ``tests/test_torch_multi_host.py``
+that ``evaluate.py`` calls (numpy; ``adi`` in torch on a chosen device, so
+the card needs no scipy), so the port imports nothing of the JAX package; ``tests/test_torch_host.py`` and ``tests/test_torch_multi_host.py``
 hold them equal to the originals.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = ["get_camera_intrinsic", "get_3D_corners", "calc_pts_diameter",
-           "fix_corner_order"]
+           "fix_corner_order", "adi"]
 
 
 def get_camera_intrinsic(u0: float, v0: float, fx: float, fy: float) -> np.ndarray:
@@ -66,3 +68,21 @@ _FIX_ORDER = np.array([0, 1, 3, 5, 7, 2, 4, 6, 8])
 def fix_corner_order(corners2D_gt: np.ndarray) -> np.ndarray:
     """OCCLUSION GT corner permutation (reference: ``utils.py:197-208``)."""
     return np.asarray(corners2D_gt, dtype=np.float32)[_FIX_ORDER]
+
+
+def adi(pts_est: np.ndarray, pts_gt: np.ndarray, device="cpu",
+        chunk: int = 1024) -> float:
+    """Symmetric-object error (reference ``utils.py:60-64``): the mean over
+    ``pts_gt`` (N, 3) of the distance to the nearest point of ``pts_est``
+    (M, 3).  The JAX package queries a scipy KD-tree; here f64 pairwise
+    distances on ``device`` (exact differences, no matmul expansion), their
+    row minima taken ``chunk`` query rows at a time."""
+    est = torch.as_tensor(np.asarray(pts_est), dtype=torch.float64,
+                          device=device)
+    gt = torch.as_tensor(np.asarray(pts_gt), dtype=torch.float64,
+                         device=device)
+    nearest = torch.cat([
+        torch.cdist(gt[i:i + chunk], est,
+                    compute_mode="donot_use_mm_for_euclid_dist").amin(dim=1)
+        for i in range(0, gt.shape[0], chunk)])
+    return float(nearest.mean())

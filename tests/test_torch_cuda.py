@@ -21,10 +21,12 @@ eager calls bit for bit; there the kernels' ``launches`` counters count
 captures (a wrapper runs while a graph records it, not when it replays).
 The device-resident data paths (plain PyTorch ops: the frame bank, the
 augment, the eval bank, the scene synth) hold the card's batches to the
-CPU's bits.
+CPU's bits.  The int8 conv equals its plain twin bit for bit (integer sums
+are exact), and so does the int8 serve built on each.
 """
 
 import json
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -37,7 +39,8 @@ from singleshotpose_tpu_torch.models.darknet import (DarknetSpec, Darknet,
                                                      apply_folded,
                                                      fold_batchnorm)
 from singleshotpose_tpu_torch.ops import max_corner_confidence as mcc
-from singleshotpose_tpu_torch.ops import stem
+from singleshotpose_tpu_torch.models import quantize
+from singleshotpose_tpu_torch.ops import int8_conv, stem
 from singleshotpose_tpu_torch.ops.targets import build_targets
 from singleshotpose_tpu_torch.training import (capture_train_step,
                                                init_train_state,
@@ -915,3 +918,146 @@ def test_captured_f32_steps_equal_eager_steps(dev):
     with pytest.raises(ValueError, match="no graph captured"):
         captured(cap, (batches[0][0] * 255).to(torch.uint8), batches[0][1],
                  1e-3, 1)
+
+
+# ---------------------------------------------------------------------------
+# the int8 conv (csrc/int8_conv.cu) and the int8 serve: integer sums are
+# exact, so the kernel equals its plain twin bit for bit in any order
+# ---------------------------------------------------------------------------
+
+
+def _int8_case(dev, B, H, W, C, N, k, offset, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    flat = torch.randint(-127, 128, (B * H * W * C + 16,), generator=g,
+                         device=dev, dtype=torch.int32).to(torch.int8)
+    x = flat[offset:offset + B * H * W * C].view(B, H, W, C)
+    wq = torch.randint(-127, 128, (k, k, C, N), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    return x, int8_conv.pack_weights(wq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,N,k,stride,pad,offset,vec", [
+    (2, 9, 7, 3, 32, 3, 1, 1, 0, 1),        # C_in = 3: the byte copies
+    (8, 42, 42, 3, 32, 3, 1, 1, 0, 1),
+    (1, 21, 21, 512, 1024, 3, 1, 1, 0, 16),
+    (2, 42, 42, 512, 64, 1, 1, 0, 0, 16),   # 1x1, N below the block's 64
+    (1, 10, 10, 1280, 1024, 3, 1, 1, 0, 16),
+    (2, 8, 8, 32, 64, 3, 2, 1, 0, 16),      # stride 2
+    (3, 17, 13, 36, 96, 3, 1, 1, 0, 4),     # the 4-byte copies
+    (2, 11, 9, 64, 64, 3, 1, 1, 4, 4),      # misaligned by 4 bytes
+    (2, 11, 9, 64, 64, 3, 1, 1, 1, 1),      # misaligned by 1 byte
+    (1, 5, 6, 16, 7, 3, 1, 1, 0, 16)])      # an odd C_out: scalar stores
+def test_int8_conv_kernel_matches_twin(dev, B, H, W, C, N, k, stride, pad,
+                                       offset, vec):
+    x, wk = _int8_case(dev, B, H, W, C, N, k, offset, seed=B * H + C)
+    assert int8_conv.copy_width(x) == vec
+    before = int8_conv.int8_conv.launches
+    got = int8_conv.int8_conv(x, wk, k, stride, pad)
+    ref = int8_conv.int8_conv_reference(x, wk, k, stride, pad)
+    torch.cuda.synchronize()
+    assert int8_conv.int8_conv.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == ref.shape
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_int8_conv_kernel_rejects_what_it_cannot_take(dev):
+    x, wk = _int8_case(dev, 1, 8, 8, 32, 64, 3, 0, seed=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_conv.int8_conv(x.transpose(1, 2), wk, 3, 1, 1)
+    with pytest.raises(ValueError, match="packs to"):
+        int8_conv.int8_conv(x, wk, 1, 1, 0)
+    with pytest.raises(ValueError, match="is on"):
+        int8_conv.int8_conv(x, wk.cpu(), 3, 1, 1)
+
+
+def _tiny_int8(dev):
+    spec, folded = _tiny_folded(dev)
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(11))
+    amax = quantize.calibrate_activations(spec, folded, x.to(dev),
+                                          per_channel=True)
+    return spec, quantize.quantize_folded(spec, folded, amax)
+
+
+@pytest.mark.cuda
+def test_int8_serve_runs_the_kernel_and_equals_the_twin(dev):
+    """The int8 serve on the card launches the int8 conv once a quantized
+    conv, and equals the same serve with the twin in its place bit for bit
+    (the same cuDNN head conv); its boxes are within JAX's 0.05 of the bf16
+    folded serve's."""
+    spec, qp = _tiny_int8(dev)
+    u8 = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(12))
+    serve = make_serving_fn(spec, qp, pick=("best",))
+    before = int8_conv.int8_conv.launches
+    got = serve(u8)
+    torch.cuda.synchronize()
+    n_q = sum("wq" in v for v in qp.values())
+    assert int8_conv.int8_conv.launches - before == n_q == 7
+    with mock.patch.object(quantize, "int8_conv",
+                           int8_conv.int8_conv_reference):
+        twin = make_serving_fn(spec, qp, pick=("best",))(u8)
+    assert torch.equal(_bits(got), _bits(twin))
+    _, folded = _tiny_folded(dev)
+    bf16 = make_serving_fn(spec, folded, pick=("best",))(u8)
+    assert float((got[:, :18] - bf16[:, :18]).abs().max()) < 0.05
+    assert float((got[:, 18] - bf16[:, 18]).abs().max()) < 0.05
+
+
+@pytest.mark.cuda
+def test_int8_aot_serving_equals_eager(dev):
+    """The graph of the int8 serve holds its scales and packed weights: after
+    the memory the capture freed is scribbled over, its answers equal the
+    eager serve's bit for bit; the wrapper ran while it recorded, not at
+    replay."""
+    spec, qp = _tiny_int8(dev)
+    before = int8_conv.int8_conv.launches
+    fn = aot_serving(spec, qp, batch=2, width=64, height=64)
+    recorded = int8_conv.int8_conv.launches - before
+    _scribble(dev)
+    serve = make_serving_fn(spec, qp, pick=("best",))
+    g = torch.Generator().manual_seed(13)
+    for _ in range(2):
+        x = torch.randint(0, 256, (2, 64, 64, 3), generator=g,
+                          dtype=torch.uint8)
+        mark = int8_conv.int8_conv.launches
+        got = fn(x)
+        assert int8_conv.int8_conv.launches == mark
+        assert torch.equal(_bits(got), _bits(serve(x)))
+    assert fn.replays == 2 and recorded == 2 * 7    # warm-up and capture
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("constants", [False, True])
+def test_int8_forward_on_the_card_equals_the_cpu(dev, per_channel, constants):
+    """quantize_folded from the same ranges gives the CPU's bits on the
+    card (true divisions, as JAX's eager ones), and with every conv int8
+    and the f32 dequant the whole forward does too, in both rounding forms
+    and on u8 frames: the int8 conv, the exact FMA and the quantizer round
+    alike on both."""
+    spec, folded = _tiny_folded(dev)
+    cpu_folded = {k: {f: t.cpu() for f, t in d.items()}
+                  for k, d in folded.items()}
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(14))
+    amax = quantize.calibrate_activations(spec, cpu_folded, x,
+                                          compute_dtype=None,
+                                          per_channel=per_channel)
+    q_dev = quantize.quantize_folded(spec, folded, amax, skip_layers=())
+    q_cpu = quantize.quantize_folded(spec, cpu_folded, amax, skip_layers=())
+    for k, d in q_cpu.items():
+        for f, t in d.items():
+            assert torch.equal(_bits(q_dev[k][f].cpu()), _bits(t)), (k, f)
+    u8 = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(15))
+    for images, scale in ((x, None), (u8.float(), 1 / 255)):
+        got = quantize.apply_quantized(spec, q_dev, images.to(dev),
+                                       compute_dtype=None,
+                                       scales_as_constants=constants,
+                                       input_scale=scale)
+        want = quantize.apply_quantized(spec, q_cpu, images,
+                                        compute_dtype=None,
+                                        scales_as_constants=constants,
+                                        input_scale=scale)
+        assert torch.equal(_bits(got.cpu()), _bits(want))

@@ -218,10 +218,11 @@ from singleshotpose_tpu_torch import (checkpoint, cli, config, drivers,
                                       zoo)
 from singleshotpose_tpu_torch.data import (augment, device_synth, pipeline,
                                            prefetch, synth_multi)
-from singleshotpose_tpu_torch.models import darknet, layers
+from singleshotpose_tpu_torch.models import darknet, layers, quantize
 from singleshotpose_tpu_torch.ops import (confidence, cuda_build, decode,
-                                          losses, max_corner_confidence, pnp,
-                                          stem, targets)
+                                          int8_conv, losses,
+                                          max_corner_confidence, pnp, stem,
+                                          targets)
 from singleshotpose_tpu_torch.utils import geometry, labels, meshply
 import chip_smoke                    # the card's smoke script imports the same
 spec = zoo.yolo_pose_single(test_size=64)
@@ -229,6 +230,12 @@ model = darknet.Darknet(spec, generator=torch.Generator().manual_seed(0))
 boxes = serving.make_serving_fn(spec, darknet.fold_batchnorm(model),
                                 pick=("best",))(np.zeros((1, 64, 64, 3), np.uint8))
 assert boxes.shape == (1, 21) and bool(torch.isfinite(boxes).all())
+folded = darknet.fold_batchnorm(model)
+qp = quantize.quantize_folded(spec, folded, quantize.calibrate_activations(
+    spec, folded, torch.rand((1, 64, 64, 3)), per_channel=True))
+int8_boxes = serving.make_serving_fn(spec, qp, pick=("best",))(
+    np.zeros((1, 64, 64, 3), np.uint8))
+assert int8_boxes.shape == (1, 21) and bool(torch.isfinite(int8_boxes).all())
 multi = zoo.yolo_pose_multi(train_size=64)
 per_class = serving.make_serving_fn(
     multi, darknet.fold_batchnorm(darknet.Darknet(
