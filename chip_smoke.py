@@ -16,8 +16,8 @@ phases; any failure propagates and the exit code is nonzero:
   2. build: the four CUDA sources, one nvcc each, started together
      (``csrc/stem_serve.cu``, ``csrc/max_corner_confidence.cu``,
      ``csrc/stem_train.cu``, ``csrc/int8_conv.cu``); K1's, K3's and K6's
-     SASS hold HMMA instructions and the int8 conv's IMMA (their products
-     run on the tensor cores);
+     SASS hold HMMA instructions and the int8 conv's IGMMA (their products
+     run on the tensor cores, the int8 conv's on wgmma);
   3. kernels against plain: each kernel (K1 the serving stem, K2 the max
      corner confidence, K3–K6 the train stem) vs its plain PyTorch version
      at the main paths' shapes (K1 also at the multi-object serve's batch
@@ -102,20 +102,25 @@ phases; any failure propagates and the exit code is nonzero:
      tree (f32 graphs, K2–K6 once in each); the host synthesizer's batch on
      the same frames as files;
  16. int8: the int8 conv (``csrc/int8_conv.cu``) against its plain twin
-     (``F.unfold`` + ``torch._int_mm``) bit for bit at every int8 conv's
-     shape of the single-object serve at batch 8 and 1, 672², and of the
-     multi serve at batch 16, 416², and at four odd shapes (C_in = 3 at an
-     odd width, the 4-byte and byte copies, an odd C_out); per layer the
-     kernel's, the twin's and ``_int_mm``'s device ms (a CUDA graph of 10
-     calls) and the bound; then ``make_serving_fn`` and ``aot_serving`` on
+     (``F.unfold`` + ``torch._int_mm``, then the epilogue's plain ops) bit
+     for bit at four odd shapes (the first conv's C_in padded to 4 at an odd
+     width, the 4-byte copies, a misaligned input, an odd C_out) in every
+     epilogue mode (int32; int8, compute dtype or both; per-channel and
+     scalar quantizers, multiply and divide forms, bf16 and f32), a C_in of
+     3 refused, and at every int8 conv's shape of the single-object serve at
+     batch 8 and 1, 672², and of the multi serve at batch 16, 416², in
+     int32 mode and in the layer's epilogue mode; per layer the product's,
+     the fused kernel's, the fused twin's and ``_int_mm``'s device ms (a
+     CUDA graph of 10 calls) and both bounds; then ``make_serving_fn`` and
+     ``aot_serving`` on
      the int8 pytree (``models/quantize.py``, per-channel scales calibrated
      on the batch served): boxes at batch 8 and 1, 672², and the multi
      per-class boxes at batch 16 equal the twin-fed serve's bit for bit,
-     eager and graph; within JAX's 0.05 of the bf16 serve's at its picked
-     cells; int8 and bf16 serves timed in turns; ``cli quantize`` on a
-     rendered held-out split, its ``.npz`` = the in-memory pytree (tensors
-     and boxes), and ``run_validation(quantize=the .npz / True)`` on the
-     card.
+     eager and graph, every int8 conv launch fused; within JAX's 0.05 of
+     the bf16 serve's at its picked cells; int8 and bf16 serves timed in
+     turns; ``cli quantize`` on a rendered held-out split, its ``.npz`` =
+     the in-memory pytree (tensors and boxes), and
+     ``run_validation(quantize=the .npz / True)`` on the card.
 
 Phases 4–5 and 9 are the serving paths and phase 7's fused steps and phase
 10 the training paths: each kernel's launch count is set to 0 just before
@@ -317,7 +322,8 @@ def _sass_report(lib: str, kernel: str, op: str = "HMMA"):
     """For each compiled instance of ``kernel`` in the built library
     ``lib`` (a template has one for each of its arguments): the start of its
     mangled name, its number of ``op`` instructions (HMMA: bf16 tensor-core
-    products; IMMA: int8 ones) and its resource usage line, read with the
+    products; IGMMA: int8 warpgroup ones) and its resource usage line, read
+    with the
     toolkit's cuobjdump."""
     tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
 
@@ -350,7 +356,7 @@ def phase_build() -> None:
             ("K1", paths[0], "stem_serve_kernel", "HMMA"),
             ("K3", paths[2], "stem_conv_stats_kernel", "HMMA"),
             ("K6", paths[2], "stem_bwd_dw_kernel", "HMMA"),
-            ("int8 conv", paths[3], "int8_conv_kernel", "IMMA")):
+            ("int8 conv", paths[3], "int8_conv_kernel", "IGMMA")):
         report = _sass_report(lib, kernel, op)
         for name, hmma, usage in report:
             print(f"[build] {tag} {name}: {hmma} {op} instructions in its "
@@ -2639,22 +2645,26 @@ INT8_TIMED = 10       # CUDA-event timings a turn
 # single-object serve at batch 8 and 1, 672²; the multi serve at batch 16, 416²
 INT8_SERVES = ((MODEL_BATCH, SIZE), (1, SIZE))
 # misaligned and odd cases: (B, H, W, C_in, C_out, ksize, stride, pad, byte
-# offset of the input): the first conv's C_in = 3 at an odd width, the
-# 4-byte copies, an input 1 byte off alignment, an odd C_out
-INT8_ODD = ((2, 37, 23, 3, 32, 3, 1, 1, 0), (1, 13, 11, 36, 40, 3, 1, 1, 0),
-            (2, 11, 9, 64, 64, 3, 1, 1, 1), (1, 9, 7, 16, 7, 1, 1, 0, 0))
+# offset of the input): the first conv's C_in (3, padded to 4) at an odd
+# width, the 4-byte copies at C_in 36, an input 4 bytes off 16-byte
+# alignment (the 4-byte copies), an odd C_out (element-wise stores)
+INT8_ODD = ((2, 37, 23, 4, 32, 3, 1, 1, 0), (1, 13, 11, 36, 40, 3, 1, 1, 0),
+            (2, 11, 9, 64, 64, 3, 1, 1, 4), (1, 9, 7, 16, 7, 1, 1, 0, 0))
 
 
 def _int8_layers(spec, size: int):
-    """(conv spec, input height) of each conv that ``quantize_folded``
-    quantizes by default (all but the head), the input square at ``size``."""
+    """(conv spec, input height, epilogue plan) of each conv that
+    ``quantize_folded`` quantizes by default (all but the head), the input
+    square at ``size``."""
     from singleshotpose_tpu_torch.models import quantize as Q
     skip = Q.default_skip_layers(spec)
+    plan = Q.epilogue_plan(spec, {l.name for l in spec.layers if isinstance(
+        l, darknet.ConvSpec) and l.name not in skip})
     heights, h, out = [], size, []
     for lspec in spec.layers:
         if isinstance(lspec, darknet.ConvSpec):
             if lspec.name not in skip:
-                out.append((lspec, h))
+                out.append((lspec, h, plan[lspec.name]))
             h = (h + 2 * lspec.pad - lspec.size) // lspec.stride + 1
         elif isinstance(lspec, darknet.MaxPoolSpec) and lspec.stride > 1:
             h = (h - lspec.size) // lspec.stride + 1
@@ -2704,84 +2714,190 @@ def _int8_case(dev, g, B, H, W, C, N, ksize, offset=0):
     return x, int8_conv.pack_weights(wq)
 
 
-def _int8_bound(x, wk, y, ksize) -> dict:
-    """int8 in, packed weights in, int32 out over the HBM rate; 2·M·N·K
-    over the int8 tensor cores' rate."""
+def _int8_epilogue(g, y, writes: str, per_channel: bool, divide: bool,
+                   dtype=torch.bfloat16):
+    """A random epilogue for the int32 sums ``y`` (B, Ho, Wo, N): the
+    dequant maps them to about N(0, 1) around a bias, the quantizer (per
+    channel or one scalar; ``divide``: v / q, else v · q) to about ±40 —
+    some values clamp at ±127; ``writes`` is the plan's "int8", "compute"
+    or "both"."""
+    N, dev = y.shape[-1], y.device
+    sd = float(y.float().std()) + 1.0
+    q = torch.rand(N if per_channel else 1, generator=g, device=dev) * 40 + 10
+    return int8_conv.Epilogue(
+        (torch.rand(N, generator=g, device=dev) * 2 / sd).contiguous(),
+        torch.randn(N, generator=g, device=dev) * 0.5, dtype=dtype,
+        quant=None if writes == "compute" else (1 / q if divide else q),
+        divide=divide, value=writes != "int8")
+
+
+def _same_outputs(got, want) -> bool:
+    """The kernel's (value, int8) equal the twin's bit for bit."""
+    return all((a is None) == (b is None) and (a is None or _same_bits(a, b))
+               for a, b in zip(got, want))
+
+
+def _int8_bound(x, c_in: int, outs, ksize, params=()) -> dict:
+    """The conv's own work, not the zero channels the port pads in: the
+    int8 input's first ``c_in`` channels and its K·N int8 weights in (K =
+    ksize²·c_in), the outputs (int32 sums, or the fused epilogue's int8
+    and/or bf16) and the epilogue's per-channel parameters out or in, over
+    the HBM rate; 2·M·N·K over the int8 tensor cores' rate."""
+    y = next(t for t in outs if t is not None)
     M, N = y.numel() // y.shape[-1], y.shape[-1]
-    K = ksize * ksize * x.shape[-1]
-    return _bound(_nbytes(x, wk, y), 2 * M * N * K, INT8_OPS)
+    K = ksize * ksize * c_in
+    return _bound(x.numel() // x.shape[-1] * c_in + K * N
+                  + _nbytes(*(t for t in outs if t is not None), *params),
+                  2 * M * N * K, INT8_OPS)
 
 
 def phase_int8_kernel(spec, multi, dev, card: str) -> dict:
-    """The int8 conv against its plain twin, bit for bit, at every quantized
-    conv's shape of the single-object serve (batch 8 and 1, 672²) and the
-    multi serve (batch 16, 416²), and at INT8_ODD; per layer the kernel's,
-    the twin's and ``torch._int_mm``'s (on the twin's im2col matrix) device
-    ms a call (:func:`_graph_ms`) and the bound.  Returns the batch-8 672²
-    serve's sums, its layers one after another."""
+    """The int8 conv against its plain twin, bit for bit: at INT8_ODD in
+    every epilogue mode (int32; int8, compute dtype, both), with per-channel
+    and scalar quantizers in both rounding forms, in bf16 and f32; a C_in
+    of 3 refused; and at every quantized conv's shape of the single-object
+    serve (batch 8 and 1, 672²) and the multi serve (batch 16, 416²) in
+    int32 mode (the product alone) and in the serve's mode for that layer
+    (its epilogue plan, per-channel scales, bf16; the multiply form, and
+    where it writes int8 the divide form too).  Per layer the device ms a
+    call (:func:`_graph_ms`) of the product, the fused kernel, the fused
+    twin and ``torch._int_mm`` (on the twin's im2col matrices; the first
+    conv's without its zero channel), and both bounds (of the conv's own
+    channels, :func:`_int8_bound`).  Returns the batch-8 672² serve's sums
+    (and the others' under ``serves``)."""
     g = torch.Generator(device=dev).manual_seed(160)
     t0 = time.perf_counter()
-    worst = 0
+    worst, checked = 0, 0
     for B, H, W, C, N, ks, st, pad, off in INT8_ODD:
         x, wk = _int8_case(dev, g, B, H, W, C, N, ks, off)
-        got = int8_conv.int8_conv(x, wk, ks, st, pad)
         ref = int8_conv.int8_conv_reference(x, wk, ks, st, pad)
+        got = int8_conv.int8_conv(x, wk, ks, st, pad)
         torch.cuda.synchronize()
         same = torch.equal(got, ref)
+        modes = 0
+        for writes in ("int8", "compute", "both"):
+            for per_channel in (True, False):
+                for divide in (True, False):
+                    for dtype in (torch.bfloat16, None):
+                        ep = _int8_epilogue(g, ref, writes, per_channel,
+                                            divide, dtype)
+                        ok = _same_outputs(
+                            int8_conv.int8_conv(x, wk, ks, st, pad, ep),
+                            int8_conv.int8_conv_reference(x, wk, ks, st,
+                                                          pad, ep))
+                        _check(ok, f"int8 conv != twin at ({B},{H},{W},{C})"
+                                   f"->{N} {writes} per_channel "
+                                   f"{per_channel} divide {divide} {dtype}")
+                        modes += 1
+        checked += modes + 1
         print(f"[int8] ({B},{H},{W},{C})->{N} {ks}x{ks} offset {off}: copy "
               f"width {int8_conv.copy_width(x)} bytes; kernel = twin bit for "
-              f"bit: {same}")
+              f"bit: int32 {same}, and in {modes} epilogue modes (int8 / "
+              f"compute / both x per-channel / scalar x v/q / v*q x bf16 / "
+              f"f32)")
         _check(same, f"int8 conv != twin at ({B},{H},{W},{C})->{N}")
-    result = None
+    x, wk = _int8_case(dev, g, 1, 8, 8, 3, 32, 3)
+    try:
+        int8_conv.int8_conv(x, int8_conv.pack_weights(
+            torch.zeros((3, 3, 3, 32), dtype=torch.int8, device=dev)), 3, 1,
+            1)
+        refused = False
+    except ValueError:
+        refused = True
+    _check(refused, "the int8 conv took C_in = 3 (the byte path is gone)")
+    result, serves = None, {}
     for tag, net, cases in (("yolo_pose_single", spec, INT8_SERVES),
                             ("yolo_pose_multi", multi,
                              ((MULTI_SERVE_BATCH, MULTI_SIZE),))):
         for B, size in cases:
             totals = collections.Counter()
             bound_parts = collections.Counter()
-            for lspec, h in _int8_layers(net, size):
+            layers = _int8_layers(net, size)
+            for lspec, h, plan in layers:
                 ks, C, N = lspec.size, lspec.in_filters, lspec.filters
-                x, wk = _int8_case(dev, g, B, h, h, C, N, ks)
-                got = int8_conv.int8_conv(x, wk, ks, lspec.stride, lspec.pad)
-                ref = int8_conv.int8_conv_reference(x, wk, ks, lspec.stride,
-                                                    lspec.pad)
+                cp = -(-C // 4) * 4                # the padded C_in
+                x, wk = _int8_case(dev, g, B, h, h, cp, N, ks)
+                if cp != C:                         # the zero channels
+                    x[..., C:] = 0
+                conv = (x, wk, ks, lspec.stride, lspec.pad)
+                ref = int8_conv.int8_conv_reference(*conv)
+                got = int8_conv.int8_conv(*conv)
+                ep = _int8_epilogue(g, ref, plan.writes, True, False)
+                fused = int8_conv.int8_conv(*conv, ep)
                 torch.cuda.synchronize()
                 diff = int((got.long() - ref.long()).abs().max())
                 worst = max(worst, diff)
                 _check(diff == 0, f"int8 conv != twin at {lspec.name} "
                                   f"({B},{h},{h},{C})")
-                a, wt = int8_conv.im2col_operands(x, wk, ks, lspec.stride,
-                                                  lspec.pad)
+                _check(_same_outputs(fused, int8_conv.int8_conv_reference(
+                    *conv, ep)), f"the fused int8 conv != twin at "
+                                 f"{lspec.name} ({B},{h},{h},{C}) "
+                                 f"{plan.writes}")
+                checked += 2
+                if plan.writes != "compute":
+                    # the divide form, as run_validation quantizes
+                    ep_div = _int8_epilogue(g, ref, plan.writes, True, True)
+                    _check(_same_outputs(
+                        int8_conv.int8_conv(*conv, ep_div),
+                        int8_conv.int8_conv_reference(*conv, ep_div)),
+                        f"the fused int8 conv != twin at {lspec.name} "
+                        f"({B},{h},{h},{C}) {plan.writes}, v / q")
+                    checked += 1
+                    del ep_div
+                # the library yardstick on the unpadded operands
+                lib_conv = conv if cp == C else (
+                    x[..., :C].contiguous(), int8_conv.pack_weights(
+                        wk[:, :ks * ks * cp].reshape(N, ks, ks, cp)[..., :C]
+                        .permute(1, 2, 3, 0).contiguous()),
+                    ks, lspec.stride, lspec.pad)
+                a, wt = int8_conv.im2col_operands(*lib_conv)
+                del lib_conv
                 del ref
-                ms = _graph_ms(lambda: int8_conv.int8_conv(
-                    x, wk, ks, lspec.stride, lspec.pad))
+                product = _graph_ms(lambda: int8_conv.int8_conv(*conv))
+                ms = _graph_ms(lambda: int8_conv.int8_conv(*conv, ep))
                 plain = _graph_ms(lambda: int8_conv.int8_conv_reference(
-                    x, wk, ks, lspec.stride, lspec.pad), calls=3)
+                    *conv, ep), calls=3)
                 lib = _graph_ms(lambda: torch._int_mm(a, wt))
-                bound = _int8_bound(x, wk, got, ks)
-                totals.update({"ms": ms, "plain_ms": plain, "library_ms": lib,
-                               "bound_ms": bound["bound_ms"]})
+                pbound = _int8_bound(x, C, (got,), ks)
+                bound = _int8_bound(x, C, fused, ks,
+                                    (ep.scale, ep.bias) + ((ep.quant,) if
+                                                           ep.quant is not
+                                                           None else ()))
+                totals.update({"ms": ms, "product_ms": product,
+                               "plain_ms": plain, "library_ms": lib,
+                               "bound_ms": bound["bound_ms"],
+                               "product_bound_ms": pbound["bound_ms"]})
                 bound_parts[bound["bound_by"]] += bound["bound_ms"]
+                tile = int8_conv.tile_for(got.numel() // N, N, ks * ks * cp)
                 print(f"[int8] {tag} ({B},{size},{size}) {lspec.name} "
-                      f"({B},{h},{h},{C})->{N} {ks}x{ks}: = twin bit for bit; "
-                      f"device ms a call: kernel {ms:.4f}, twin {plain:.4f}, "
-                      f"_int_mm on its im2col {lib:.4f}; bound "
-                      f"{bound['bound_ms']:.4f} ({bound['bound_by']}), kernel "
-                      f"at {bound['bound_ms'] / ms:.1%} of it [{card}]")
-                del x, wk, got, a, wt
-            print(f"[int8] {tag} ({B},{size},{size}), {len(_int8_layers(net, size))} "
-                  f"int8 convs: kernel {totals['ms']:.4f} ms, twin "
-                  f"{totals['plain_ms']:.4f}, _int_mm {totals['library_ms']:.4f}, "
-                  f"bound {totals['bound_ms']:.4f} ms [{card}]")
+                      f"({B},{h},{h},{cp})->{N} {ks}x{ks} writes "
+                      f"{plan.writes}, tile {tile}: = twin "
+                      f"bit for bit (int32 and fused, v*q and v/q where it "
+                      f"quantizes); device ms a call: "
+                      f"product {product:.4f}, fused {ms:.4f}, fused twin "
+                      f"{plain:.4f}, _int_mm {lib:.4f}; bound product "
+                      f"{pbound['bound_ms']:.4f} ({pbound['bound_by']}), "
+                      f"fused {bound['bound_ms']:.4f} ({bound['bound_by']}); "
+                      f"product at {pbound['bound_ms'] / product:.1%}, fused "
+                      f"at {bound['bound_ms'] / ms:.1%} of its bound [{card}]")
+                del x, wk, got, fused, a, wt, ep
+            print(f"[int8] {tag} ({B},{size},{size}), {len(layers)} int8 "
+                  f"convs: fused {totals['ms']:.4f} ms, product "
+                  f"{totals['product_ms']:.4f}, fused twin "
+                  f"{totals['plain_ms']:.4f}, _int_mm "
+                  f"{totals['library_ms']:.4f}; bound fused "
+                  f"{totals['bound_ms']:.4f}, product "
+                  f"{totals['product_bound_ms']:.4f} ms [{card}]")
+            sums = {k: round(v, 4) for k, v in totals.items()}
+            serves[f"{tag} ({B},{size},{size})"] = sums
             if result is None:
-                result = {"max_abs_err": worst, "ms": totals["ms"],
-                          "plain_ms": totals["plain_ms"],
-                          "library_ms": totals["library_ms"],
-                          "bound_ms": totals["bound_ms"],
+                result = {"max_abs_err": worst, **totals,
                           "bound_by": bound_parts.most_common(1)[0][0]}
             _free()
     result["max_abs_err"] = worst
-    print(f"[int8] kernel phase {time.perf_counter() - t0:.1f} s")
+    result["serves"] = serves
+    print(f"[int8] kernel phase: {checked} comparisons, all bit for bit; "
+          f"{time.perf_counter() - t0:.1f} s")
     return result
 
 
@@ -2860,11 +2976,15 @@ def phase_int8_serve(spec, folded, multi, multi_folded, dev, card: str):
     bf16_grid = make_serving_fn(spec, folded)
     # the main path: every int8 conv launch counted from here came from it
     int8_conv.int8_conv.launches = 0
+    int8_conv.int8_conv.fused_launches = 0
     boxes = {b: serve(xb) for b, xb in x.items()}
     torch.cuda.synchronize()
     launches = int8_conv.int8_conv.launches
     _check(launches == 2 * n_q, f"the int8 serves launched the int8 conv "
                                 f"{launches} times, not {2 * n_q}")
+    _check(int8_conv.int8_conv.fused_launches == launches,
+           f"{launches - int8_conv.int8_conv.fused_launches} int8 conv "
+           f"launches of the serves ran without the epilogue")
     for b, xb in x.items():
         twin = _twin_fed(serve, xb)
         _check(_same_bits(boxes[b], twin),
@@ -2926,11 +3046,14 @@ def phase_int8_serve(spec, folded, multi, multi_folded, dev, card: str):
     mserve = make_serving_fn(multi, mq, pick=pick)
     mbf16 = make_serving_fn(multi, multi_folded, pick=pick)
     int8_conv.int8_conv.launches = 0
+    int8_conv.int8_conv.fused_launches = 0
     mboxes = mserve(mframes)
     torch.cuda.synchronize()
     launches_multi = int8_conv.int8_conv.launches
-    _check(launches_multi == n_q, f"the multi int8 serve launched the int8 "
-                                  f"conv {launches_multi} times")
+    _check(launches_multi == n_q and int8_conv.int8_conv.fused_launches ==
+           n_q, f"the multi int8 serve launched the int8 conv "
+                f"{launches_multi} times, "
+                f"{int8_conv.int8_conv.fused_launches} with the epilogue")
     _check(_same_bits(mboxes, _twin_fed(mserve, mframes)),
            "multi int8 boxes differ from the twin-fed serve's")
     mkp, mconf, mkp_all, mconf_all = _gaps_at_picks(
@@ -3010,6 +3133,7 @@ def phase_int8_cli(spec, model, dev, card: str) -> int:
             b_file = make_serving_fn(spec, loaded, pick=("best",))(x)
             b_mem = make_serving_fn(spec, mem, pick=("best",))(x)
             int8_conv.int8_conv.launches = 0
+            int8_conv.int8_conv.fused_launches = 0
             res_file = run_validation(datacfg, "yolo-pose", None,
                                       quantize=qfile, batch_size=8,
                                       num_workers=2, device="cuda",
@@ -3020,6 +3144,7 @@ def phase_int8_cli(spec, model, dev, card: str) -> int:
                                       verbose=False)
             torch.cuda.synchronize()
             launches = int8_conv.int8_conv.launches
+            fused = int8_conv.int8_conv.fused_launches
         n = DATA_EVAL_FRAMES
         print(f"[int8 cli] cli quantize on {INT8_CALIB} of {n} held-out "
               f"frames -> q.npz ({os.path.getsize(qfile)} bytes): its tensors "
@@ -3036,8 +3161,9 @@ def phase_int8_cli(spec, model, dev, card: str) -> int:
         _check(res_file["n_samples"] == res_true["n_samples"] == n and
                np.isfinite(res_file["mean_err_2d"]) and
                np.isfinite(res_true["mean_err_2d"]), "the int8 evals failed")
-        _check(launches == 2 * 22 * (-(-n // 8)),
-               f"the int8 evals launched the int8 conv {launches} times")
+        _check(launches == fused == 2 * 22 * (-(-n // 8)),
+               f"the int8 evals launched the int8 conv {launches} times, "
+               f"{fused} with the epilogue")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
@@ -3069,6 +3195,9 @@ def phase_profile_int8(spec, folded, dev, card: str, out_dir: str) -> None:
         for fam, us in by_family.most_common():
             print(f"[profile]   {fam}: {us / 1e3 / PROFILE_CALLS:.4f} ms/call "
                   f"({us / total:.2%} of device time)")
+        f64 = sum(us for fam, us in by_family.items() if fam.startswith("f64"))
+        print(f"[profile]   f64 elementwise in the int8 serve: "
+              f"{f64 / 1e3 / PROFILE_CALLS:.4f} ms/call")
 
 
 
@@ -3210,10 +3339,14 @@ def main(argv=None) -> int:
             **train_captured, **train_stem_numbers[name],
             "library_ms": None})
     # int8_conv: no Pallas original (JAX leaves its int8 conv to XLA); its
-    # numbers are the sums over the 22 int8 convs of the batch-8 672² serve,
-    # library_ms torch._int_mm on the twin's im2col matrices; launches in
-    # the eager int8 serves (batch 8 and 1; the multi serve), launches_eval
-    # in phase 16's two evals, captures/replays in the int8 serve graphs
+    # numbers are the sums over the 22 int8 convs of the batch-8 672² serve:
+    # ms, plain_ms and bound_ms the fused kernel (each layer's epilogue mode),
+    # its twin and its bound, product_ms and product_bound_ms the int32 mode
+    # (the product alone), library_ms torch._int_mm on the twin's im2col
+    # matrices; serves: the same sums at batch 1 and for the multi serve;
+    # launches in the eager int8 serves (batch 8 and 1; the multi serve),
+    # every one fused, launches_eval in phase 16's two evals,
+    # captures/replays in the int8 serve graphs
     kernels.append({
         "name": "int8_conv", "route": "cuda",
         "source": "singleshotpose_tpu_torch/csrc/int8_conv.cu",

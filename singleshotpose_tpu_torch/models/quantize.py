@@ -21,8 +21,12 @@ so an artifact written by either package serves in the other.
 
 :func:`apply_quantized` is the int8 serving forward, its conv
 ``ops/int8_conv.int8_conv`` (the hand-written kernel on a card, its plain
-twin on the CPU); :class:`Int8Forward` builds it once for a serving loop,
-each ``wq`` re-packed for the kernel.
+twin on the CPU) with the block's epilogue in it: the dequant, the compute
+dtype, leaky and, where the next reader is a quantized conv (directly or
+through non-live max pools), that conv's quantizer, so the conv writes
+int8, the compute dtype, or both (:func:`epilogue_plan`).
+:class:`Int8Forward` builds it once for a serving loop, each ``wq``
+re-packed for the kernel (C_in padded to a multiple of 4).
 
 Rounding points, read from the optimized HLO of JAX's forms: ``round`` is
 half to even in both packages; XLA contracts the dequant ``y·scale + b``
@@ -36,13 +40,14 @@ divides.  ``apply_quantized(scales_as_constants=)`` picks the form.
 
 from __future__ import annotations
 
-from typing import Dict, FrozenSet, Optional, Sequence
+from typing import Dict, FrozenSet, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..data.device_augment import fma, recip
-from ..ops.int8_conv import int8_conv, pack_weights
+from ..ops.int8_conv import (INT8_MAX, Epilogue, int8_conv, pack_weights,
+                              round_clip)
 from . import layers as L
 from .darknet import (ConnectedSpec, ConvSpec, DarknetSpec, MaxPoolSpec,
                       _activate, _conv, _to_nchw, _to_nhwc, _walk,
@@ -50,9 +55,8 @@ from .darknet import (ConnectedSpec, ConvSpec, DarknetSpec, MaxPoolSpec,
 
 __all__ = ["calibrate_activations", "quantize_folded", "apply_quantized",
            "default_skip_layers", "save_quantized", "load_quantized",
-           "Int8Forward"]
+           "Int8Forward", "EpiloguePlan", "epilogue_plan"]
 
-_INT8_MAX = 127.0
 
 
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -155,14 +159,14 @@ def quantize_folded(spec: DarknetSpec, folded, act_absmax: Dict[str, object],
                 a = torch.tensor(np.asarray(amax, np.float32),
                                  device=w.device)
                 a = torch.maximum(a, 1e-3 * a.max())
-                sa = _div(a, _INT8_MAX)
+                sa = _div(a, INT8_MAX)
                 w = w * sa[None, None, :, None]
             else:
                 # JAX: jnp.float32(amax / 127.0), a Python (f64) division
-                sa = torch.tensor(np.float32(top / _INT8_MAX), device=w.device)
+                sa = torch.tensor(np.float32(top / INT8_MAX), device=w.device)
             sw = _div(torch.clamp_min(w.abs().amax(dim=(0, 1, 2)), 1e-12),
-                      _INT8_MAX)
-            wq = torch.clamp(torch.round(w / sw), -_INT8_MAX, _INT8_MAX)
+                      INT8_MAX)
+            wq = round_clip(w / sw)
             out[lspec.name] = {"wq": wq.to(torch.int8).contiguous(),
                                "sw": sw, "sa": sa, "b": p["b"].float()}
         elif isinstance(lspec, ConnectedSpec):
@@ -206,63 +210,161 @@ class _QuantConv:
     """What the int8 forward needs of one quantized conv: its quantizer's
     scale (per channel a (1, C, 1, 1) tensor; scalar, a Python float
     multiplier in the constants form, which a CUDA graph bakes in, else the
-    0-d tensor divisor), the dequant scale, the bias and the packed
-    weights, all held here for a graph that reads them."""
+    0-d tensor divisor) and the same as the flat f32 tensor a producer's
+    epilogue reads (``q_flat``), the dequant scale, the bias and the packed
+    weights (C_in padded to a multiple of 4, ``c_pad``), all held here for
+    a graph that reads them."""
 
     def __init__(self, p, constants: bool):
         sa = p["sa"]
         self.per_channel = sa.dim() == 1
         if self.per_channel:
             # per-channel sa is folded into wq: the dequant is sw alone
-            self.scale = p["sw"].float()
+            self.scale = p["sw"].float().contiguous()
             q = sa.float().reshape(1, -1, 1, 1)
             self.q = 1.0 / q if constants else q
+            self.q_flat = self.q.reshape(-1).contiguous()
         else:
             s = np.float32(sa.item())
             self.scale = p["sw"].float() * float(s)
             # a device tensor divisor: a card multiplies by the reciprocal
             # of a Python scalar one
             self.q = recip(s) if constants else sa.float().reshape(())
+            self.q_flat = torch.full((1,), self.q, dtype=torch.float32,
+                                     device=sa.device) if constants \
+                else self.q.reshape(1)
         self.constants = constants
-        self.b = p["b"].float()
-        self.wk = pack_weights(p["wq"])
+        self.b = p["b"].float().contiguous()
+        c_in = int(p["wq"].shape[2])
+        self.c_pad = -(-c_in // 4) * 4
+        self.wk = pack_weights(p["wq"], c_in=self.c_pad)
         self.ksize = int(p["wq"].shape[0])
 
     def quantize(self, x: torch.Tensor, pre: Optional[float] = None
                  ) -> torch.Tensor:
         """``clip(round(x / sa), ±127)`` as int8 (``x · (1/sa)`` in the
         constants form); ``pre``: a constant factor of ``x`` that XLA folds
-        with a scalar ``1/sa`` into one f32 multiply."""
+        with a scalar ``1/sa`` into one f32 multiply.  NCHW in, NCHW int8
+        out, C_in padded with zero channels to ``c_pad`` (then channels
+        last in memory), as the kernel reads it."""
         v = x.float()
         if pre is not None:
             if self.constants and not self.per_channel:
                 v = v * float(np.float32(pre) * np.float32(self.q))
-                return _clip_int8(v)
+                return self._to_int8(v)
             v = v * pre
         v = v * self.q if self.constants else v / self.q
-        return _clip_int8(v)
+        return self._to_int8(v)
+
+    def _to_int8(self, v: torch.Tensor) -> torch.Tensor:
+        r = round_clip(v)
+        B, C, H, W = r.shape
+        if C == self.c_pad:
+            return r.to(torch.int8)
+        # the kernel's 4-byte copies: the cast writes into a zeroed NHWC
+        # buffer whose extra channels stay 0
+        out = torch.zeros((B, H, W, self.c_pad), dtype=torch.int8,
+                          device=r.device)
+        out[..., :C].copy_(r.permute(0, 2, 3, 1))
+        return out.permute(0, 3, 1, 2)
 
     def conv(self, xq: torch.Tensor, cspec: ConvSpec, compute_dtype
              ) -> torch.Tensor:
         """int8 conv, then ``fma(y, scale, b)`` in f32, then the compute
         dtype: NCHW int8 → NCHW (channels_last memory)."""
-        y = int8_conv(xq.permute(0, 2, 3, 1).contiguous(), self.wk,
-                      self.ksize, cspec.stride, cspec.pad)
-        y = fma(y.float(), self.scale, self.b)
-        if compute_dtype is not None:
-            y = y.to(compute_dtype)
-        return y.permute(0, 3, 1, 2)
+        return self.conv_fused(xq, cspec, compute_dtype, "linear", None,
+                               True)[0]
+
+    def conv_fused(self, xq: torch.Tensor, cspec: ConvSpec, compute_dtype,
+                   activation: str, consumer: Optional["_QuantConv"],
+                   value: bool):
+        """The int8 conv with its epilogue: the dequant, the compute dtype,
+        ``activation`` (in the kernel when leaky or linear), and with a
+        ``consumer`` that conv's quantizer.  Returns (the compute-dtype
+        output or None unless ``value``, the consumer's int8 input or
+        None), NCHW views of NHWC memory.  ``xq`` carries ``c_pad``
+        channels, as :meth:`quantize` writes them."""
+        fused = activation in _FUSED_ACTIVATIONS
+        ep = Epilogue(self.scale, self.b, dtype=compute_dtype,
+                      leaky=fused and activation == "leaky",
+                      quant=None if consumer is None else consumer.q_flat,
+                      divide=consumer is not None and not consumer.constants,
+                      value=value or consumer is None)
+        y, yq = int8_conv(xq.permute(0, 2, 3, 1).contiguous(), self.wk,
+                          self.ksize, cspec.stride, cspec.pad, epilogue=ep)
+        if y is not None:
+            y = y.permute(0, 3, 1, 2)
+            if not fused:
+                y = _activate(y, activation)
+        return y, None if yq is None else yq.permute(0, 3, 1, 2)
 
 
-def _clip_int8(v: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(torch.round(v), -_INT8_MAX, _INT8_MAX).to(torch.int8)
+# the activations the int8 conv's epilogue computes
+_FUSED_ACTIVATIONS = ("leaky", "linear")
+
+
+class EpiloguePlan(NamedTuple):
+    """What a quantized conv's epilogue writes: ``consumer``, the quantized
+    conv whose int8 input it also writes (directly, or through non-live max
+    pools), or None; ``value``, whether it writes the compute-dtype output
+    (anything else reads it: a route, a reorg, a float conv, the head)."""
+
+    consumer: Optional[str]
+    value: bool
+
+    @property
+    def writes(self) -> str:
+        """"int8", "compute" or "both"."""
+        if self.consumer is None:
+            return "compute"
+        return "both" if self.value else "int8"
+
+
+def _pool_consumer(spec: DarknetSpec, quantized, i: int) -> Optional[str]:
+    """The quantized conv at the end of the run of non-live max pools
+    starting at layer ``i``, if there is one."""
+    layers, j = spec.layers, i
+    while j < len(layers) and isinstance(layers[j], MaxPoolSpec):
+        if j in spec._live:
+            return None
+        j += 1
+    if j < len(layers) and isinstance(layers[j], ConvSpec) \
+            and layers[j].name in quantized:
+        return layers[j].name
+    return None
+
+
+def epilogue_plan(spec: DarknetSpec, quantized) -> Dict[str, EpiloguePlan]:
+    """For each conv in ``quantized`` (names), what its epilogue writes:
+    the int8 input of the quantized conv that alone reads it next (the next
+    layer, or the end of a run of non-live max pools — quantizing before
+    the pools is bit-exact, the quantizer being monotone), the compute
+    dtype where anything else reads it (a later route re-reads a live
+    layer), or both.  A conv whose activation the epilogue does not compute
+    writes the compute dtype only."""
+    layers, plan = spec.layers, {}
+    for i, lspec in enumerate(layers):
+        if not isinstance(lspec, ConvSpec) or lspec.name not in quantized:
+            continue
+        consumer = None
+        nxt = layers[i + 1] if i + 1 < len(layers) else None
+        if lspec.activation in _FUSED_ACTIVATIONS \
+                and lspec.filters % 4 == 0:
+            if isinstance(nxt, ConvSpec) and nxt.name in quantized:
+                consumer = nxt.name
+            elif isinstance(nxt, MaxPoolSpec):
+                consumer = _pool_consumer(spec, quantized, i + 1)
+        plan[lspec.name] = EpiloguePlan(
+            consumer, consumer is None or i in spec._live)
+    return plan
 
 
 class Int8Forward:
     """The int8 serving forward of one int8 pytree (its tensors on the
     device it serves on), built once: each quantized conv's scales (a
     scalar ``sa`` read to the host here, so a CUDA graph of the call bakes
-    it in) and re-packed weights are held by this object, which a serving
+    it in) and re-packed weights, and the epilogue plan
+    (:func:`epilogue_plan`), are held by this object, which a serving
     closure keeps alive.  Calling it is :func:`apply_quantized`."""
 
     def __init__(self, spec: DarknetSpec, qparams, *,
@@ -271,19 +373,7 @@ class Int8Forward:
         self.convs = {l.name: _QuantConv(qparams[l.name], scales_as_constants)
                       for l in spec.layers if isinstance(l, ConvSpec)
                       and "wq" in qparams[l.name]}
-
-    def _pool_consumer(self, i: int) -> Optional[str]:
-        """The quantized conv at the end of the run of non-live max pools
-        starting at layer ``i``, if there is one."""
-        layers, j = self.spec.layers, i
-        while j < len(layers) and isinstance(layers[j], MaxPoolSpec):
-            if j in self.spec._live:
-                return None
-            j += 1
-        if j < len(layers) and isinstance(layers[j], ConvSpec) \
-                and layers[j].name in self.convs:
-            return layers[j].name
-        return None
+        self.plan = epilogue_plan(spec, self.convs)
 
     def __call__(self, images: torch.Tensor, *, compute_dtype=torch.bfloat16,
                  input_scale: Optional[float] = None) -> torch.Tensor:
@@ -309,16 +399,20 @@ class Int8Forward:
                     q = convs[lspec.name]
                     if xq is None or xq_for != lspec.name:
                         xq = q.quantize(x)
-                    x = q.conv(xq, lspec, compute_dtype)
+                    consumer, value = self.plan[lspec.name]
+                    x, xq = q.conv_fused(xq, lspec, compute_dtype,
+                                         lspec.activation,
+                                         convs.get(consumer), value)
+                    xq_for = consumer
                 else:
                     p = qparams[lspec.name]
                     x = _conv(lspec, x, p["w"], compute_dtype).float() \
                         + L.per_channel(p["b"], x)
-                x = _activate(x, lspec.activation)
-                xq = None
+                    x = _activate(x, lspec.activation)
+                    xq = None
             elif isinstance(lspec, MaxPoolSpec):
                 if xq is None:
-                    hit = self._pool_consumer(i)
+                    hit = _pool_consumer(spec, convs, i)
                     if hit is not None:
                         xq, xq_for = convs[hit].quantize(x), hit
                 pool = (lambda a: L.max_pool(a, lspec.size, lspec.stride)) \

@@ -22,7 +22,8 @@ captures (a wrapper runs while a graph records it, not when it replays).
 The device-resident data paths (plain PyTorch ops: the frame bank, the
 augment, the eval bank, the scene synth) hold the card's batches to the
 CPU's bits.  The int8 conv equals its plain twin bit for bit (integer sums
-are exact), and so does the int8 serve built on each.
+are exact), in int32 mode and with its epilogue (the twin's plain ops round
+where the kernel does), and so does the int8 serve built on each.
 """
 
 import json
@@ -938,15 +939,15 @@ def _int8_case(dev, B, H, W, C, N, k, offset, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,W,C,N,k,stride,pad,offset,vec", [
-    (2, 9, 7, 3, 32, 3, 1, 1, 0, 1),        # C_in = 3: the byte copies
-    (8, 42, 42, 3, 32, 3, 1, 1, 0, 1),
+    (2, 9, 7, 4, 32, 3, 1, 1, 0, 4),        # C_in 3 padded to 4: 4 bytes
+    (8, 42, 42, 4, 32, 3, 1, 1, 0, 4),
     (1, 21, 21, 512, 1024, 3, 1, 1, 0, 16),
     (2, 42, 42, 512, 64, 1, 1, 0, 0, 16),   # 1x1, N below the block's 64
     (1, 10, 10, 1280, 1024, 3, 1, 1, 0, 16),
     (2, 8, 8, 32, 64, 3, 2, 1, 0, 16),      # stride 2
     (3, 17, 13, 36, 96, 3, 1, 1, 0, 4),     # the 4-byte copies
     (2, 11, 9, 64, 64, 3, 1, 1, 4, 4),      # misaligned by 4 bytes
-    (2, 11, 9, 64, 64, 3, 1, 1, 1, 1),      # misaligned by 1 byte
+    (2, 11, 9, 64, 64, 3, 1, 1, 8, 4),      # misaligned by 8 bytes
     (1, 5, 6, 16, 7, 3, 1, 1, 0, 16)])      # an odd C_out: scalar stores
 def test_int8_conv_kernel_matches_twin(dev, B, H, W, C, N, k, stride, pad,
                                        offset, vec):
@@ -970,6 +971,65 @@ def test_int8_conv_kernel_rejects_what_it_cannot_take(dev):
         int8_conv.int8_conv(x, wk, 1, 1, 0)
     with pytest.raises(ValueError, match="is on"):
         int8_conv.int8_conv(x, wk.cpu(), 3, 1, 1)
+    # no byte-by-byte copies: C_in 3, or an input 1 byte off alignment
+    x3, wk3 = _int8_case(dev, 1, 8, 8, 3, 32, 3, 0, seed=2)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        int8_conv.int8_conv(x3, wk3, 3, 1, 1)
+    x1, wk1 = _int8_case(dev, 1, 8, 8, 32, 64, 3, 1, seed=3)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        int8_conv.int8_conv(x1, wk1, 3, 1, 1)
+
+
+def _outputs_equal(got, want):
+    """(value, int8) pairs equal bit for bit (a float's bits as integers)."""
+    def bits(t):
+        width = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+        return t.view(width[t.dtype]) if t.dtype in width else t
+    return all((a is None) == (b is None) and (a is None or (
+        a.dtype == b.dtype and torch.equal(bits(a), bits(b))))
+        for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,N,k,stride,pad,offset", [
+    (2, 37, 23, 4, 32, 3, 1, 1, 0),          # the first conv, padded C_in
+    (2, 20, 20, 64, 200, 3, 1, 1, 0),        # several N tiles, a ragged one
+    (1, 10, 10, 1280, 1024, 3, 1, 1, 0),     # deep K
+    (2, 11, 9, 64, 64, 3, 1, 1, 4),          # misaligned: 4-byte copies
+    (1, 9, 7, 16, 7, 1, 1, 0, 0)])           # an odd C_out
+@pytest.mark.parametrize("writes", ["int8", "compute", "both"])
+def test_int8_conv_fused_epilogue_matches_twin(dev, B, H, W, C, N, k, stride,
+                                               pad, offset, writes):
+    """The epilogue in the kernel — the exact FMA, the compute dtype, leaky
+    and the next conv's quantizer — equals the twin's plain ops bit for bit
+    in bf16 and f32, per-channel and scalar quantizers, both forms."""
+    x, wk = _int8_case(dev, B, H, W, C, N, k, offset, seed=B * W + C)
+    y = int8_conv.int8_conv_reference(x, wk, k, stride, pad)
+    g = torch.Generator(device=dev).manual_seed(N)
+    sd = float(y.float().std()) + 1.0
+    before = (int8_conv.int8_conv.launches,
+              int8_conv.int8_conv.fused_launches)
+    n_cases = 0
+    for dtype in (torch.bfloat16, None):
+        for per_channel in (True, False):
+            for divide in (True, False):
+                q = torch.rand(N if per_channel else 1, generator=g,
+                               device=dev) * 40 + 10
+                ep = int8_conv.Epilogue(
+                    torch.rand(N, generator=g, device=dev) * 2 / sd,
+                    torch.randn(N, generator=g, device=dev) * 0.5,
+                    dtype=dtype,
+                    quant=None if writes == "compute" else
+                    (1 / q if divide else q),
+                    divide=divide, value=writes != "int8")
+                got = int8_conv.int8_conv(x, wk, k, stride, pad, epilogue=ep)
+                want = int8_conv.int8_conv_reference(x, wk, k, stride, pad,
+                                                     epilogue=ep)
+                torch.cuda.synchronize()
+                assert _outputs_equal(got, want), (dtype, per_channel, divide)
+                n_cases += 1
+    assert (int8_conv.int8_conv.launches - before[0],
+            int8_conv.int8_conv.fused_launches - before[1]) == (n_cases,) * 2
 
 
 def _tiny_int8(dev):
@@ -990,11 +1050,13 @@ def test_int8_serve_runs_the_kernel_and_equals_the_twin(dev):
     u8 = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
                        generator=torch.Generator().manual_seed(12))
     serve = make_serving_fn(spec, qp, pick=("best",))
-    before = int8_conv.int8_conv.launches
+    before = (int8_conv.int8_conv.launches,
+              int8_conv.int8_conv.fused_launches)
     got = serve(u8)
     torch.cuda.synchronize()
     n_q = sum("wq" in v for v in qp.values())
-    assert int8_conv.int8_conv.launches - before == n_q == 7
+    assert int8_conv.int8_conv.launches - before[0] == n_q == 7
+    assert int8_conv.int8_conv.fused_launches - before[1] == n_q
     with mock.patch.object(quantize, "int8_conv",
                            int8_conv.int8_conv_reference):
         twin = make_serving_fn(spec, qp, pick=("best",))(u8)
