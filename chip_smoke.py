@@ -120,13 +120,28 @@ phases; any failure propagates and the exit code is nonzero:
      the bf16 serve's at its picked cells; int8 and bf16 serves timed in
      turns; ``cli quantize`` on a rendered held-out split, its ``.npz`` =
      the in-memory pytree (tensors and boxes), and
-     ``run_validation(quantize=the .npz / True)`` on the card.
+     ``run_validation(quantize=the .npz / True)`` on the card;
+ 17. export: ``export_serving`` → ``save_exported`` → ``load_serving``
+     (``torch.export``; the kernels are the custom ops
+     ``ssp::stem_conv_pool_infer`` and ``ssp::int8_conv``):
+     ``yolo_pose_single`` bf16 at 672², symbolic batch, best box, exported
+     on the card and, the same weights, on the CPU and loaded with
+     ``device="cuda"``; ``cli export --quantized`` on phase 16's ``.npz``;
+     the multi per-class serve at 416², symbolic batch.  Every loaded
+     artifact's boxes at batch 8 and 1 (multi: 16) equal the eager serve's
+     bit for bit, the CPU export's the card export's, K1 launched once a
+     bf16 call and the int8 conv 22 times a call, all fused; the same in a
+     fresh subprocess with jax and the JAX package blocked; the bf16
+     artifact behind a ``MicroBatcher`` of one bucket of 16 = one direct
+     call bit for bit; export s, MB, load s, and ms a call against the
+     eager serve in turns.
 
 Phases 4–5 and 9 are the serving paths and phase 7's fused steps and phase
 10 the training paths: each kernel's launch count is set to 0 just before
 its path and read just after; so are phase 14's eager steps fed from the
 bank (K2–K6) and its two evals (K1), and phase 15's eager steps fed from
-the synth (K2–K6), and phase 16's int8 serves and evals (the int8
+the synth (K2–K6), phase 16's int8 serves and evals (the int8
+conv), and phase 17's calls of the loaded artifacts (K1, the int8
 conv).  On the captured paths (11–13) a kernel's
 wrapper runs only while a graph records it, so what is counted there is
 captures: the graphs that recorded it (and their replays, each of which
@@ -3093,13 +3108,14 @@ def phase_int8_serve(spec, folded, multi, multi_folded, dev, card: str):
     return out
 
 
-def phase_int8_cli(spec, model, dev, card: str) -> int:
+def phase_int8_cli(spec, model, dev, card: str, keep: str) -> int:
     """``cli quantize`` on a held-out split rendered in memory, its ``.npz``
     re-loaded: the same tensors and the same boxes as the pytree built in
     memory from the same calibration batch; ``run_validation`` with
     ``quantize=`` that path and ``quantize=True`` (per-channel scales from
-    the first batch) on the card.  Returns the int8 conv's launches in the
-    two evals."""
+    the first batch) on the card.  The ``.npz`` is copied into the
+    directory ``keep`` (for phase 17).  Returns the int8 conv's launches in
+    the two evals."""
     from singleshotpose_tpu_torch.cli import main as cli_main
     from singleshotpose_tpu_torch.models import quantize as Q
     t0 = time.perf_counter()
@@ -3113,6 +3129,7 @@ def phase_int8_cli(spec, model, dev, card: str) -> int:
                              "yolo-pose", "--weightfile", wfile, "--out",
                              qfile, "--calib_images", str(INT8_CALIB),
                              "--device", "cuda"]) == 0, "cli quantize failed")
+            shutil.copy(qfile, keep)
             from singleshotpose_tpu_torch.config import (
                 data_config_from_options, read_data_cfg)
             ds = PoseDataset(data_config_from_options(
@@ -3201,6 +3218,259 @@ def phase_profile_int8(spec, folded, dev, card: str, out_dir: str) -> None:
 
 
 
+# phase 17: the serving artifacts the fresh subprocess loads, with their
+# inputs and the eager serve's boxes on each, as .npy files beside them
+_EXPORT_CHILD = r"""
+import json, sys, time
+sys.modules["jax"] = None                   # `import jax` raises
+sys.modules["singleshotpose_tpu"] = None    # and so does the JAX package
+import numpy as np, torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from singleshotpose_tpu_torch.ops import int8_conv, stem
+from singleshotpose_tpu_torch.serving import load_serving
+root, cases = sys.argv[1], json.loads(sys.argv[2])
+out = {}
+for name, batches in cases.items():
+    t = time.perf_counter()
+    serve = load_serving(f"{root}/{name}.pt2")
+    out[name] = {"load_s": time.perf_counter() - t, "calls": []}
+    for b in batches:
+        x = np.load(f"{root}/{name}_x{b}.npy")
+        want = np.load(f"{root}/{name}_want{b}.npy")
+        stem.stem_conv_pool_infer.launches = 0
+        int8_conv.int8_conv.launches = int8_conv.int8_conv.fused_launches = 0
+        got = serve(x).cpu().numpy()
+        torch.cuda.synchronize()
+        out[name]["calls"].append({
+            "batch": b, "same": got.shape == want.shape and bool(
+                np.array_equal(got.view(np.uint32), want.view(np.uint32))),
+            "k1": stem.stem_conv_pool_infer.launches,
+            "int8": int8_conv.int8_conv.launches,
+            "fused": int8_conv.int8_conv.fused_launches})
+used = sorted(m for m in sys.modules if m.split(".")[0] in
+              ("jax", "singleshotpose_tpu") and sys.modules[m] is not None)
+print("EXPORT_CHILD " + json.dumps({"cases": out, "jax_modules": used}))
+"""
+# the batches each artifact serves: the single-object ones at the serve's
+# batch and at 1, the multi per-class one at its serve batch
+EXPORT_BATCHES = (MODEL_BATCH, 1)
+
+
+def _export_counts():
+    return (stem.stem_conv_pool_infer.launches, int8_conv.int8_conv.launches,
+            int8_conv.int8_conv.fused_launches)
+
+
+def _zero_counts():
+    stem.stem_conv_pool_infer.launches = 0
+    int8_conv.int8_conv.launches = int8_conv.int8_conv.fused_launches = 0
+
+
+def phase_export(spec, folded, multi, multi_folded, qfile: str, dev,
+                 card: str) -> dict:
+    """``export_serving`` → ``save_exported`` → ``load_serving`` on the
+    card: ``yolo_pose_single`` bf16 at 672², batch-polymorphic, ``("best",)``
+    (phase 4's weights); the same model exported on the CPU and loaded with
+    ``device="cuda"``; ``cli export --quantized`` on phase 16's ``cli
+    quantize`` ``.npz``; the multi per-class serve at batch 16, 416², with a
+    symbolic batch.  Each loaded artifact's boxes equal the eager
+    ``make_serving_fn``'s on the same batch bit for bit (cuDNN picks its
+    convs by batch size: equal batches are compared), K1 launched once a
+    bf16 call and the int8 conv 22 times a call, all fused; the same in a
+    fresh subprocess with jax and the JAX package blocked; the bf16 artifact
+    behind a ``MicroBatcher`` of one bucket of 16, 16 frames from 4 client
+    threads, each answer equal to one direct batch-16 call bit for bit.
+    Export s, saved MB and load s on the host clock; the artifacts' ms per
+    call against the eager serves', in turns, CUDA events.  Returns the
+    kernels' launches in the in-process artifact calls (K1, the int8 conv)
+    and the numbers."""
+    from singleshotpose_tpu_torch.cli import main as cli_main
+    from singleshotpose_tpu_torch.models import quantize as Q
+    from singleshotpose_tpu_torch.serving import (export_serving,
+                                                  load_serving, save_exported)
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ssp_export_")
+    nums = {}
+    try:
+        gen = torch.Generator().manual_seed(170)
+        frames = torch.randint(0, 256, (MODEL_BATCH, SIZE, SIZE, 3),
+                               generator=gen, dtype=torch.uint8)
+        x = {b: frames[:b].clone() for b in EXPORT_BATCHES}
+        mx = torch.randint(0, 256, (MULTI_SERVE_BATCH, MULTI_SIZE, MULTI_SIZE,
+                                    3), generator=gen, dtype=torch.uint8)
+        pick_m = ("per_class", multi.net.conf_thresh)
+
+        def timed_export(name, fn):
+            t = time.perf_counter()
+            exported = fn()
+            nums[f"{name}_export_s"] = time.perf_counter() - t
+            path = f"{root}/{name}.pt2"
+            save_exported(path, exported)
+            nums[f"{name}_mb"] = os.path.getsize(path) / 1e6
+            return path
+
+        timed_export("bf16", lambda: export_serving(
+            spec, folded, width=SIZE, height=SIZE))
+        folded_cpu = {k: {f: v.cpu() for f, v in d.items()}
+                      for k, d in folded.items()}
+        timed_export("bf16_cpu", lambda: export_serving(
+            spec, folded_cpu, width=SIZE, height=SIZE))
+        del folded_cpu
+        t = time.perf_counter()
+        _check(cli_main(["export", "--modelcfg", "yolo-pose", "--quantized",
+                         qfile, "--out", f"{root}/int8.pt2", "--width",
+                         str(SIZE), "--height", str(SIZE), "--device",
+                         str(dev)]) == 0, "cli export --quantized failed")
+        nums["int8_export_s"] = time.perf_counter() - t
+        nums["int8_mb"] = os.path.getsize(f"{root}/int8.pt2") / 1e6
+        timed_export("multi", lambda: export_serving(
+            multi, multi_folded, width=MULTI_SIZE, height=MULTI_SIZE,
+            pick=pick_m))
+
+        loaded = {}
+        # the card by default; the CPU export moved to the card by name
+        for name, kw in (("bf16", {}), ("bf16_cpu", {"device": dev}),
+                         ("int8", {}), ("multi", {})):
+            t = time.perf_counter()
+            loaded[name] = load_serving(f"{root}/{name}.pt2", **kw)
+            torch.cuda.synchronize()
+            nums[f"{name}_load_s"] = time.perf_counter() - t
+        q = Q.load_quantized(qfile, device=dev)
+        n_q = sum("wq" in v for v in q.values())
+        eager = {"bf16": make_serving_fn(spec, folded, pick=("best",)),
+                 "int8": make_serving_fn(spec, q, pick=("best",)),
+                 "multi": make_serving_fn(multi, multi_folded, pick=pick_m)}
+        eager["bf16_cpu"] = eager["bf16"]
+        inputs = {"bf16": x, "bf16_cpu": x, "int8": x,
+                  "multi": {MULTI_SERVE_BATCH: mx}}
+        # (K1, int8 conv) launches a call
+        per_call = {"bf16": (1, 0), "bf16_cpu": (1, 0), "int8": (0, n_q),
+                    "multi": (1, 0)}
+
+        # the main path: every launch counted from here came from the
+        # loaded artifacts
+        _zero_counts()
+        got, calls = {}, 0
+        for name, fn in loaded.items():
+            for b, xb in inputs[name].items():
+                before = _export_counts()
+                got[(name, b)] = fn(xb)
+                torch.cuda.synchronize()
+                k1, n8, f8 = (a - c for a, c in zip(_export_counts(), before))
+                _check((k1, n8) == per_call[name] and f8 == n8,
+                       f"the {name} artifact at batch {b} launched K1 {k1} "
+                       f"times and the int8 conv {n8} ({f8} fused), not "
+                       f"{per_call[name]}")
+                calls += 1
+        launches = _export_counts()
+        same = {}
+        for (name, b), out in got.items():
+            want = eager[name](inputs[name][b])
+            same[(name, b)] = _same_bits(out, want)
+            np.save(f"{root}/{name}_x{b}.npy", inputs[name][b].numpy())
+            np.save(f"{root}/{name}_want{b}.npy", want.cpu().numpy())
+        cross = all(_same_bits(got[("bf16_cpu", b)], got[("bf16", b)])
+                    for b in EXPORT_BATCHES)
+        _check(all(same.values()), "artifacts differ from the eager serve: " +
+               ", ".join(f"{k}" for k, v in same.items() if not v))
+        _check(cross, "the CPU-exported artifact differs on the card from the "
+                      "card-exported one")
+
+        # the same three artifacts in a fresh process without jax
+        cases = {"bf16": list(EXPORT_BATCHES), "int8": list(EXPORT_BATCHES),
+                 "multi": [MULTI_SERVE_BATCH]}
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _EXPORT_CHILD, root, json.dumps(cases)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                os.path.abspath(__file__))),
+            capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t
+        _check(proc.returncode == 0, f"the export subprocess failed: "
+                                     f"{proc.stderr[-3000:]}")
+        child = json.loads(next(
+            line for line in proc.stdout.splitlines()
+            if line.startswith("EXPORT_CHILD "))[len("EXPORT_CHILD "):])
+        _check(not child["jax_modules"], f"the subprocess imported "
+                                         f"{child['jax_modules']}")
+        for name, res in child["cases"].items():
+            for c in res["calls"]:
+                _check(c["same"], f"the subprocess's {name} artifact at batch "
+                                  f"{c['batch']} differs from the eager serve")
+                _check((c["k1"], c["int8"]) == per_call[name] and
+                       c["fused"] == c["int8"],
+                       f"the subprocess's {name} artifact at batch "
+                       f"{c['batch']}: K1 {c['k1']}, int8 conv {c['int8']} "
+                       f"({c['fused']} fused), not {per_call[name]}")
+
+        # 16 frames from 4 clients through one bucket of 16
+        mb_frames = torch.randint(0, 256, (N_FRAMES, SIZE, SIZE, 3),
+                                  generator=gen, dtype=torch.uint8).numpy()
+        direct = loaded["bf16"](mb_frames).cpu()
+        answers = [None] * N_FRAMES
+        with MicroBatcher(loaded["bf16"], height=SIZE, width=SIZE,
+                          buckets=(N_FRAMES,)) as mb:
+            def client(k):
+                for i in range(k, N_FRAMES, N_CLIENTS):
+                    answers[i] = mb.infer(mb_frames[i], timeout=300)
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(N_CLIENTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            _check(not any(th.is_alive() for th in threads),
+                   "client threads hung")
+        batched = _same_bits(torch.stack(answers), direct)
+        _check(batched, "the MicroBatcher's answers from the artifact differ "
+                        "from one direct batch-16 call")
+
+        turns = {}
+        for name in ("bf16", "int8"):
+            for b in EXPORT_BATCHES:
+                xb = x[b].to(dev)
+                fns = {"eager": eager[name], "artifact": loaded[name]}
+                for which in ("eager", "artifact", "artifact", "eager"):
+                    turns.setdefault((name, b, which), []).append(
+                        _time_spread(functools.partial(fns[which], xb)))
+        nums["turns"] = {f"{n} b{b} {w}": v for (n, b, w), v in turns.items()}
+
+        print(f"[export] yolo_pose_single bf16 {SIZE}², symbolic batch, "
+              f"best: export {nums['bf16_export_s']:.2f} s, "
+              f"{nums['bf16_mb']:.1f} MB, load {nums['bf16_load_s']:.2f} s; "
+              f"exported on the CPU ({nums['bf16_cpu_export_s']:.2f} s, "
+              f"{nums['bf16_cpu_mb']:.1f} MB) and loaded with device=cuda "
+              f"({nums['bf16_cpu_load_s']:.2f} s): boxes = the card export's "
+              f"bit for bit at batch {EXPORT_BATCHES}: {cross}; cli export "
+              f"--quantized: {nums['int8_export_s']:.2f} s, "
+              f"{nums['int8_mb']:.1f} MB, load {nums['int8_load_s']:.2f} s; "
+              f"multi per-class {MULTI_SIZE}²: export "
+              f"{nums['multi_export_s']:.2f} s, {nums['multi_mb']:.1f} MB, "
+              f"load {nums['multi_load_s']:.2f} s [{card}]")
+        print(f"[export] {calls} artifact calls = the eager serves bit for "
+              f"bit; K1 launched {launches[0]} times (once a bf16 call), the "
+              f"int8 conv {launches[1]} ({launches[2]} fused; {n_q} a "
+              f"call); a "
+              f"fresh process with jax blocked ({child_s:.1f} s) loaded "
+              f"bf16 / int8 / multi in " + " / ".join(
+                  f"{child['cases'][n]['load_s']:.2f}" for n in cases)
+              + " s, every call = the eager serve bit for bit with the same "
+              f"launches; a MicroBatcher of one bucket of {N_FRAMES} over the "
+              f"bf16 artifact, {N_CLIENTS} clients x {N_FRAMES} frames = one "
+              f"direct batch-{N_FRAMES} call bit for bit: {batched}")
+        for (name, b, which), v in turns.items():
+            print(f"[export] {name} {SIZE}² batch {b} {which}: CUDA events, "
+                  f"median (min-max) of {INT8_TIMED} per turn: " + ", ".join(
+                      f"{m:.4f} ({lo:.4f}-{hi:.4f})" for m, lo, hi in v)
+                  + f" ms [{card}]")
+        print(f"[export] phase {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"k1": launches[0], "int8": launches[1], "numbers": nums}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
                                  "on one NVIDIA card.")
@@ -3280,7 +3550,16 @@ def main(argv=None) -> int:
     int8_numbers = phase_int8_kernel(spec, multi, dev, card)
     int8_counts = phase_int8_serve(spec, folded, multi, multi_folded, dev,
                                    card)
-    int8_eval = phase_int8_cli(spec, model, dev, card)
+    keep = tempfile.mkdtemp(prefix="ssp_q_")
+    try:
+        int8_eval = phase_int8_cli(spec, model, dev, card, keep)
+        _free()
+        # the serving artifacts: every K1 and int8 conv launch counted from
+        # 0 over the loaded artifacts' calls
+        export = phase_export(spec, folded, multi, multi_folded,
+                              f"{keep}/q.npz", dev, card)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     _free()
     if args.profile:
         phase_profile(spec, folded, dev, card, args.profile)
@@ -3320,6 +3599,7 @@ def main(argv=None) -> int:
         "replaces": "singleshotpose_tpu/ops/stem.py:545",
         "launches": launches, "launches_multi": multi_launches[0],
         "launches_eval_bank": device_data["k1_launches"],
+        "launches_export": export["k1"],
         **k1_captured, **stem_numbers, "library_ms": None}, {
         "name": "max_corner_confidence", "route": "cuda",
         "source": "singleshotpose_tpu_torch/csrc/max_corner_confidence.cu",
@@ -3346,11 +3626,13 @@ def main(argv=None) -> int:
     # matrices; serves: the same sums at batch 1 and for the multi serve;
     # launches in the eager int8 serves (batch 8 and 1; the multi serve),
     # every one fused, launches_eval in phase 16's two evals,
-    # captures/replays in the int8 serve graphs
+    # captures/replays in the int8 serve graphs; launches_export (here and
+    # K1's) in phase 17's calls of the loaded serving artifacts
     kernels.append({
         "name": "int8_conv", "route": "cuda",
         "source": "singleshotpose_tpu_torch/csrc/int8_conv.cu",
         "replaces": None, **int8_counts, "launches_eval": int8_eval,
+        "launches_export": export["int8"],
         **int8_numbers})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

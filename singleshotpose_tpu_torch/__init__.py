@@ -19,11 +19,15 @@ modules it needs (``config``, ``utils``, ``data.pipeline``, ``data.augment``,
 
 ``aot_serving`` is the serving function captured for one static shape (a
 CUDA graph on the card), the deployment shape behind a ``MicroBatcher``'s
-``{bucket: fn}``.
+``{bucket: fn}``.  ``export_serving`` / ``save_exported`` / ``load_serving``
+make it one self-contained ``torch.export`` artifact (weights baked in, a
+symbolic batch, the kernels as ``torch.library`` custom ops), which loads
+with torch and this package's ops and no model code.
 """
 
 __version__ = "0.1.0"
 
-from .serving import aot_serving  # noqa: E402
+from .serving import (aot_serving, export_serving, load_serving,  # noqa: E402
+                      save_exported)
 
-__all__ = ["aot_serving"]
+__all__ = ["aot_serving", "export_serving", "save_exported", "load_serving"]

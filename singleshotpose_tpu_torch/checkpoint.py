@@ -25,7 +25,7 @@ import torch
 
 from .training import TrainState
 
-__all__ = ["Checkpointer"]
+__all__ = ["Checkpointer", "latest_step"]
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 
@@ -42,12 +42,10 @@ class Checkpointer:
 
     def steps(self) -> List[int]:
         """The steps saved, oldest first."""
-        found = (_NAME.match(f) for f in os.listdir(self.directory))
-        return sorted(int(m.group(1)) for m in found if m)
+        return _steps(self.directory)
 
     def latest_step(self) -> Optional[int]:
-        steps = self.steps()
-        return steps[-1] if steps else None
+        return latest_step(self.directory)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"{step}.pt")
@@ -85,3 +83,18 @@ class Checkpointer:
         state.optimizer.load_state_dict(payload["optimizer"])
         state.seen = int(payload["seen"])
         return int(payload["step"])
+
+
+def _steps(directory: str) -> List[int]:
+    found = (_NAME.match(f) for f in os.listdir(directory))
+    return sorted(int(m.group(1)) for m in found if m)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    """Latest checkpoint step under ``directory`` (None if none exist, or
+    no such directory), as ``singleshotpose_tpu/checkpoint.py:
+    latest_step``."""
+    if not os.path.isdir(directory):
+        return None
+    steps = _steps(directory)
+    return steps[-1] if steps else None

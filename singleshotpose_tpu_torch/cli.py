@@ -22,12 +22,21 @@
   python -m singleshotpose_tpu_torch.cli quantize --datacfg D.data
          --modelcfg M --weightfile W.weights --out Q.npz [--calib_images 32]
          [--act_scales per_channel|scalar] [--device cuda]
+  python -m singleshotpose_tpu_torch.cli export --modelcfg M
+         (--weightfile W.weights | --quantized Q.npz | --checkpoint_dir DIR
+         [--step N]) --out A.pt2 [--width 544] [--height 544] [--batch N]
+         [--pick grid|best|per_class|for_class] [--conf_thresh 0.1]
+         [--cls 0] [--compute bfloat16|float32] [--float_input]
+         [--device cuda]
 
 Flags follow ``singleshotpose_tpu/cli.py`` (``train``, ``valid``,
-``train-multi``, ``valid-multi``, ``quantize``; the ``.npz`` of
+``train-multi``, ``valid-multi``, ``quantize``, ``export``; the ``.npz`` of
 ``quantize`` is the JAX package's format, so either package serves the
 other's), with ``--checkpoint_dir`` in place of
-``--orbax_dir``; ``--modelcfg`` also takes
+``--orbax_dir``.  ``export`` has ``--device`` in place of ``--platforms``:
+the artifact (``torch.export``) is traced on that device, and
+``serving.load_serving(path, device=)`` runs it on any device (the card by
+default), its kernels' ops dispatching by device.  ``--modelcfg`` also takes
 the zoo names ``yolo-pose``, ``yolo-pose-multi``, ``yolo-pose-pre``.  The
 default device is ``cuda``: without a CUDA device a command fails rather
 than run on the CPU; ``--device cpu`` asks for the CPU explicitly.
@@ -313,9 +322,101 @@ def cmd_quantize(argv: Sequence[str]) -> int:
     return 0
 
 
+def _parse_pick(pick: str, conf_thresh: float, cls: int):
+    """``--pick`` and its thresholds → a ``serving.Pick``."""
+    return {"grid": None, "best": ("best",),
+            "per_class": ("per_class", conf_thresh),
+            "for_class": ("for_class", cls, conf_thresh)}[pick]
+
+
+def cmd_export(argv: Sequence[str]) -> int:
+    """Freeze a trained net — darknet weights, an int8 ``.npz`` or a
+    checkpoint — into one serving artifact
+    (``singleshotpose_tpu/serving.py:373-441``).  ``--checkpoint_dir`` takes
+    the place of ``--orbax_dir``, and ``--device`` that of ``--platforms``:
+    the artifact is traced on that device, and ``serving.load_serving`` can
+    move it to another."""
+    p = argparse.ArgumentParser(
+        prog="singleshotpose_tpu_torch.cli export",
+        description="freeze a trained net into a torch.export serving "
+                    "artifact (weights baked in; loads with torch and this "
+                    "package's ops)")
+    p.add_argument("--modelcfg", type=str, default="cfg/yolo-pose.cfg")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--weightfile", type=str,
+                     help="darknet .weights (BN folded at export)")
+    src.add_argument("--quantized", type=str,
+                     help="int8 .npz from `quantize` (either package's; "
+                          "int8 serving)")
+    src.add_argument("--checkpoint_dir", type=str,
+                     help="export from a full-state checkpoint (training → "
+                          "serving with no .weights detour)")
+    p.add_argument("--step", type=int, default=None,
+                   help="checkpoint step (default: latest)")
+    p.add_argument("--out", type=str, required=True)
+    p.add_argument("--width", type=int, default=544)
+    p.add_argument("--height", type=int, default=544)
+    p.add_argument("--batch", type=int, default=None,
+                   help="fixed batch (default: batch-polymorphic export)")
+    p.add_argument("--pick", type=str, default="best",
+                   choices=["grid", "best", "per_class", "for_class"])
+    p.add_argument("--conf_thresh", type=float, default=0.1)
+    p.add_argument("--cls", type=int, default=0,
+                   help="class id for --pick for_class")
+    p.add_argument("--compute", type=str, default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--float_input", action="store_true",
+                   help="take float [0,1] inputs instead of uint8")
+    p.add_argument("--device", type=str, default="cuda")
+    args = p.parse_args(argv)
+    _require_file(args.weightfile, "weight file")
+    _require_file(args.quantized, "quantized artifact")
+    _require_device(args.device)
+
+    import torch
+    from .models.darknet import Darknet, fold_batchnorm
+    from .serving import export_serving, save_exported
+    from .zoo import _resolve_model
+    spec = _resolve_model(args.modelcfg)
+    if args.quantized:
+        from .models.quantize import load_quantized
+        params = load_quantized(args.quantized, device=args.device)
+    else:
+        model = Darknet(spec, device=args.device)
+        if args.checkpoint_dir:
+            from .checkpoint import Checkpointer, latest_step
+            from .training import init_train_state
+            if latest_step(args.checkpoint_dir) is None:
+                raise SystemExit(f"error: no checkpoints under "
+                                 f"{args.checkpoint_dir}")
+            state = init_train_state(model, weight_decay=0.0, momentum=0.0)
+            step = Checkpointer(args.checkpoint_dir).restore(state, args.step)
+            print(f"exporting checkpoint step {step} from "
+                  f"{args.checkpoint_dir}")
+        else:
+            from . import weights as W
+            model.load_state_dict(W.load_weights(spec, args.weightfile)[1])
+        params = fold_batchnorm(model)
+
+    exported = export_serving(
+        spec, params, width=args.width, height=args.height, batch=args.batch,
+        pick=_parse_pick(args.pick, args.conf_thresh, args.cls),
+        compute_dtype=torch.bfloat16 if args.compute == "bfloat16"
+        else None,
+        input_dtype=torch.float32 if args.float_input else torch.uint8)
+    save_exported(args.out, exported)
+    size_mb = os.path.getsize(args.out) / 1e6
+    kind = "int8" if args.quantized else "bf16-folded"
+    bstr = "poly" if args.batch is None else str(args.batch)
+    print(f"exported {kind} serving fn ({args.width}x{args.height}, "
+          f"batch={bstr}, pick={args.pick}, device={args.device}) -> "
+          f"{args.out} ({size_mb:.1f} MB)")
+    return 0
+
+
 COMMANDS = {"train": cmd_train, "valid": cmd_valid,
             "train-multi": cmd_train_multi, "valid-multi": cmd_valid_multi,
-            "quantize": cmd_quantize}
+            "quantize": cmd_quantize, "export": cmd_export}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

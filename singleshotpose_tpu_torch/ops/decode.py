@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree
 
 __all__ = ["DecodedGrid", "split_activate", "decode_grid", "best_boxes",
            "best_box_for_class", "best_boxes_per_class",
@@ -63,6 +64,13 @@ class DecodedGrid(NamedTuple):
     corners: torch.Tensor    # (B, S, 2K) normalized to [0, 1] grid fractions
     det_conf: torch.Tensor   # (B, S) sigmoid objectness
     cls_probs: torch.Tensor  # (B, S, C) softmax class distribution
+
+
+# a serving artifact of the grid pick returns a DecodedGrid: its tree spec is
+# saved by this name (``serving.save_exported``)
+_pytree._register_namedtuple(
+    DecodedGrid,
+    serialized_type_name="singleshotpose_tpu_torch.ops.decode.DecodedGrid")
 
 
 def decode_grid(output: torch.Tensor, num_keypoints: int, num_classes: int,
@@ -110,8 +118,12 @@ def best_boxes(decoded: DecodedGrid, only_objectness: bool = True) -> torch.Tens
     ], dim=-1)
 
 
-# booleans of one (B, classes, S, S) comparison block of the fallback fold
-_FOLD_BLOCK = 1 << 26
+# booleans of one image's (classes, S, S) comparison block of the fallback
+# fold: a block of classes set by S alone, so that an export with a symbolic
+# batch has no guard on it (5 classes at 416², where a (B, 5, S, S) block at
+# the multi serve's batch 16 is the 57 MB it was when the block was cut from
+# B·S² booleans)
+_FOLD_BLOCK = 1 << 22
 
 
 def _first_true(mask: torch.Tensor):
@@ -132,12 +144,13 @@ def _fallback_fold(det_conf: torch.Tensor, probs: torch.Tensor):
     next is the first ``j > i`` with ``d_j > d_i`` and ``p_j > p_i`` (or
     none).  ``nxt`` maps each cell to that successor (itself where there is
     none); ⌈log2 S⌉ squarings ``nxt = nxt[nxt]`` take every cell to the end
-    of its chain.  The (S, S) comparisons run in blocks of classes.
+    of its chain.  The (S, S) comparisons run in blocks of classes, the same
+    for every batch size.
 
     Returns (idx (B, N) int64, det (B, N), prob (B, N)): the last adopted
     cell and its two values; (0, −inf, −inf) where no cell is adopted.
     """
-    B, N, S = probs.shape
+    _, N, S = probs.shape
     ar = torch.arange(S, device=det_conf.device)
     # [b, i, j]: j comes after i and beats it in det_conf
     d_beats = (det_conf[:, None, :] > det_conf[:, :, None]) & \
@@ -146,7 +159,7 @@ def _fallback_fold(det_conf: torch.Tensor, probs: torch.Tensor):
     live = (det_conf > float("-inf"))[:, None, :] & (probs > float("-inf"))
     adopted, start = _first_true(live)                            # (B, N)
     ends = []
-    block = max(1, _FOLD_BLOCK // max(B * S * S, 1))
+    block = max(1, _FOLD_BLOCK // max(S * S, 1))
     for n0 in range(0, N, block):
         p = probs[:, n0:n0 + block]                               # (B, n, S)
         beats = d_beats[:, None] & (p[:, :, None, :] > p[:, :, :, None])

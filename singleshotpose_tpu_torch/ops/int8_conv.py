@@ -27,7 +27,11 @@ copies 4 bytes at a time; zeros add nothing to integer sums.
 twin :func:`int8_conv_reference` (``F.unfold`` of the int8 values carried in
 a float type, ``torch._int_mm``, then :func:`epilogue_reference`, the same
 ops as the unfused chain).  Integer sums are exact and the epilogue rounds
-where the twin does, so the two agree bit for bit.
+where the twin does, so the two agree bit for bit.  Both sit behind the
+``torch.library`` custom op ``ssp::int8_conv`` (registered when this module
+is imported; the kernel is built at its first launch), whose fake
+implementation gives a ``torch.export`` of the int8 serve its shapes
+without tracing into the conv (``serving.export_serving``).
 """
 
 from __future__ import annotations
@@ -266,7 +270,8 @@ def _vector(t: torch.Tensor, n: int, name: str) -> torch.Tensor:
 def int8_conv(x: torch.Tensor, wk: torch.Tensor, ksize: int, stride: int = 1,
               pad: int = 0, epilogue: Optional[Epilogue] = None,
               tile: Optional[Tuple[int, int]] = None):
-    """int8 conv with int32 sums, or with ``epilogue`` its outputs.
+    """int8 conv with int32 sums, or with ``epilogue`` its outputs: the
+    custom op ``ssp::int8_conv``.
 
     Args:
       x: (B, H, W, C_in) int8 NHWC; on a card C_in and the address a
@@ -282,11 +287,76 @@ def int8_conv(x: torch.Tensor, wk: torch.Tensor, ksize: int, stride: int = 1,
     (None without ``epilogue.quant``), NHWC.  A CPU tensor takes
     :func:`int8_conv_reference`; a CUDA tensor launches the kernel on the
     current stream (counted in ``int8_conv.launches``) or raises.
+
+    The op's schema cannot carry an :class:`Epilogue` or a ``None``
+    output: the epilogue crosses it flattened (:func:`_flatten`) and the op
+    returns a list of the outputs asked for, which this function maps back
+    (:func:`_unflatten_outputs`).  A plain tensor outside a trace calls the
+    op's kernel for its device directly: the dispatcher's call back into
+    Python costs ~10–20 µs, 22 times an int8 serve (PERF.md §6), and only a
+    tracer (``torch.export``, ``torch.compile``) needs the op.
     """
-    if x.device.type == "cpu":
-        return int8_conv_reference(x, wk, ksize, stride, pad, epilogue)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no int8 conv kernel for device {x.device}")
+    args = (x, wk, ksize, stride, pad, *_flatten(epilogue),
+            None if tile is None else list(tile))
+    if type(x) is torch.Tensor and not torch.compiler.is_compiling():
+        outs = (_int8_conv_cuda if x.is_cuda else _int8_conv_cpu)(*args)
+    else:
+        outs = torch.ops.ssp.int8_conv.default(*args)
+    return _unflatten_outputs(epilogue, outs)
+
+
+def _flatten(ep: Optional[Epilogue]) -> tuple:
+    """``ep`` as the op's arguments (scale, bias, quant, dtype, leaky,
+    divide, value); ``scale`` None stands for no epilogue."""
+    if ep is None:
+        return (None,) * 4 + (False, False, True)
+    return (ep.scale, ep.bias, ep.quant, ep.dtype, ep.leaky, ep.divide,
+            ep.value)
+
+
+def _unflatten_outputs(ep: Optional[Epilogue], outs):
+    """The op's list of outputs → :func:`int8_conv`'s return: [y32] without
+    an epilogue, else the value (when ``ep.value``) then the int8 (when
+    ``ep.quant``)."""
+    if ep is None:
+        return outs[0]
+    return (outs[0] if ep.value else None), \
+        (outs[-1] if ep.quant is not None else None)
+
+
+def _value_dtype(dtype: Optional[torch.dtype]) -> torch.dtype:
+    return torch.float32 if dtype is None else dtype
+
+
+def _outputs(*outs):
+    """The op's outputs: those asked for, contiguous."""
+    return [t.contiguous() for t in outs if t is not None]
+
+
+def _int8_conv_cpu(x, wk, ksize, stride, pad, scale, bias, quant, dtype,
+                   leaky, divide, value, tile):
+    ep = None if scale is None else Epilogue(
+        scale, bias, dtype=dtype, leaky=leaky, quant=quant, divide=divide,
+        value=value)
+    out = int8_conv_reference(x, wk, ksize, stride, pad, ep)
+    return _outputs(out) if ep is None else _outputs(*out)
+
+
+def _int8_conv_fake(x, wk, ksize, stride, pad, scale, bias, quant, dtype,
+                    leaky, divide, value, tile):
+    B, _, _, ho, wo = _check(x, wk, ksize, stride, pad)
+    shape = (B, ho, wo, wk.shape[0])
+    if scale is None:
+        return [x.new_empty(shape, dtype=torch.int32)]
+    return _outputs(
+        x.new_empty(shape, dtype=_value_dtype(dtype)) if value else None,
+        x.new_empty(shape, dtype=torch.int8) if quant is not None else None)
+
+
+def _int8_conv_cuda(x, wk, ksize, stride, pad, scale, bias, quant, dtype,
+                    leaky, divide, value, tile):
     B, H, W, ho, wo = _check(x, wk, ksize, stride, pad)
     for name, t in (("x", x), ("wk", wk)):
         if not t.is_contiguous():
@@ -302,37 +372,35 @@ def int8_conv(x: torch.Tensor, wk: torch.Tensor, ksize: int, stride: int = 1,
     c_out = wk.shape[0]
     bm, bn = tile or tile_for(B * ho * wo, c_out, ksize * ksize * x.shape[-1])
     shape = (B, ho, wo, c_out)
-    y32 = value = q8 = None
-    scale = bias = quant = None
+    vdtype = _value_dtype(dtype)
+    y32 = v_out = q8 = None
     q_stride, slope = 0, 0.0
-    if epilogue is None:
+    if scale is None:
         y32 = torch.empty(shape, dtype=torch.int32, device=x.device)
         flags = _OUT_I32 | (_VEC_I32 if c_out * 4 % 16 == 0 else 0)
     else:
-        ep = epilogue
-        dtype = torch.float32 if ep.dtype is None else ep.dtype
-        if dtype not in (torch.bfloat16, torch.float32):
+        if vdtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"the CUDA kernel's value is bf16 or f32, not "
-                             f"{dtype}")
-        scale = _vector(ep.scale, c_out, "scale")
-        bias = _vector(ep.bias, c_out, "bias")
-        flags = _VALUE_BF16 if dtype == torch.bfloat16 else 0
-        if ep.leaky:
+                             f"{vdtype}")
+        scale = _vector(scale, c_out, "scale")
+        bias = _vector(bias, c_out, "bias")
+        flags = _VALUE_BF16 if vdtype == torch.bfloat16 else 0
+        if leaky:
             flags |= _LEAKY
-            slope = _leaky_slope(dtype)
-        if ep.value:
-            value = torch.empty(shape, dtype=dtype, device=x.device)
+            slope = _leaky_slope(vdtype)
+        if value:
+            v_out = torch.empty(shape, dtype=vdtype, device=x.device)
             flags |= _OUT_VALUE
-            if c_out * value.element_size() % 16 == 0:
+            if c_out * v_out.element_size() % 16 == 0:
                 flags |= _VEC_VALUE
-        if ep.quant is not None:
-            quant = _vector(ep.quant, ep.quant.numel(), "quantizer")
+        if quant is not None:
+            quant = _vector(quant, quant.numel(), "quantizer")
             if quant.numel() not in (1, c_out):
                 raise ValueError(f"the quantizer has {quant.numel()} scales "
                                  f"for {c_out} channels")
             q_stride = int(quant.numel() == c_out and c_out > 1)
             q8 = torch.empty(shape, dtype=torch.int8, device=x.device)
-            flags |= _OUT_I8 | (_DIVIDE if ep.divide else 0)
+            flags |= _OUT_I8 | (_DIVIDE if divide else 0)
             if c_out % 16 == 0:
                 flags |= _VEC_I8
         for name, t in (("scale", scale), ("bias", bias), ("quantizer", quant)):
@@ -345,18 +413,28 @@ def int8_conv(x: torch.Tensor, wk: torch.Tensor, ksize: int, stride: int = 1,
 
     with torch.cuda.device(x.device):
         err = _library().int8_conv_launch(
-            x.data_ptr(), wk.data_ptr(), ptr(y32), ptr(value), ptr(q8),
+            x.data_ptr(), wk.data_ptr(), ptr(y32), ptr(v_out), ptr(q8),
             ptr(scale), ptr(bias), ptr(quant), q_stride, flags, slope, B, H,
             W, x.shape[-1], ho, wo, c_out, ksize, ksize, stride, pad,
             wk.shape[1], vec, bm, bn, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_conv kernel launch failed: CUDA error {err}")
     int8_conv.launches += 1
-    if epilogue is None:
-        return y32
-    int8_conv.fused_launches += 1
-    return value, q8
+    if y32 is None:
+        int8_conv.fused_launches += 1
+    return [t for t in (y32, v_out, q8) if t is not None]
 
 
 int8_conv.launches = 0
 int8_conv.fused_launches = 0
+
+# the op: registered with ``Library``'s define/impl, whose dispatch costs less
+# than ``torch.library.custom_op``'s (PERF.md §6); kept alive here
+_LIB = torch.library.Library("ssp", "FRAGMENT")
+_LIB.define("int8_conv(Tensor x, Tensor wk, int ksize, int stride, int pad, "
+            "Tensor? scale, Tensor? bias, Tensor? quant, ScalarType? dtype, "
+            "bool leaky, bool divide, bool value, int[]? tile) "
+            "-> Tensor[]")
+_LIB.impl("int8_conv", _int8_conv_cpu, "CPU")
+_LIB.impl("int8_conv", _int8_conv_cuda, "CUDA")
+torch.library.register_fake("ssp::int8_conv", _int8_conv_fake, lib=_LIB)

@@ -15,7 +15,11 @@ Each kernel has a wrapper and a plain PyTorch version with the same
 rounding points (``*_reference``).  On a CPU tensor the wrapper runs the
 plain version; on a CUDA tensor it launches the kernel, counted in the
 wrapper's ``launches``, or raises.  There is no fallback from the one to
-the other.
+the other.  The serving stem is also the ``torch.library`` custom op
+``ssp::stem_conv_pool_infer``, registered when this module is imported
+(the kernel is still built at its first launch), so that a
+``torch.export`` of the serve keeps it as one node
+(``serving.export_serving``).
 
 The kernels are compiled with ``nvcc`` into plain-C shared libraries at
 first use, keyed on the sources' content, under
@@ -104,7 +108,8 @@ def _launch(what: str, t: torch.Tensor, fn, *args) -> None:
 
 def stem_conv_pool_infer(images: torch.Tensor, w: torch.Tensor,
                          bias: torch.Tensor) -> torch.Tensor:
-    """Fused folded-serving stem forward.
+    """Fused folded-serving stem forward: the custom op
+    ``ssp::stem_conv_pool_infer``.
 
     Args:
       images: (B, H, W, 3) f32 NHWC in [0, 1].
@@ -116,12 +121,22 @@ def stem_conv_pool_infer(images: torch.Tensor, w: torch.Tensor,
 
     A CPU tensor takes :func:`stem_conv_pool_infer_reference`; a CUDA tensor
     launches the kernel (counted in ``stem_conv_pool_infer.launches``) or
-    raises.
+    raises.  As an op with a fake implementation it traces into a
+    ``torch.export`` graph, which then dispatches by device when it runs; a
+    plain tensor outside a trace calls the device's implementation
+    directly, without the dispatcher's call back into Python.
     """
-    if images.device.type == "cpu":
-        return stem_conv_pool_infer_reference(images, w, bias)
-    if images.device.type != "cuda":
+    if images.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no serving-stem kernel for device {images.device}")
+    if type(images) is torch.Tensor and not torch.compiler.is_compiling():
+        impl = _stem_infer_cuda if images.is_cuda else \
+            stem_conv_pool_infer_reference
+        return impl(images, w, bias)
+    return torch.ops.ssp.stem_conv_pool_infer.default(images, w, bias)
+
+
+def _stem_infer_cuda(images: torch.Tensor, w: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
     _check_args(images, w, bias)
     for name, t in (("images", images), ("w", w), ("bias", bias)):
         if not t.is_contiguous():
@@ -136,6 +151,22 @@ def stem_conv_pool_infer(images: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def _stem_infer_fake(images: torch.Tensor, w: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    _check_args(images, w, bias)
+    B, H, W, _ = images.shape
+    return images.new_empty((B, H // 2, W // 2, _CO), dtype=torch.bfloat16)
+
+
+# the op: registered with ``Library``'s define/impl, whose dispatch costs less
+# than ``torch.library.custom_op``'s (PERF.md §6); kept alive here
+_LIB = torch.library.Library("ssp", "FRAGMENT")
+_LIB.define("stem_conv_pool_infer(Tensor images, Tensor w, Tensor bias) "
+            "-> Tensor")
+_LIB.impl("stem_conv_pool_infer", stem_conv_pool_infer_reference, "CPU")
+_LIB.impl("stem_conv_pool_infer", _stem_infer_cuda, "CUDA")
+torch.library.register_fake("ssp::stem_conv_pool_infer", _stem_infer_fake,
+                            lib=_LIB)
 stem_conv_pool_infer.launches = 0
 
 

@@ -1,13 +1,15 @@
 """Serving: the folded network as one function ``images → boxes``, that
-function captured for one static shape, and a dynamic micro-batching front
-end for either.
+function captured for one static shape, exported as a self-contained
+artifact, and a dynamic micro-batching front end for any of them.
 
-Mirrors ``make_serving_fn``, ``aot_serving`` and ``MicroBatcher`` of
+Mirrors ``make_serving_fn``, ``aot_serving``, ``export_serving``,
+``save_exported``, ``load_serving`` and ``MicroBatcher`` of
 ``singleshotpose_tpu/serving.py``: the same pick modes, single- and
 multi-object, the same bucket and deadline policy, over folded bf16 weights
 or an int8 pytree (``models/quantize.py``), told apart by what the params
 hold.  Where JAX compiles a serving executable ahead of time, the port
-records a CUDA graph.  Results come back to the host with ``.cpu()``.
+records a CUDA graph; where JAX exports StableHLO, the port writes a
+``torch.export`` program.  Results come back to the host with ``.cpu()``.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from .models.quantize import Int8Forward
 from .ops.decode import (best_box_for_class, best_boxes, best_boxes_per_class,
                          decode_grid)
 
-__all__ = ["make_serving_fn", "aot_serving", "MicroBatcher"]
+__all__ = ["make_serving_fn", "aot_serving", "export_serving", "save_exported",
+           "load_serving", "MicroBatcher"]
 
 # (pick-mode, extras):
 #   None / ("grid",)            → the decoded grid
@@ -42,6 +45,62 @@ def _is_quantized(params) -> bool:
     """An int8 pytree: a layer holds ``wq``
     (``singleshotpose_tpu/serving.py:53``)."""
     return any(isinstance(v, dict) and "wq" in v for v in params.values())
+
+
+class _ServeModule(torch.nn.Module):
+    """The body of the serving function, ``images → boxes``, as a module:
+    u8 frames scaled by f32(1/255) (or float frames in [0, 1]), the folded
+    bf16 forward (or the int8 forward over an int8 pytree), decode and the
+    pick.  :func:`make_serving_fn` calls it eagerly; :func:`export_serving`
+    exports it.  The weights, the int8 forward's scales and packed weights,
+    the u8 scale and a for_class pick's class are held here, as tensors
+    (not parameters or buffers), so an export bakes them in as
+    constants."""
+
+    def __init__(self, spec: DarknetSpec, folded, *, pick: Pick = None,
+                 compute_dtype=torch.bfloat16,
+                 scales_as_constants: bool = True):
+        super().__init__()
+        if pick is not None and pick[0] not in _PICKS:
+            raise ValueError(f"unknown pick {pick!r}")
+        self.spec, self.folded = spec, folded
+        self.compute_dtype = compute_dtype
+        device = _device(folded)
+        self.int8 = None
+        if _is_quantized(folded):
+            self.int8 = Int8Forward(spec, folded,
+                                    scales_as_constants=scales_as_constants)
+        # f32(1/255) on the device, as XLA compiles JAX's ``u8 / 255.0``;
+        # held here, since the serve graphs of ``aot_serving`` read it
+        self.u8_scale = torch.full((), INV255, device=device)
+        if pick is not None and pick[0] == "for_class":
+            # the class on the device once: a host copy in every call would
+            # wait for the stream, and a CUDA graph cannot record one
+            pick = (pick[0], torch.as_tensor(pick[1], dtype=torch.int64,
+                                             device=device), pick[2])
+        self.pick = pick
+
+    def forward(self, images: torch.Tensor):
+        spec, pick, compute_dtype = self.spec, self.pick, self.compute_dtype
+        if self.int8 is not None:
+            u8 = not images.is_floating_point()
+            head = self.int8(images.float() if u8 else images,
+                             compute_dtype=compute_dtype,
+                             input_scale=INV255 if u8 else None)
+        else:
+            if not images.is_floating_point():
+                images = images.float() * self.u8_scale
+            head = apply_folded(spec, self.folded, images,
+                                compute_dtype=compute_dtype)
+        decoded = decode_grid(head.float(), spec.num_keypoints,
+                              spec.num_classes, spec.num_anchors)
+        if pick is None or pick[0] == "grid":
+            return decoded
+        if pick[0] == "best":
+            return best_boxes(decoded)
+        if pick[0] == "per_class":
+            return best_boxes_per_class(decoded, pick[1])
+        return best_box_for_class(decoded, pick[1], pick[2])
 
 
 def make_serving_fn(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
@@ -63,46 +122,15 @@ def make_serving_fn(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]
     as arguments (False); ``models.quantize.apply_quantized`` has the two
     forms.
     """
-    if pick is not None and pick[0] not in _PICKS:
-        raise ValueError(f"unknown pick {pick!r}")
-    K, C, nA = spec.num_keypoints, spec.num_classes, spec.num_anchors
+    body = _ServeModule(spec, folded, pick=pick, compute_dtype=compute_dtype,
+                       scales_as_constants=scales_as_constants)
     device = _device(folded)
-    int8 = None
-    if _is_quantized(folded):
-        int8 = Int8Forward(spec, folded,
-                           scales_as_constants=scales_as_constants)
-    # f32(1/255) on the device, as XLA compiles JAX's ``u8 / 255.0``; held
-    # by this closure, since the serve graphs of ``aot_serving`` read it
-    u8_scale = torch.full((), INV255, device=device)
-    if pick is not None and pick[0] == "for_class":
-        # the class on the device once: a host copy in every call would wait
-        # for the stream, and a CUDA graph cannot record one
-        pick = (pick[0], torch.as_tensor(pick[1], dtype=torch.int64,
-                                         device=device), pick[2])
 
     @torch.inference_mode()
     def serve(images):
-        images = torch.as_tensor(images).to(device)
-        if int8 is not None:
-            u8 = not images.is_floating_point()
-            head = int8(images.float() if u8 else images,
-                        compute_dtype=compute_dtype,
-                        input_scale=INV255 if u8 else None)
-        else:
-            if not images.is_floating_point():
-                images = images.float() * u8_scale
-            head = apply_folded(spec, folded, images,
-                                compute_dtype=compute_dtype)
-        decoded = decode_grid(head.float(), K, C, nA)
-        if pick is None or pick[0] == "grid":
-            return decoded
-        if pick[0] == "best":
-            return best_boxes(decoded)
-        if pick[0] == "per_class":
-            return best_boxes_per_class(decoded, pick[1])
-        return best_box_for_class(decoded, pick[1], pick[2])
+        return body(torch.as_tensor(images).to(device))
 
-    serve.int8 = int8
+    serve.int8 = body.int8
     return serve
 
 
@@ -191,6 +219,79 @@ def aot_serving(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
     # weights): freed, their memory would be reused under it
     replay.serve = serve
     return replay
+
+
+def export_serving(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
+                   *, width: int, height: int, batch: Optional[int] = None,
+                   pick: Pick = ("best",), compute_dtype=torch.bfloat16,
+                   input_dtype=torch.uint8) -> torch.export.ExportedProgram:
+    """The serving function of :func:`make_serving_fn` as one
+    ``torch.export`` program (``singleshotpose_tpu/serving.py:
+    export_serving``): the weights baked in as constants, the kernels kept
+    as the custom ops ``ssp::stem_conv_pool_infer`` (bf16) and
+    ``ssp::int8_conv`` (an int8 pytree, its scales closed over as JAX's
+    export closes over them).
+
+    Args:
+      width, height: serving resolution (stride-divisible, like any eval
+        size).
+      batch: fixed batch size, or ``None`` for a batch-polymorphic export
+        (a symbolic leading dim: one artifact, any batch size).
+      pick: box pick in the artifact (see :data:`Pick`).
+      input_dtype: ``torch.uint8`` (the artifact scales internally) or a
+        float dtype taking [0, 1] inputs.
+
+    JAX's ``platforms`` has no counterpart: the program is traced on the
+    device the weights are on, and :func:`load_serving` (``device=``) moves
+    it to another.  Its ops dispatch by device when it runs, so a program
+    exported on the CPU launches the kernels on a card.  Persist it with
+    :func:`save_exported`.
+    """
+    body = _ServeModule(spec, folded, pick=pick, compute_dtype=compute_dtype,
+                        scales_as_constants=True)
+    # a symbolic batch is traced at 2: an example of 1 would specialize it
+    example = torch.zeros((2 if batch is None else batch, height, width, 3),
+                          dtype=input_dtype, device=_device(folded))
+    dynamic = None if batch is not None else \
+        ({0: torch.export.Dim("b", min=1)},)
+    return torch.export.export(body, (example,), dynamic_shapes=dynamic)
+
+
+def save_exported(path: str, exported: torch.export.ExportedProgram) -> None:
+    """Write an export to one file: the program and its constants, the
+    weights among them (``torch.export.save``)."""
+    torch.export.save(exported, path)
+
+
+def load_serving(path: str, device="cuda"):
+    """Load a saved artifact → a callable ``images → boxes`` that takes a
+    tensor or a numpy array (NHWC, of the dtype it was exported for) and
+    runs on ``device``: the program is moved there by
+    ``torch.export.passes.move_to_device_pass``, wherever it was exported,
+    and its ops then launch that device's kernels.  The default is the
+    card: without CUDA this raises rather than run on the CPU;
+    ``device="cpu"`` asks for the CPU.
+
+    Needs ``torch`` and this package's op registrations, which importing
+    this module makes (the ``ssp::`` ops of ``ops/stem.py`` and
+    ``ops/int8_conv.py``), but no cfg, weight file or model code: where
+    JAX's artifact loads with jax alone, this one loads with torch and the
+    port's ops.
+    """
+    from torch.export.passes import move_to_device_pass
+
+    from .ops import int8_conv, stem  # noqa: F401 — the ssp:: ops
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"load_serving: device {device}: CUDA is not "
+                           "available (pass device='cpu' to run on the CPU)")
+    module = move_to_device_pass(torch.export.load(path), device).module()
+
+    @torch.inference_mode()
+    def serve(images):
+        return module(torch.as_tensor(images).to(device))
+
+    return serve
 
 
 class MicroBatcher:
@@ -353,3 +454,4 @@ class MicroBatcher:
 
     def __exit__(self, *exc):
         self.close()
+

@@ -35,8 +35,8 @@ from singleshotpose_tpu_torch.ops import int8_conv as I
 from singleshotpose_tpu_torch.zoo import yolo_pose_multi as tmulti
 from singleshotpose_tpu_torch.zoo import yolo_pose_single as tyolo
 
-from test_torch_quantize import _jax_head, _port_folded, _port_q
-from torch_port_helpers import TINY_BLOCKS, jax_params
+from test_torch_quantize import _jax_head
+from torch_port_helpers import TINY_BLOCKS, jax_params, port_folded, port_q
 
 # (B, H, W, C_in, C_out, ksize, stride, pad): a 1x1, a 3x3, the first conv
 CONVS = [(2, 6, 5, 64, 48, 1, 1, 0), (2, 8, 7, 32, 64, 3, 1, 1),
@@ -200,7 +200,7 @@ def test_forward_runs_every_quantized_conv_fused(monkeypatch):
     whose outputs are its plan's, the first conv takes the padded input."""
     jspec = JSpec(TINY_BLOCKS)
     params, stats = jax_params(jspec, seed=3)
-    tf = _port_folded(jfold(jspec, params, stats))
+    tf = port_folded(jfold(jspec, params, stats))
     tspec = TSpec(TINY_BLOCKS)
     x = torch.from_numpy(np.random.RandomState(0).rand(2, 64, 64, 3)
                          .astype(np.float32))
@@ -239,7 +239,7 @@ def test_forward_on_yolo_pose_single_matches_jax_bit_for_bit():
     jq = JQ.quantize_folded(jspec, jf, amax, skip_layers=())
     assert sum("wq" in v for v in jq.values()) == 23
     want = _jax_head(jspec, jq, x, jnp.bfloat16, False)
-    fwd = TQ.Int8Forward(tspec, _port_q(jq))
+    fwd = TQ.Int8Forward(tspec, port_q(jq))
     assert [p.writes for p in fwd.plan.values()].count("both") == 1
     got = fwd(torch.from_numpy(x), compute_dtype=torch.bfloat16)
     np.testing.assert_array_equal(got.float().numpy(), want)

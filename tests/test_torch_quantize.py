@@ -62,27 +62,9 @@ from singleshotpose_tpu_torch.zoo import yolo_pose_single as tyolo
 from test_torch_multi_eval import occlusion  # noqa: F401  (fixture)
 from test_torch_pose import K, _poses
 from test_torch_serving import linemod  # noqa: F401  (fixture)
-from torch_port_helpers import TINY_BLOCKS, jax_params
+from torch_port_helpers import TINY_BLOCKS, jax_params, port_folded, port_q
 
 KW = dict(batch_size=3, num_workers=0, verbose=False)
-
-
-def _port_folded(jf):
-    """JAX's folded HWIO dict → the port's OIHW one, the same bits."""
-    return {k: {"w": torch.from_numpy(np.asarray(v["w"]).transpose(3, 2, 0, 1)
-                                      .copy()),
-                "b": torch.from_numpy(np.asarray(v["b"]).copy())}
-            for k, v in jf.items()}
-
-
-def _port_q(jq):
-    """A JAX int8 pytree → the port's: the same fields, ``w`` as OIHW."""
-    out = {}
-    for k, d in jq.items():
-        out[k] = {f: torch.from_numpy(np.array(v)) for f, v in d.items()}
-        if "w" in out[k]:
-            out[k]["w"] = out[k]["w"].permute(3, 2, 0, 1).contiguous()
-    return out
 
 
 @pytest.fixture(scope="module")
@@ -91,7 +73,7 @@ def tiny():
     params, stats = jax_params(jspec, seed=3)
     jf = jfold(jspec, params, stats)
     x = np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32)
-    return jspec, tspec, jf, _port_folded(jf), x
+    return jspec, tspec, jf, port_folded(jf), x
 
 
 # ---------------------------------------------------------------------------
@@ -221,13 +203,13 @@ def test_apply_quantized_matches_jax(tiny, dtype, per_channel, form):
     # every conv quantized: the int8 chain and the head bit for bit
     jq = JQ.quantize_folded(jspec, jf, amax, skip_layers=())
     want = _jax_head(jspec, jq, x, jcd, constants)
-    got = TQ.apply_quantized(tspec, _port_q(jq), torch.from_numpy(x),
+    got = TQ.apply_quantized(tspec, port_q(jq), torch.from_numpy(x),
                              compute_dtype=tcd, scales_as_constants=constants)
     np.testing.assert_array_equal(got.float().numpy(), want)
     # the default: the head conv in float, the head at a stated tolerance
     jq = JQ.quantize_folded(jspec, jf, amax)
     want = _jax_head(jspec, jq, x, jcd, constants)
-    got = TQ.apply_quantized(tspec, _port_q(jq), torch.from_numpy(x),
+    got = TQ.apply_quantized(tspec, port_q(jq), torch.from_numpy(x),
                              compute_dtype=tcd, scales_as_constants=constants)
     tol = 2e-2 if dtype == "bf16" else 1e-5
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
@@ -250,7 +232,7 @@ def test_the_two_rounding_forms_differ_where_jax_does(tiny):
     closed = np.asarray(jax.jit(lambda v: jax_u8(jq, v))(jnp.asarray(u8)),
                         np.float32)
     arg = np.asarray(jax.jit(jax_u8)(jq, jnp.asarray(u8)), np.float32)
-    tq, raw = _port_q(jq), torch.from_numpy(u8).float()
+    tq, raw = port_q(jq), torch.from_numpy(u8).float()
     for constants, want in ((True, closed), (False, arg)):
         got = TQ.apply_quantized(tspec, tq, raw, scales_as_constants=constants,
                                  input_scale=INV255)
@@ -283,7 +265,7 @@ def test_apply_quantized_on_yolo_pose_single_matches_jax():
     x = np.random.RandomState(22).rand(1, 64, 64, 3).astype(np.float32)
     amax = JQ.calibrate_activations(jspec, jf, jnp.asarray(x),
                                     compute_dtype=None, per_channel=True)
-    got_amax = TQ.calibrate_activations(tspec, _port_folded(jf),
+    got_amax = TQ.calibrate_activations(tspec, port_folded(jf),
                                         torch.from_numpy(x),
                                         compute_dtype=None, per_channel=True)
     # f32 sums in another order through up to 22 convs: rel 1e-4
@@ -292,7 +274,7 @@ def test_apply_quantized_on_yolo_pose_single_matches_jax():
     jq = JQ.quantize_folded(jspec, jf, amax)
     assert sum("wq" in v for v in jq.values()) == 22
     want = _jax_head(jspec, jq, x, None, False)
-    got = TQ.apply_quantized(tspec, _port_q(jq), torch.from_numpy(x),
+    got = TQ.apply_quantized(tspec, port_q(jq), torch.from_numpy(x),
                              compute_dtype=None).numpy()
     assert got.shape == want.shape == (1, 2, 2, 20)
     np.testing.assert_allclose(got, want, rtol=0,
@@ -356,7 +338,7 @@ def test_int8_serve_matches_jax_and_aot_serving(tiny):
     amax = JQ.calibrate_activations(jspec, jf, jnp.asarray(x),
                                     per_channel=True)
     jq = JQ.quantize_folded(jspec, jf, amax, skip_layers=())
-    tq = _port_q(jq)
+    tq = port_q(jq)
     u8 = np.random.RandomState(9).randint(0, 256, (2, 64, 64, 3)).astype(
         np.uint8)
     want = np.asarray(jax.jit(JS.make_serving_fn(jspec, jq, pick=("best",)))(

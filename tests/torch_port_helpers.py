@@ -90,6 +90,24 @@ def jax_params(spec, seed=0):
     return params, stats
 
 
+def port_folded(jf):
+    """JAX's folded HWIO dict → the port's OIHW one, the same bits."""
+    return {k: {"w": torch.from_numpy(np.asarray(v["w"]).transpose(3, 2, 0, 1)
+                                      .copy()),
+                "b": torch.from_numpy(np.asarray(v["b"]).copy())}
+            for k, v in jf.items()}
+
+
+def port_q(jq):
+    """A JAX int8 pytree → the port's: the same fields, ``w`` as OIHW."""
+    out = {}
+    for k, d in jq.items():
+        out[k] = {f: torch.from_numpy(np.array(v)) for f, v in d.items()}
+        if "w" in out[k]:
+            out[k]["w"] = out[k]["w"].permute(3, 2, 0, 1).contiguous()
+    return out
+
+
 # K2's valid-slot patterns: one slot (single-object LINEMOD), eight, all of
 # them, a scattered mask that is no prefix, and one image with none beside
 # full ones ("prefix<n>" takes any n: a synthesized OCCLUSION frame has up
