@@ -21,8 +21,9 @@ phases; any failure propagates and the exit code is nonzero:
   3. kernels against plain: each kernel (K1 the serving stem, K2 the max
      corner confidence, K3–K6 the train stem) vs its plain PyTorch version
      at the main paths' shapes (K1 also at the multi-object serve's batch
-     16, 416²; K3–K6 also at a ragged shape and at the multi-object step's
-     batch 32, 320² and 608²; K2 on the train step's own labels, one valid
+     16, 416², and at a rank's batch 4, 672², of phase 18's eval; K3–K6
+     also at a ragged shape, at the multi-object step's batch 32, 320² and
+     608², and at a rank's batch 4, 416², of phase 18's step; K2 on the train step's own labels, one valid
      slot an image, on nine valid slots an image at the multi-object step's
      416² and 608² shapes, then with 1..50 at three shapes), error and time
      of both, and its bound; K1's and K3's share of outputs equal to the
@@ -134,15 +135,30 @@ phases; any failure propagates and the exit code is nonzero:
      fresh subprocess with jax and the JAX package blocked; the bf16
      artifact behind a ``MicroBatcher`` of one bucket of 16 = one direct
      call bit for bit; export s, MB, load s, and ms a call against the
-     eager serve in turns.
+     eager serve in turns;
+ 18. data parallel (``parallel/``, spawned ranks): two gloo ranks sharing
+     the card (NCCL refuses two ranks on one card), 4 rows each of the
+     batch-8 416² bf16 fused step, against one process on the whole batch
+     (the first step to the JAX package's bf16 bounds, the ranks the same
+     bytes after 3 steps, K2–K6 once a rank a step, the DP step's ms —
+     not a DP speed); the stem alone at (8, 416, 416) over the ranks; K2
+     on each rank's rows = the global launch's rows bit for bit;
+     ``run_validation`` over the ranks at 672² (K1 on each rank) on phase
+     14's held-out renders = one process at the ranks' batch bit for bit;
+     a batch of 8 of them served whole and as its halves: K1 the same bits,
+     the decoded heads before the pick within 0.05, the cells picked and
+     the boxes' gap printed; beside them one NCCL rank of ``--dp 1``: its
+     step = the step with no group bit for bit, ``cli valid --dp 1`` (in
+     process) = ``cli valid``.
 
 Phases 4–5 and 9 are the serving paths and phase 7's fused steps and phase
 10 the training paths: each kernel's launch count is set to 0 just before
 its path and read just after; so are phase 14's eager steps fed from the
 bank (K2–K6) and its two evals (K1), and phase 15's eager steps fed from
 the synth (K2–K6), phase 16's int8 serves and evals (the int8
-conv), and phase 17's calls of the loaded artifacts (K1, the int8
-conv).  On the captured paths (11–13) a kernel's
+conv), phase 17's calls of the loaded artifacts (K1, the int8
+conv), and in phase 18 each rank's DP steps (K2–K6) and its share of the
+DP eval (K1).  On the captured paths (11–13) a kernel's
 wrapper runs only while a graph records it, so what is counted there is
 captures: the graphs that recorded it (and their replays, each of which
 launches it once).  The line before the last is the kernel summary (JSON:
@@ -161,6 +177,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import datetime
 import functools
 import gc
 import hashlib
@@ -179,6 +196,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from singleshotpose_tpu_torch import weights as W
@@ -210,21 +228,29 @@ from singleshotpose_tpu_torch.models.darknet import (Darknet, apply_folded,
                                                      fold_batchnorm)
 from singleshotpose_tpu_torch.ops import cuda_build, int8_conv, stem, targets
 from singleshotpose_tpu_torch.ops import max_corner_confidence as mcc
-from singleshotpose_tpu_torch.ops.decode import best_boxes_per_class
+from singleshotpose_tpu_torch.ops.decode import (DecodedGrid,
+                                                 best_boxes_per_class)
 from singleshotpose_tpu_torch.ops.losses import region_loss
 from singleshotpose_tpu_torch.ops.pnp import pnp_batched, so3_exp
+from singleshotpose_tpu_torch.parallel.multihost import initialize_distributed
+from singleshotpose_tpu_torch.parallel.sharding import (all_reduce_grads,
+                                                        free_port,
+                                                        make_dp_group,
+                                                        shard_host_batch)
 from singleshotpose_tpu_torch.data.pipeline import (MULTI_SCHEDULE,
                                                     SINGLE_SCHEDULE)
 from singleshotpose_tpu_torch.serving import (MicroBatcher, aot_serving,
                                               make_serving_fn)
 from singleshotpose_tpu_torch.training import (init_train_state,
-                                               make_train_step, schedule_lr)
+                                               make_train_step, schedule_lr,
+                                               shard_train_state)
 from singleshotpose_tpu_torch.zoo import (occlusion_datacfg, yolo_pose_multi,
                                           yolo_pose_single)
 
 # K1 (B, H, W): the last is the single-object serve's, (16, 416, 416) the
-# multi-object serve's
-STEM_SHAPES = ((1, 416, 416), (8, 416, 416), (16, 416, 416), (8, 672, 672))
+# multi-object serve's, (4, 672, 672) a rank's of phase 18's two-rank eval
+STEM_SHAPES = ((1, 416, 416), (8, 416, 416), (16, 416, 416), (4, 672, 672),
+               (8, 672, 672))
 SIZE = 672            # yolo_pose_single's test size
 MODEL_BATCH = 8
 N_FRAMES, N_CLIENTS, BUCKETS = 16, 4, (1, 2, 4, 8)
@@ -245,10 +271,11 @@ TRAIN_SIZE, TRAIN_BATCH = 416, 8      # yolo-pose.cfg's width and batch
 TRAIN_STEPS, OVERFIT_STEPS, UNFUSED_STEPS = 20, 30, 5
 # K3-K6 (B, H, W): the batch-8 416² train step, the 832² bucket (the
 # largest of the multi-scale schedule), a ragged shape whose 17 x 35 pooled
-# grid is odd and no multiple of K6's 2 x 16 tiles, and the multi-object
-# batch-32 step at MULTI_SCHEDULE's narrowest and widest buckets
+# grid is odd and no multiple of K6's 2 x 16 tiles, the multi-object
+# batch-32 step at MULTI_SCHEDULE's narrowest and widest buckets, and a
+# rank's rows of phase 18's two-rank batch-8 step
 TRAIN_STEM_SHAPES = ((8, 416, 416), (8, 832, 832), (3, 34, 70),
-                     (32, 320, 320), (32, 608, 608))
+                     (32, 320, 320), (32, 608, 608), (4, 416, 416))
 GATE_BATCH = 64       # the JAX package's batch gate for the fused stem
 TRAIN_EPOCH = 16      # past the 15-epoch pretrain gate: every loss term counts
 BATCHES_PER_EPOCH = 125   # ~1,000 LINEMOD training frames / batch 8
@@ -1852,7 +1879,7 @@ def phase_profile_stem(dev, card: str, out_dir: str) -> None:
                           ("plain", stem.stem_conv_pool_infer_reference)):
             report("K1", "stem_conv_pool_infer", which, (B, H, W),
                    functools.partial(fn, *args), bound)
-    for B, H, W in (TRAIN_STEM_SHAPES[0], *TRAIN_STEM_SHAPES[3:]):
+    for B, H, W in (TRAIN_STEM_SHAPES[0], *TRAIN_STEM_SHAPES[3:5]):
         _profile_train_stem(dev, g0, B, H, W, report)
 
 
@@ -3471,6 +3498,439 @@ def phase_export(spec, folded, multi, multi_folded, qfile: str, dev,
     return {"k1": launches[0], "int8": launches[1], "numbers": nums}
 
 
+# the data-parallel phase (phase 18): two gloo ranks sharing cuda:0 (NCCL
+# refuses two ranks on one card) and, beside them, one NCCL rank (--dp 1),
+# each a spawned process; what every process draws comes from the seeds
+# below, on the CPU or from a card generator, so they all hold the same
+# model, batches and kernel inputs
+DP_WORLD, DP_STEPS, DP_TIMED, DP_SEED = 2, 3, 5, 80
+DP_TIMEOUT = datetime.timedelta(seconds=300)   # a lost rank fails the phase
+
+
+def _dp_model(spec, dev) -> Darknet:
+    return _random_model(spec, dev, DP_SEED)
+
+
+def _dp_stem_inputs(dev):
+    """The stem alone at (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE): images, w,
+    scale, bias and a cotangent of pooled, from a CPU generator."""
+    g = torch.Generator().manual_seed(DP_SEED + 2)
+    B, H = TRAIN_BATCH, TRAIN_SIZE
+    out = (torch.rand((B, H, H, 3), generator=g),
+           torch.randn((32, 3, 3, 3), generator=g) * 0.3,
+           torch.rand((32,), generator=g) + 0.5,
+           torch.randn((32,), generator=g) * 0.1,
+           torch.randn((B, H // 2, H // 2, 32), generator=g))
+    return [t.to(dev) for t in out]
+
+
+def _dp_stem(inputs, group=None) -> dict:
+    """The fused train stem (K3–K6) and the gradients of Σ pooled·cot;
+    under ``group`` on this rank's rows, the gradients summed over the
+    ranks as the train step sums them."""
+    img, w, scale, bias, cot = inputs
+    if group is not None:
+        img, cot = shard_host_batch(group, img, cot)
+    w, scale, bias = (t.clone().requires_grad_(True) for t in (w, scale, bias))
+    pooled, mean, var = stem.stem_conv_bn_pool_train(img, w, scale, bias,
+                                                     group)
+    (pooled.float() * cot).sum().backward()
+    if group is not None:
+        all_reduce_grads([w, scale, bias], group)
+    torch.cuda.synchronize()
+    return {"pooled": pooled.detach(), "mean": mean, "var": var,
+            "dw": w.grad, "dscale": scale.grad, "dbias": bias.grad}
+
+
+def _dp_k2_inputs(dev):
+    """K2's inputs at the train step's shape, one valid slot an image."""
+    g = torch.Generator(device=dev).manual_seed(DP_SEED + 3)
+    return _corners_near_gt(dev, TRAIN_BATCH, 50, (TRAIN_SIZE // 32) ** 2, g,
+                            n=1)
+
+
+def _dp_steps(spec, dev, group=None, n: int = DP_STEPS):
+    """``n`` fused bf16 steps of the seeded model on the seeded batch-8
+    416² batches (under ``group``: this rank's rows, the state first
+    broadcast from rank 0 as the drivers do).  Returns (state, losses,
+    the state after the first step)."""
+    net = spec.net
+    state = init_train_state(_dp_model(spec, dev),
+                             weight_decay=net.decay * net.batch,
+                             momentum=net.momentum)
+    if group is not None:
+        shard_train_state(group, state)
+    cfg = loss_config_from_spec(spec, pretrain_num_epochs=15,
+                                im_width=IM_W, im_height=IM_H)
+    step = make_train_step(cfg, compute_dtype=torch.bfloat16,
+                           fused_stem=True, group=group)
+    losses, first = [], None
+    for i, (frames, labels) in enumerate(_train_batches(dev, n,
+                                                         DP_SEED + 1)):
+        if group is not None:
+            frames, labels = shard_host_batch(group, frames, labels)
+        losses.append(step(state, frames, labels, _lr(spec, i),
+                           TRAIN_EPOCH)["loss"])
+        if i == 0:
+            first = {k: v.detach().clone()
+                     for k, v in state.model.state_dict().items()}
+    torch.cuda.synchronize()
+    return state, torch.stack(losses), first, step
+
+
+def _state_sha(state) -> str:
+    """SHA-256 of every tensor of a train state (parameters, BN statistics,
+    momentum buffers) and ``seen``."""
+    h = hashlib.sha256(str(state.seen).encode())
+    tensors = list(state.model.state_dict().values()) + [
+        state.optimizer.state[p]["momentum_buffer"]
+        for p in state.model.parameters()]
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def _dp_frames(root: str) -> dict:
+    with open(f"{root}/frames.json") as f:
+        paths = json.load(f)
+    arrays = np.load(f"{root}/frames.npz")
+    return {p: arrays[f"f{i}"] for i, p in enumerate(paths)}
+
+
+def _dp_gloo_rank(spec, dev, rank: int, port: int, root: str) -> dict:
+    """One of two gloo ranks on this card: the stem alone on its rows, K2 on
+    its rows, DP_STEPS data-parallel steps (K2–K6 counted from 0) and
+    DP_TIMED more timed, and ``run_validation`` over the ranks (K1
+    counted from 0)."""
+    initialize_distributed(backend="gloo",
+                           init_method=f"tcp://localhost:{port}",
+                           world_size=DP_WORLD, rank=rank, device=dev,
+                           timeout=DP_TIMEOUT)
+    group = make_dp_group(DP_WORLD, device=dev)
+    out = {"stem": _dp_stem(_dp_stem_inputs(dev), group)}
+    gt, valid, pred = _dp_k2_inputs(dev)
+    gt, valid = shard_host_batch(group, gt, valid)
+    pred, _ = shard_host_batch(group, pred, valid)
+    out["k2"] = mcc.max_corner_confidence(gt, valid, pred)
+    for f in _TRAIN_COUNTED:
+        f.launches = 0
+    state, losses, first, step = _dp_steps(spec, dev, group)
+    out["launches"] = _launches()
+    out.update(losses=losses, sha=_state_sha(state), seen=state.seen,
+               first={k: first[k] for k in ("conv_1.weight", "conv_2.weight",
+                                            "conv_1.running_mean")})
+    if rank == 0:
+        out["state"] = {k: v.detach().cpu().clone() for k, v in
+                        state.model.state_dict().items()}
+    frames, labels = shard_host_batch(
+        group, *_train_batches(dev, 1, DP_SEED + 1)[0])
+    out["step_ms"] = _step_ms(step, state, [(frames, labels)], spec,
+                              DP_TIMED)
+    del state, step
+    stem.stem_conv_pool_infer.launches = 0
+    with mock.patch.object(pipeline, "load_image", _dp_frames(root).__getitem__):
+        out["eval"] = run_validation(
+            f"{root}/obj.data", spec, model=_dp_model(spec, dev),
+            batch_size=TRAIN_BATCH, num_workers=4, verbose=False,
+            group=group)
+    torch.cuda.synchronize()
+    out["k1"] = stem.stem_conv_pool_infer.launches
+    dist.destroy_process_group()
+    return out
+
+
+def _dp_nccl_rank(spec, dev, root: str) -> dict:
+    """``--dp 1`` through NCCL: one step with a group of one against the
+    step with none, from one state; then ``cli valid --dp 1`` (its group
+    of one in this process, as the CLI runs it outside ``torchrun``)
+    against ``cli valid``, the summaries recorded from
+    ``drivers.run_validation``."""
+    import singleshotpose_tpu_torch.drivers as drivers_mod
+    from singleshotpose_tpu_torch import cli
+    group = make_dp_group(1, device=dev)
+    out = {"backend": group.backend}
+    (a, la, _, _), (b, lb, _, _) = (_dp_steps(spec, dev, g, n=1)
+                                    for g in (None, group))
+    diffs, n = _state_diffs(a, b)
+    out.update(step_equal=not diffs and _same_bits(la, lb), tensors=n,
+               diffs=diffs[:3], seen=(a.seen, b.seen))
+    del a, b
+    dist.destroy_process_group()
+    summaries, real = [], drivers_mod.run_validation
+    args = ["valid", "--datacfg", f"{root}/obj.data", "--modelcfg",
+            "yolo-pose", "--weightfile", f"{root}/dp.weights",
+            "--batch_size", str(TRAIN_BATCH), "--device", dev.type]
+    with mock.patch.object(pipeline, "load_image",
+                           _dp_frames(root).__getitem__), \
+            mock.patch.object(drivers_mod, "run_validation",
+                              lambda *a, **k: summaries.append(
+                                  real(*a, **k)) or summaries[-1]):
+        _check(cli.main(args + ["--dp", "1"]) == 0, "valid --dp 1")
+        _check(cli.main(args) == 0, "valid")
+    out["summaries"] = summaries
+    return out
+
+
+def _dp_child(rank: int, backend: str, port: int, root: str,
+              device: str) -> None:
+    """A spawned process of phase 18 on ``device`` (``backend`` gloo: rank
+    ``rank`` of DP_WORLD; nccl: the one rank of ``--dp 1``); its results
+    go to ``root/<backend><rank>.pt``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    spec = yolo_pose_single()
+    if backend == "gloo":
+        out = _dp_gloo_rank(spec, dev, rank, port, root)
+    else:
+        out = _dp_nccl_rank(spec, dev, root)
+    torch.save(_to_cpu(out), f"{root}/{backend}{rank}.pt")
+
+
+def _to_cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_cpu(v) for v in x)
+    return x
+
+
+def _summary_gap(got: dict, want: dict) -> float:
+    """The largest relative difference between two eval summaries' values
+    (NaN where both are NaN counts as equal)."""
+    gap = 0.0
+    for k in want:
+        a, b = float(got[k]), float(want[k])
+        if not (np.isnan(a) and np.isnan(b)):
+            gap = max(gap, abs(a - b) / max(abs(b), 1e-30))
+    return gap
+
+
+def _split_serve(spec, folded, batch, dev) -> dict:
+    """A batch served whole and as its DP_WORLD parts (the ranks' rows):
+    K1 alone on the frames (seeded weights), both ways; the decoded heads
+    before the pick (every cell's corners and confidence) and the best
+    boxes, both ways; which images pick another cell, the batch-8
+    confidence margin between the two cells there, and the boxes' gap
+    image by image."""
+    g = torch.Generator(device=dev).manual_seed(DP_SEED + 4)
+    w = torch.randn((32, 3, 3, 3), generator=g, device=dev) * 0.2
+    b = torch.randn((32,), generator=g, device=dev) * 0.2
+    img = batch.to(dev).float() / 255
+    k1_same = _same_bits(stem.stem_conv_pool_infer(img, w, b), torch.cat(
+        [stem.stem_conv_pool_infer(h, w, b) for h in img.chunk(DP_WORLD)]))
+    serve, grid = (make_serving_fn(spec, folded, pick=(p,))
+                   for p in ("best", "grid"))
+    parts = batch.chunk(DP_WORLD)
+    box_gap = (serve(batch) - torch.cat([serve(h) for h in parts])) \
+        .abs().amax(dim=1)
+    whole = grid(batch)
+    split = DecodedGrid(*(torch.cat(f) for f in zip(*map(grid, parts))))
+    pick_whole = whole.det_conf.argmax(dim=1)
+    pick_split = split.det_conf.argmax(dim=1)
+    rows = torch.arange(len(batch), device=dev)
+    flipped = pick_whole != pick_split
+    torch.cuda.synchronize()
+    return {
+        "k1_same": k1_same,
+        "corner_gap": float((whole.corners - split.corners).abs().max()),
+        "conf_gap": float((whole.det_conf - split.det_conf).abs().max()),
+        "flipped": flipped.nonzero().flatten().tolist(),
+        "margin": (whole.det_conf[rows, pick_whole]
+                   - whole.det_conf[rows, pick_split])[flipped].tolist(),
+        "box_gap": box_gap.tolist(),
+        "kept_gap": float(box_gap[~flipped].max()) if (~flipped).any()
+        else 0.0}
+
+
+def phase_dp(spec, dev, card: str) -> dict:
+    """Phase 18: data parallel on this card at full width.  Two gloo ranks
+    (4 rows each of the batch-8 416² bf16 fused step, spawned) against one
+    process on the whole batch: the first step's loss rel 1e-3, conv_1's
+    and conv_2's weights atol 6e-4 and conv_1's running mean atol 1e-5 (the
+    JAX package's bounds for its sharded bf16 step), the ranks the same
+    bytes after DP_STEPS steps (the largest difference from one process
+    printed), K2–K6 launched once a rank a step; the stem alone at
+    (8, 416, 416) over the ranks against the one-process kernels (mean and
+    var atol 1e-5, pooled within 1 % of its max, dW, dscale, dbias rel
+    2e-3); K2 on each rank's rows = those rows of the global launch bit for
+    bit; ``run_validation`` over the ranks at 672² (K1 on each rank, its
+    batches of 8 served 4 rows a rank) on phase 14's held-out renders
+    against one process at the ranks' batch of 4 (the same frames in each
+    call of the serve): the same summary, bit for bit.  Against one process
+    at batch 8 the summary is printed, not held: cuDNN picks its convs by
+    batch, so boxes move by an ulp or two (their largest difference is
+    printed), and PnP on a random net's corners can turn that into a
+    different pose (on an H100 80GB HBM3 at 700 W: mean px 1339.67 over
+    the ranks against 1238.84 at batch 8).  Where the boxes move is shown
+    on the first 8 frames served whole and as two halves
+    (:func:`_split_serve`): K1 the same bits both ways, the decoded heads
+    before the pick within 0.05 at every cell, and the images whose pick
+    falls on another cell with the margin between the two cells.
+    Beside them one
+    NCCL rank: a step with a group of one = the step with none bit for
+    bit, and ``cli valid --dp 1`` = ``cli valid``.  Returns the per-rank
+    launches."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ssp_dp_")
+    try:
+        datacfg, _, _, frames = _data_corpus(root)
+        with open(f"{root}/test.txt") as f:
+            paths = [ln.strip() for ln in f if ln.strip()]
+        np.savez(f"{root}/frames.npz",
+                 **{f"f{i}": frames[p] for i, p in enumerate(paths)})
+        with open(f"{root}/frames.json", "w") as f:
+            json.dump(paths, f)
+        model = _dp_model(spec, dev)
+        W.save_weights(spec, model.state_dict(), f"{root}/dp.weights")
+        ctx = torch.multiprocessing.start_processes(
+            _dp_child, args=("gloo", free_port(), root, str(dev)),
+            nprocs=DP_WORLD, join=False, start_method="spawn")
+        nccl = torch.multiprocessing.start_processes(
+            _dp_child, args=("nccl", 0, root, str(dev)), nprocs=1,
+            join=False, start_method="spawn")
+        # the one-process references while the ranks start
+        ref_stem = _dp_stem(_dp_stem_inputs(dev))
+        gt, valid, pred = _dp_k2_inputs(dev)
+        ref_k2 = mcc.max_corner_confidence(gt, valid, pred)
+        ref, ref_losses, ref_first, _ = _dp_steps(spec, dev)
+        with mock.patch.object(pipeline, "load_image", frames.__getitem__):
+            ref_eval, ref_eval8 = (
+                run_validation(datacfg, spec, model=model, batch_size=b,
+                               num_workers=4, device=dev, verbose=False)
+                for b in (TRAIN_BATCH // DP_WORLD, TRAIN_BATCH))
+            batch = torch.from_numpy(np.stack([frames[p]
+                                               for p in paths[:TRAIN_BATCH]]))
+        batch = torch.nn.functional.interpolate(
+            batch.permute(0, 3, 1, 2).float(),
+            size=(spec.net.test_height, spec.net.test_width)).round() \
+            .to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+        split = _split_serve(spec, fold_batchnorm(model), batch, dev)
+        while not ctx.join():
+            pass
+        while not nccl.join():
+            pass
+        ranks = [torch.load(f"{root}/gloo{r}.pt", weights_only=False)
+                 for r in range(DP_WORLD)]
+        one = torch.load(f"{root}/nccl0.pt", weights_only=False)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the steps
+    r0 = ranks[0]
+    loss_rel = abs(float(r0["losses"][0]) - float(ref_losses[0])) \
+        / abs(float(ref_losses[0]))
+    first_d = {k: float((r0["first"][k] - ref_first[k].cpu()).abs().max())
+               for k in r0["first"]}
+    same = all(r["sha"] == r0["sha"] and _same_bits(r["losses"],
+                                                    r0["losses"])
+               for r in ranks)
+    ref_sd = ref.model.state_dict()
+    layer_d = sorted(((_rel(v, ref_sd[k].cpu()), k)
+                      for k, v in r0["state"].items()), reverse=True)
+    print(f"[dp] two gloo ranks on {dev}, {TRAIN_BATCH // DP_WORLD} rows "
+          f"each of the batch-{TRAIN_BATCH} {TRAIN_SIZE}² bf16 fused step: "
+          f"first loss {float(r0['losses'][0]):.6g} vs one process "
+          f"{float(ref_losses[0]):.6g} (rel {loss_rel:.3g}); after one step "
+          f"max|d| conv_1.weight {first_d['conv_1.weight']:.3g}, "
+          f"conv_2.weight {first_d['conv_2.weight']:.3g}, conv_1 running "
+          f"mean {first_d['conv_1.running_mean']:.3g}; after {DP_STEPS} "
+          f"steps the ranks hold the same bytes {same} (seen "
+          f"{[r['seen'] for r in ranks]}), largest differences from one "
+          f"process, max|d|/max|ref| per tensor, "
+          f"{[(k, f'{d:.3g}') for d, k in layer_d[:4]]}; K2-K6 "
+          f"launched {[r['launches'] for r in ranks]} [{card}]")
+    print(f"[dp] the DP step (two gloo ranks sharing one card: not a DP "
+          f"speed) {[round(r['step_ms'], 4) for r in ranks]} ms, host clock "
+          f"with a sync, median of {DP_TIMED} [{card}]")
+    _check(loss_rel <= 1e-3, f"the DP step's loss is {loss_rel:.3g} off")
+    _check(first_d["conv_1.weight"] <= 6e-4 and
+           first_d["conv_2.weight"] <= 6e-4 and
+           first_d["conv_1.running_mean"] <= 1e-5,
+           f"the DP step's state is off one process's: {first_d}")
+    _check(same, "the ranks' states differ")
+    _check(all(r["launches"] == [DP_STEPS] * 5 for r in ranks),
+           f"K2-K6 launched {[r['launches'] for r in ranks]} times in "
+           f"{DP_STEPS} DP steps a rank")
+    _check(all(r["seen"] == DP_STEPS * TRAIN_BATCH for r in ranks),
+           "seen is not the global batch's")
+
+    # the stem alone and K2
+    stem_d = {"mean": max(float((r["stem"]["mean"] - ref_stem["mean"].cpu())
+                                .abs().max()) for r in ranks),
+              "var": max(float((r["stem"]["var"] - ref_stem["var"].cpu())
+                               .abs().max()) for r in ranks)}
+    pooled = torch.cat([r["stem"]["pooled"] for r in ranks]).float()
+    ref_pooled = ref_stem["pooled"].cpu().float()
+    stem_d["pooled"] = float((pooled - ref_pooled).abs().max()
+                             / ref_pooled.abs().max())
+    for k in ("dw", "dscale", "dbias"):
+        stem_d[k] = max(_rel(r["stem"][k], ref_stem[k].cpu()) for r in ranks)
+    k2 = torch.cat([r["k2"] for r in ranks])
+    k2_same = _same_bits(k2, ref_k2.cpu())
+    print(f"[dp] the stem alone at ({TRAIN_BATCH}, {TRAIN_SIZE}, "
+          f"{TRAIN_SIZE}) over the two ranks vs one process: "
+          f"{ {k: f'{v:.3g}' for k, v in stem_d.items()} }; K2 on each "
+          f"rank's rows = the global launch's rows bit for bit {k2_same} "
+          f"[{card}]")
+    _check(stem_d["mean"] <= 1e-5 and stem_d["var"] <= 1e-5 and
+           stem_d["pooled"] <= 1e-2 and
+           all(stem_d[k] < 2e-3 for k in ("dw", "dscale", "dbias")),
+           f"the stem over the ranks is off one process's: {stem_d}")
+    _check(k2_same, "K2 on the ranks' rows is not the global launch's")
+
+    # the eval
+    gaps = [_summary_gap(r["eval"], ref_eval) for r in ranks]
+    print(f"[dp] run_validation over the two ranks on "
+          f"{ref_eval['n_samples']} held-out frames at "
+          f"{spec.net.test_width}²: = one process at the ranks' batch of "
+          f"{TRAIN_BATCH // DP_WORLD} bit for bit {gaps == [0.0] * DP_WORLD} "
+          f"(mean px {ranks[0]['eval']['mean_err_2d']!r} vs "
+          f"{ref_eval['mean_err_2d']!r}); one process at batch "
+          f"{TRAIN_BATCH}: mean px {ref_eval8['mean_err_2d']!r}, largest "
+          f"relative difference {_summary_gap(ref_eval, ref_eval8):.3g}; "
+          f"K1 launched {[r['k1'] for r in ranks]} times [{card}]")
+    print(f"[dp] the first {TRAIN_BATCH} held-out frames served as one "
+          f"batch and as its {DP_WORLD} halves: K1 alone the same bits "
+          f"{split['k1_same']}; the decoded heads before the pick, every "
+          f"cell: max|d corner| {split['corner_gap']:.6g}, max|d "
+          f"confidence| {split['conf_gap']:.6g} (bound 0.05 each, JAX's "
+          f"limit for a serve's boxes); another cell picked on images "
+          f"{split['flipped']} (batch-{TRAIN_BATCH} confidence margin "
+          f"between the two cells {[f'{m:.3g}' for m in split['margin']]}); "
+          f"the best boxes' max|d| image by image "
+          f"{[f'{d:.3g}' for d in split['box_gap']]}, at most "
+          f"{split['kept_gap']:.3g} where the pick is the same [{card}]")
+    _check(split["k1_same"], "K1 on a batch of 8 differs from K1 on its "
+           "halves")
+    _check(split["corner_gap"] <= 0.05 and split["conf_gap"] <= 0.05,
+           f"the heads of a batch of {TRAIN_BATCH} and of its halves differ: "
+           f"{split['corner_gap']}, {split['conf_gap']}")
+    _check(gaps == [0.0] * DP_WORLD,
+           f"the eval over the ranks is off one process's: "
+           f"{ranks[0]['eval']} vs {ref_eval}")
+    _check(all(r["k1"] == -(-DATA_EVAL_FRAMES // TRAIN_BATCH) for r in ranks),
+           f"K1 launched {[r['k1'] for r in ranks]} times in the DP eval")
+
+    # --dp 1 through NCCL
+    s_dp, s_one = one["summaries"]
+    valid_same = _summary_gap(s_dp, s_one) == 0.0
+    print(f"[dp] --dp 1 through {one['backend']}: the step = the step with "
+          f"no group bit for bit {one['step_equal']} ({one['tensors']} "
+          f"tensors and the loss; seen {one['seen']}); cli valid --dp 1 = "
+          f"cli valid {valid_same} [{card}]")
+    _check(one["backend"] == "nccl" and one["step_equal"],
+           f"the NCCL group-of-one step differs: {one['diffs']}")
+    _check(valid_same, f"valid --dp 1 differs: {s_dp} vs {s_one}")
+    print(f"[dp] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"launches": [r["launches"] for r in ranks],
+            "k1": [r["k1"] for r in ranks]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
                                  "on one NVIDIA card.")
@@ -3561,6 +4021,10 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     _free()
+    # data parallel: K2-K6 counted from 0 on each rank over its DP steps, K1
+    # over its share of the DP eval
+    dp = phase_dp(spec, dev, card)
+    _free()
     if args.profile:
         phase_profile(spec, folded, dev, card, args.profile)
         phase_profile_k2(dev, card, args.profile, [
@@ -3583,7 +4047,9 @@ def main(argv=None) -> int:
     # train step), captures_multi on the multi-object one; replays(_multi):
     # those graphs' replays in the phase, each launching it once;
     # launches_device_data, launches_device_synth: the eager steps fed from
-    # the frame bank (phase 14) and from the scene synth (phase 15)
+    # the frame bank (phase 14) and from the scene synth (phase 15);
+    # launches_dp: per rank, the two gloo ranks' DP steps (phase 18; K1:
+    # launches_dp_eval, their shares of the DP eval)
     def captured_counts(c):
         return {"captures": c["captures"], "replays": c["replays"]}
 
@@ -3599,7 +4065,7 @@ def main(argv=None) -> int:
         "replaces": "singleshotpose_tpu/ops/stem.py:545",
         "launches": launches, "launches_multi": multi_launches[0],
         "launches_eval_bank": device_data["k1_launches"],
-        "launches_export": export["k1"],
+        "launches_export": export["k1"], "launches_dp_eval": dp["k1"],
         **k1_captured, **stem_numbers, "library_ms": None}, {
         "name": "max_corner_confidence", "route": "cuda",
         "source": "singleshotpose_tpu_torch/csrc/max_corner_confidence.cu",
@@ -3607,15 +4073,18 @@ def main(argv=None) -> int:
         "launches": train_launches[0], "launches_multi": multi_launches[1],
         "launches_device_data": device_data["launches"][0],
         "launches_device_synth": device_synth["launches"][0],
+        "launches_dp": [r[0] for r in dp["launches"]],
         **train_captured, **k2_numbers, "library_ms": None}]
-    for (_, name, replaces), n, n_multi, n_data, n_synth in zip(
-            _STEM_KERNELS, train_launches[1:], multi_launches[2:],
-            device_data["launches"][1:], device_synth["launches"][1:]):
+    for i, ((_, name, replaces), n, n_multi, n_data, n_synth) in enumerate(
+            zip(_STEM_KERNELS, train_launches[1:], multi_launches[2:],
+                device_data["launches"][1:], device_synth["launches"][1:]),
+            start=1):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "singleshotpose_tpu_torch/csrc/stem_train.cu",
             "replaces": replaces, "launches": n, "launches_multi": n_multi,
             "launches_device_data": n_data, "launches_device_synth": n_synth,
+            "launches_dp": [r[i] for r in dp["launches"]],
             **train_captured, **train_stem_numbers[name],
             "library_ms": None})
     # int8_conv: no Pallas original (JAX leaves its int8 conv to XLA); its

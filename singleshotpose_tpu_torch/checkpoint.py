@@ -12,6 +12,10 @@ train state, so a resumed run continues exactly where it stopped:
 Layout: ``directory/<step>.pt``, each written to a temp file in the same
 directory and moved into place with ``os.replace``, so a crash never leaves
 a partial checkpoint under a step's name.  The newest ``max_to_keep`` stay.
+
+Data parallel (``group``): the ranks hold the same bytes, so rank 0 alone
+writes, and every rank then meets the others at a barrier, so none reads
+or resumes from a step before it is on disk; every rank restores.
 """
 
 from __future__ import annotations
@@ -33,11 +37,12 @@ _NAME = re.compile(r"^(\d+)\.pt$")
 class Checkpointer:
     """Versioned train-state checkpoints under ``directory``."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, group=None):
         if max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.group = group        # a parallel.sharding.DPGroup, or None
         os.makedirs(self.directory, exist_ok=True)
 
     def steps(self) -> List[int]:
@@ -50,9 +55,20 @@ class Checkpointer:
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"{step}.pt")
 
-    def save(self, step: int, state: TrainState) -> str:
+    def save(self, step: int, state: TrainState, barrier: bool = True) -> str:
         """Write ``state`` as step ``step`` (replacing one of the same step),
-        then delete all but the newest ``max_to_keep``.  Returns the path."""
+        then delete all but the newest ``max_to_keep``.  Returns the path.
+        Under a group: rank 0 writes, then every rank waits at a barrier
+        (``barrier=False``: rank 0 writes and no rank waits)."""
+        if self.group is not None:
+            if self.group.rank == 0:
+                self._write(step, state)
+            if barrier:
+                self.group.barrier()
+            return self._path(step)
+        return self._write(step, state)
+
+    def _write(self, step: int, state: TrainState) -> str:
         payload = {"model": state.model.state_dict(),
                    "optimizer": state.optimizer.state_dict(),
                    "seen": int(state.seen), "step": int(step)}

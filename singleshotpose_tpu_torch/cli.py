@@ -5,17 +5,18 @@
          [--bg_dir DIR] [--checkpoint_dir DIR [--resume]]
          [--precompile_buckets] [--profile_dir DIR] [--cache_decoded]
          [--loader_backend auto|python|device|device_bank]
-         [--eval_transfer auto|rgb|bank] [--device cuda]
+         [--eval_transfer auto|rgb|bank] [--dp N] [--device cuda]
   python -m singleshotpose_tpu_torch.cli valid --datacfg D.data --modelcfg M
-         --weightfile W.weights [--batch_size N] [--transfer rgb|bank]
-         [--quantize [Q.npz]] [--save] [--add_s] [--device cuda]
+         (--weightfile W.weights | --checkpoint_dir DIR [--step N])
+         [--batch_size N] [--transfer rgb|bank] [--quantize [Q.npz]]
+         [--save] [--add_s] [--dp N] [--device cuda]
   python -m singleshotpose_tpu_torch.cli train-multi --datacfg occlusion.data
          [--modelcfg M] [--initweightfile W] [--linemod_root DIR]
          [--eval_datacfgs D.data ...] [--max_epochs N] [--bg_dir DIR]
          [--checkpoint_dir DIR [--resume]] [--precompile_buckets]
          [--profile_dir DIR] [--cache_decoded] [--eval_transfer auto|rgb|bank]
          [--loader_backend auto|python|device_synth [--synth_attempts N]
-         [--synth_propose_scale N]] [--device cuda]
+         [--synth_propose_scale N]] [--dp N] [--device cuda]
   python -m singleshotpose_tpu_torch.cli valid-multi --weightfile W.weights
          [--modelcfg M] [--datacfgs D.data ... | --datacfg occlusion.data]
          [--transfer rgb|bank] [--quantize] [--device cuda]
@@ -40,6 +41,18 @@ default), its kernels' ops dispatching by device.  ``--modelcfg`` also takes
 the zoo names ``yolo-pose``, ``yolo-pose-multi``, ``yolo-pose-pre``.  The
 default device is ``cuda``: without a CUDA device a command fails rather
 than run on the CPU; ``--device cpu`` asks for the CPU explicitly.
+
+``--dp N`` (``train``, ``train-multi``, ``valid``): data parallel over N
+ranks, one process each (``parallel/``; ``0``, the default, is one process
+with no group, ``1`` a group of one).  Under ``torchrun`` (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK`` set) this process is one rank and
+``WORLD_SIZE`` must be N; otherwise ``--dp 1`` runs its group of one in
+this process, and a larger N starts N local ranks (spawned, a TCP
+rendezvous on a free local port).  Rank r runs on
+``cuda:<local rank>`` with NCCL — N cards are needed — or, with ``--device
+cpu``, on the CPU with gloo.  ``valid --checkpoint_dir`` evaluates a
+full-state checkpoint (JAX's ``--orbax_dir``): the offline eval of a
+data-parallel training run.
 """
 
 from __future__ import annotations
@@ -60,6 +73,106 @@ def _require_device(device: str) -> None:
     if device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit(f"error: --device {device}: CUDA is not "
                          "available (pass --device cpu to run on the CPU)")
+
+
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+
+
+def _add_dp_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--dp", type=int, default=0,
+                   help="data parallel over N ranks, one process each (0 = "
+                        "one process, no group; 1 = a group of one); under "
+                        "torchrun WORLD_SIZE must be N, otherwise 1 runs "
+                        "in this process and N > 1 local ranks are started "
+                        "here, rank r on cuda:r (or the CPU with --device "
+                        "cpu)")
+
+
+def _spawned_rank(rank: int, world: int, port: int, argv: list) -> None:
+    """One local rank started by :func:`_run_ranks`: the command again, as
+    ``torchrun`` would start it."""
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    code = main(argv)
+    if code:
+        raise SystemExit(code)
+
+
+def _as_rank(args, body, device) -> int:
+    """``body(args, group)`` with ``--dp``'s group on ``device``, the
+    process group torn down after."""
+    import torch.distributed as dist
+
+    from .parallel.sharding import make_dp_group
+    try:
+        return body(args, make_dp_group(args.dp, device=device))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _rank(args, body) -> int:
+    """``body(args, group)`` as this process's rank of ``--dp``'s group,
+    the rendezvous from the environment (``env://``)."""
+    import torch
+
+    from .parallel.multihost import initialize_distributed
+    world = int(os.environ["WORLD_SIZE"])
+    if world != args.dp:
+        raise SystemExit(f"error: --dp {args.dp} but WORLD_SIZE={world}")
+    local = int(os.environ["LOCAL_RANK"])
+    if args.device == "cpu":
+        device = torch.device("cpu")
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    else:
+        if local >= torch.cuda.device_count():
+            raise SystemExit(f"error: local rank {local} has no card "
+                             f"({torch.cuda.device_count()} visible)")
+        device = torch.device("cuda", local)
+    initialize_distributed(world_size=world, rank=int(os.environ["RANK"]),
+                           device=device)
+    return _as_rank(args, body, device)
+
+
+def _run_ranks(argv: Sequence[str], args, body) -> int:
+    """Run ``body(args, group)``: with no group at ``--dp 0``; as one rank
+    under ``torchrun``; a group of one in this process at ``--dp 1``; else
+    on ``--dp`` local ranks started here (spawn, never fork: a forked child
+    of a process that used CUDA cannot), whose rendezvous port is bound
+    free and handed over — a port lost to another process in between is
+    retried on a new one."""
+    if args.dp < 0:
+        raise SystemExit(f"error: --dp {args.dp} < 0")
+    if args.dp == 0:
+        return body(args, None)
+    if args.device not in ("cuda", "cpu"):
+        raise SystemExit(f"error: --dp places rank r on cuda:r or the CPU; "
+                         f"pass --device cuda or cpu, not {args.device}")
+    if all(k in os.environ for k in _TORCHRUN_ENV):
+        return _rank(args, body)
+    import torch
+    import torch.multiprocessing as mp
+
+    from .parallel.sharding import free_port
+    if args.device == "cuda" and torch.cuda.device_count() < args.dp:
+        raise SystemExit(f"error: --dp {args.dp} --device cuda needs "
+                         f"{args.dp} cards; {torch.cuda.device_count()} "
+                         "visible")
+    if args.dp == 1:
+        return _as_rank(args, body, torch.device(args.device))
+    for attempt in range(3):
+        try:
+            mp.spawn(_spawned_rank, args=(args.dp, free_port(), list(argv)),
+                     nprocs=args.dp, join=True)
+            return 0
+        except mp.ProcessRaisedException as e:
+            if attempt == 2 or not any(
+                    m in str(e) for m in ("EADDRINUSE",
+                                          "Address already in use")):
+                raise
+    return 1
 
 
 def _add_train_flags(p: argparse.ArgumentParser) -> None:
@@ -103,6 +216,7 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
                         "host, or bank (the test split decoded once into "
                         "device memory); auto picks bank when it fits the "
                         "card's free memory, else rgb")
+    _add_dp_flag(p)
     p.add_argument("--device", type=str, default="cuda")
 
 
@@ -114,9 +228,9 @@ def _add_transfer_flag(p: argparse.ArgumentParser) -> None:
                         "repeated evals in one process reuse it)")
 
 
-def _run_config(args, **overrides):
+def _run_config(args, group, **overrides):
     from .drivers import TrainRunConfig
-    return TrainRunConfig(bg_dir=args.bg_dir,
+    return TrainRunConfig(group=group, bg_dir=args.bg_dir,
                           max_epochs_override=args.max_epochs,
                           checkpoint_dir=args.checkpoint_dir,
                           resume=args.resume, device=args.device,
@@ -142,13 +256,17 @@ def cmd_train(argv: Sequence[str]) -> int:
     _require_file(args.datacfg, "data config")
     _require_file(args.initweightfile or None, "initial weight file")
     _require_device(args.device)
+    return _run_ranks(["train", *argv], args, _train)
 
+
+def _train(args, group) -> int:
     from .drivers import run_training
     from .zoo import _resolve_model
     result = run_training(args.datacfg, _resolve_model(args.modelcfg),
                           args.initweightfile or None,
-                          args.pretrain_num_epochs, _run_config(args))
-    print(f"best accuracy: {result['best_acc']}")
+                          args.pretrain_num_epochs, _run_config(args, group))
+    if group is None or group.rank == 0:
+        print(f"best accuracy: {result['best_acc']}")
     return 0
 
 
@@ -167,7 +285,10 @@ def cmd_train_multi(argv: Sequence[str]) -> int:
     _require_file(args.datacfg, "data config")
     _require_file(args.initweightfile or None, "initial weight file")
     _require_device(args.device)
+    return _run_ranks(["train-multi", *argv], args, _train_multi)
 
+
+def _train_multi(args, group) -> int:
     from .drivers import run_training_multi
     from .zoo import _resolve_model
     eval_dcs = args.eval_datacfgs
@@ -179,8 +300,10 @@ def cmd_train_multi(argv: Sequence[str]) -> int:
     result = run_training_multi(
         args.datacfg, _resolve_model(args.modelcfg),
         args.initweightfile or None, args.pretrain_num_epochs, eval_dcs,
-        args.linemod_root, _run_config(args, eval_every=20, eval_after=-1))
-    print(f"best accuracy: {result['best_acc']}")
+        args.linemod_root,
+        _run_config(args, group, eval_every=20, eval_after=-1))
+    if group is None or group.rank == 0:
+        print(f"best accuracy: {result['best_acc']}")
     return 0
 
 
@@ -190,6 +313,12 @@ def cmd_valid(argv: Sequence[str]) -> int:
     p.add_argument("--modelcfg", type=str, default="cfg/yolo-pose.cfg")
     p.add_argument("--weightfile", type=str,
                    default="backup/ape/model_backup.weights")
+    p.add_argument("--checkpoint_dir", type=str, default=None,
+                   help="evaluate a full-state checkpoint instead of "
+                        "--weightfile (the offline eval of a data-parallel "
+                        "training run)")
+    p.add_argument("--step", type=int, default=None,
+                   help="checkpoint step (default: latest)")
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--save", action="store_true",
                    help="dump per-frame R/t/corners + predictions .mat")
@@ -205,23 +334,58 @@ def cmd_valid(argv: Sequence[str]) -> int:
                         "symmetric objects; default: index-matched ADD, as "
                         "the reference")
     _add_transfer_flag(p)
+    _add_dp_flag(p)
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
     _require_file(args.datacfg, "data config")
     if isinstance(args.quantize, str):
         _require_file(args.quantize, "quantized artifact")
+    elif args.checkpoint_dir:
+        _require_checkpoint(args.checkpoint_dir)
     else:
         _require_file(args.weightfile, "weight file")
-
     _require_device(args.device)
+    return _run_ranks(["valid", *argv], args, _valid)
+
+
+def _valid(args, group) -> int:
     from .drivers import run_validation
     from .zoo import _resolve_model
-    run_validation(args.datacfg, _resolve_model(args.modelcfg),
-                   None if isinstance(args.quantize, str) else args.weightfile,
-                   batch_size=args.batch_size, transfer=args.transfer,
-                   quantize=args.quantize, add_s=args.add_s, save=args.save,
-                   device=args.device)
+    spec = _resolve_model(args.modelcfg)
+    device = args.device if group is None else group.device
+    kw = dict(batch_size=args.batch_size, transfer=args.transfer,
+              quantize=args.quantize, add_s=args.add_s, save=args.save,
+              device=device, group=group)
+    if isinstance(args.quantize, str):
+        # the int8 .npz is the serving artifact: no float weights
+        run_validation(args.datacfg, spec, None, **kw)
+    elif args.checkpoint_dir:
+        model, step = _restore_checkpoint(spec, args.checkpoint_dir,
+                                          args.step, device)
+        if group is None or group.rank == 0:
+            print(f"evaluating checkpoint step {step} from "
+                  f"{args.checkpoint_dir}")
+        run_validation(args.datacfg, spec, model=model, **kw)
+    else:
+        run_validation(args.datacfg, spec, args.weightfile, **kw)
     return 0
+
+
+def _require_checkpoint(directory: str) -> None:
+    from .checkpoint import latest_step
+    if latest_step(directory) is None:
+        raise SystemExit(f"error: no checkpoints under {directory}")
+
+
+def _restore_checkpoint(spec, directory: str, step: Optional[int], device):
+    """The model of checkpoint ``step`` (the latest when None) under
+    ``directory``, on ``device``.  Returns (model, step)."""
+    from .checkpoint import Checkpointer
+    from .models.darknet import Darknet
+    from .training import init_train_state
+    model = Darknet(spec, device=device)
+    state = init_train_state(model, weight_decay=0.0, momentum=0.0)
+    return model, Checkpointer(directory).restore(state, step)
 
 
 def cmd_valid_multi(argv: Sequence[str]) -> int:
@@ -382,19 +546,15 @@ def cmd_export(argv: Sequence[str]) -> int:
         from .models.quantize import load_quantized
         params = load_quantized(args.quantized, device=args.device)
     else:
-        model = Darknet(spec, device=args.device)
         if args.checkpoint_dir:
-            from .checkpoint import Checkpointer, latest_step
-            from .training import init_train_state
-            if latest_step(args.checkpoint_dir) is None:
-                raise SystemExit(f"error: no checkpoints under "
-                                 f"{args.checkpoint_dir}")
-            state = init_train_state(model, weight_decay=0.0, momentum=0.0)
-            step = Checkpointer(args.checkpoint_dir).restore(state, args.step)
+            _require_checkpoint(args.checkpoint_dir)
+            model, step = _restore_checkpoint(spec, args.checkpoint_dir,
+                                              args.step, args.device)
             print(f"exporting checkpoint step {step} from "
                   f"{args.checkpoint_dir}")
         else:
             from . import weights as W
+            model = Darknet(spec, device=args.device)
             model.load_state_dict(W.load_weights(spec, args.weightfile)[1])
         params = fold_batchnorm(model)
 

@@ -37,11 +37,13 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import os
+import sys
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import weights as W
 from .checkpoint import Checkpointer
@@ -58,9 +60,11 @@ from .models.darknet import Darknet, DarknetSpec, fold_batchnorm
 from .models.quantize import (calibrate_activations, load_quantized,
                               quantize_folded)
 from .ops.losses import RegionLossConfig
+from .parallel.multihost import process_local_indices
+from .parallel.sharding import DPGroup, all_gather_rows, pad_rows
 from .serving import make_serving_fn
 from .training import (TrainState, capture_train_step, init_train_state,
-                       make_train_step, schedule_lr)
+                       make_train_step, schedule_lr, shard_train_state)
 from .utils.memory import hbm_free_bytes
 from .utils.labels import get_all_files
 from .zoo import _resolve_model
@@ -72,7 +76,21 @@ __all__ = ["run_validation", "run_validation_multi",
 
 
 def _log(msg: str) -> None:
-    print(f"{time.strftime('%Y-%m-%d %H:%M:%S')} {msg}", flush=True)
+    """A timestamped line; under data parallelism every rank's line carries
+    its rank, and goes out in one write, so the ranks' lines do not mix on
+    a shared stdout."""
+    rank = ""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        rank = f" [rank {dist.get_rank()}/{dist.get_world_size()}]"
+    sys.stdout.write(f"{time.strftime('%Y-%m-%d %H:%M:%S')}{rank} {msg}\n")
+    sys.stdout.flush()
+
+
+def _is_writer(group: Optional[DPGroup]) -> bool:
+    """Whether this process writes the run's files: rank 0 of a
+    data-parallel group (the ranks hold the same bytes), or the one
+    process."""
+    return group is None or group.rank == 0
 
 
 def _resolve_device(device) -> torch.device:
@@ -122,19 +140,48 @@ def _eval_params(spec: DarknetSpec, model: Optional[Darknet], loader, *,
     return quantize_folded(spec, folded, amax), itertools.chain([first], it)
 
 
+def _serve_rows(serve, stream, group: DPGroup) -> List[Tuple]:
+    """The data-parallel eval (``singleshotpose_tpu/drivers.py:215-302``):
+    every rank reads the whole split in the same batches (the eval loader is
+    not dataset-sharded); a ragged batch is zero-padded to a multiple of the
+    world size, each rank serves its contiguous rows, and once every batch
+    is launched one all-gather brings every rank all the boxes.  Returns
+    [(boxes of the batch's real rows, labels)]."""
+    local, batches = [], []
+    for images, labels in prefetch(stream):
+        padded = pad_rows(images, group.world)
+        per = len(padded) // group.world
+        local.append(serve(padded[group.rank * per:(group.rank + 1) * per]))
+        batches.append((len(images), per, labels))
+    if not local:
+        return []
+    gathered = all_gather_rows(torch.cat(local), group)   # (world, Σper, ..)
+    out, off = [], 0
+    for n, per, labels in batches:
+        boxes = gathered[:, off:off + per]
+        out.append((boxes.reshape((-1,) + tuple(boxes.shape[2:]))[:n],
+                    labels))
+        off += per
+    return out
+
+
 def _eval_pass(spec: DarknetSpec, model: Optional[Darknet], loader,
                ctx: EvalContext, *, compute_dtype, device,
                pick: Tuple = ("best",), fix_gt_corners: bool = False,
                quantize: Union[bool, str] = False,
-               add_s: bool = False) -> Tuple[PoseErrors, Dict]:
+               add_s: bool = False,
+               group: Optional[DPGroup] = None) -> Tuple[PoseErrors, Dict]:
     """Boxes for every batch (launched as the prefetch thread decodes the
     next batch), then one metric pass.  ``pick`` is the serving function's:
     ``("best",)`` gives a box an image; ``("per_class", conf)`` a box a
     class, and each GT is paired with the box of its own class
     (``valid_multi.py:118-123``).  ``quantize``: serve int8
     (:func:`_eval_params`), its scales rounded as JAX's eval driver rounds
-    them (arguments of its compiled forward: ``x / sa``).  ``add_s``: score
-    the 3D metric as ADD-S.  Returns (PoseErrors, artifacts with
+    them (arguments of its compiled forward: ``x / sa``; under a group
+    calibrated on the whole first batch on every rank, so the ranks'
+    scales agree).  ``add_s``: score the 3D metric as ADD-S.  ``group``:
+    the batches served data-parallel (:func:`_serve_rows`); every rank then
+    scores all the boxes.  Returns (PoseErrors, artifacts with
     ``corners_gt``, ``corners_pr`` (pixels), ``image_idx`` and the
     ``metrics``; empty when there is no ground truth)."""
     K = spec.num_keypoints
@@ -144,7 +191,11 @@ def _eval_pass(spec: DarknetSpec, model: Optional[Darknet], loader,
     serve = make_serving_fn(spec, params, pick=pick,
                             compute_dtype=compute_dtype,
                             scales_as_constants=False)
-    pending = [(serve(images), labels) for images, labels in prefetch(stream)]
+    if group is None:
+        pending = [(serve(images), labels)
+                   for images, labels in prefetch(stream)]
+    else:
+        pending = _serve_rows(serve, stream, group)
 
     # the GT slots of each image up to its first empty one, in the
     # reference's image-then-slot order (valid.py:117-130)
@@ -211,8 +262,8 @@ def run_validation(datacfg: str, modelcfg: Union[str, DarknetSpec],
                    compute_dtype=torch.bfloat16, device="cuda",
                    transfer: str = "rgb",
                    quantize: Union[bool, str] = False, add_s: bool = False,
-                   save: bool = False,
-                   verbose: bool = True) -> Dict[str, float]:
+                   save: bool = False, verbose: bool = True,
+                   group: Optional[DPGroup] = None) -> Dict[str, float]:
     """Single-object eval (reference ``valid.py``): the 6D metric suite.
 
     The network is ``weightfile``, a darknet binary, or an in-memory
@@ -235,8 +286,15 @@ def run_validation(datacfg: str, modelcfg: Union[str, DarknetSpec],
     ``save=True`` writes per-frame R/t/corner files under
     ``<backup>/test/{gt,pr}/`` and a predictions ``.mat``
     (``valid.py:186-197,231-233``).
+
+    ``group``: data-parallel eval (JAX's ``mesh=``) on the group's device
+    in place of ``device``: each rank serves its rows of every batch
+    (:func:`_serve_rows`; the ``bank`` holds the whole split on every rank,
+    which takes its rows), every rank returns the same summary, and rank 0
+    alone logs and saves.
     """
-    device = _resolve_device(device)
+    device = _resolve_device(device if group is None else group.device)
+    verbose = verbose and _is_writer(group)
     dcfg = data_config_from_options(read_data_cfg(datacfg))
     spec = _resolve_model(modelcfg)
     if model is None and not isinstance(quantize, str):
@@ -254,9 +312,10 @@ def run_validation(datacfg: str, modelcfg: Union[str, DarknetSpec],
         _log(f"   Number of test samples: {len(ds)}")
     errors, artifacts = _eval_pass(spec, model, loader, ctx,
                                    compute_dtype=compute_dtype, device=device,
-                                   quantize=quantize, add_s=add_s)
+                                   quantize=quantize, add_s=add_s,
+                                   group=group)
     summary = accuracy_summary(errors, ctx.diam)
-    if save and artifacts:
+    if save and artifacts and _is_writer(group):
         _save_predictions(dcfg, ds, artifacts)
     if verbose:
         _log(f"Results of {dcfg.name}")
@@ -321,7 +380,9 @@ def run_validation_multi(datacfg: Union[str, DataConfig],
                          compute_dtype=torch.bfloat16, device="cuda",
                          transfer: str = "rgb",
                          quantize: Union[bool, str] = False,
-                         verbose: bool = True) -> Dict[str, object]:
+                         verbose: bool = True,
+                         group: Optional[DPGroup] = None
+                         ) -> Dict[str, object]:
     """Multi-object OCCLUSION eval for one object (reference
     ``valid_multi.py:20-158``): class-picked boxes, ``fix_corner_order`` on
     the GT, the pixel-error accuracy table at 5..50 px.
@@ -335,9 +396,11 @@ def run_validation_multi(datacfg: Union[str, DataConfig],
     ``weightfile`` or ``model``, as :func:`run_validation` takes them, and
     ``transfer`` as it takes it (the bank keyed on the object too: the sweep
     reads the same frames under each object's labels), ``quantize`` as it
-    takes it (``True`` calibrates on this object's first batch).
+    takes it (``True`` calibrates on this object's first batch), and
+    ``group`` as it takes it.
     """
-    device = _resolve_device(device)
+    device = _resolve_device(device if group is None else group.device)
+    verbose = verbose and _is_writer(group)
     if isinstance(datacfg, DataConfig):
         options: Dict[str, str] = {}
         dcfg = datacfg
@@ -371,7 +434,7 @@ def run_validation_multi(datacfg: Union[str, DataConfig],
         _log(f"   Testing {name}...")
     errors, _ = _eval_pass(spec, model, loader, ctx, pick=pick,
                            fix_gt_corners=True, compute_dtype=compute_dtype,
-                           device=device, quantize=quantize)
+                           device=device, quantize=quantize, group=group)
     table = multi_accuracy_table(errors.errs_2d)
     if verbose:
         for th, acc in table.items():
@@ -459,6 +522,9 @@ class TrainRunConfig:
     # "bank" when the split fits the card's free memory with headroom
     # (_resolve_eval_transfer), else "rgb"
     eval_transfer: str = "auto"
+    # data parallel (JAX's ``mesh``): this process is one rank of the group,
+    # on the group's device in place of ``device`` (parallel/sharding.py)
+    group: Optional[DPGroup] = None
 
 
 def _resolve_fused_stem(rc: TrainRunConfig, device: torch.device) -> bool:
@@ -510,6 +576,20 @@ def _resolve_eval_transfer(rc: "TrainRunConfig", need_bytes: int,
     ``bank``."""
     if rc.eval_transfer != "auto":
         return rc.eval_transfer
+    group = rc.group
+    if group is None:
+        return _resolve_eval_transfer_local(rc, need_bytes, device)
+    # the choice must be the same on every rank (a rank's free memory may
+    # differ): rank 0 decides, everyone follows
+    pick = _resolve_eval_transfer_local(rc, need_bytes, device) \
+        if group.rank == 0 else "rgb"
+    code = torch.tensor([int(pick == "bank")], device=group.device)
+    dist.broadcast(code, group.src(), group=group.pg)
+    return "bank" if int(code.item()) else "rgb"
+
+
+def _resolve_eval_transfer_local(rc: "TrainRunConfig", need_bytes: int,
+                                 device: torch.device) -> str:
     free = hbm_free_bytes(device)
     if free is None:
         return "bank"
@@ -532,8 +612,9 @@ def _init_state(spec: DarknetSpec, initweightfile: Optional[str],
     """The train state, from ``initweightfile`` (a backbone: every layer
     but the last two blocks, ``seen`` reset to 0 as the reference does) or a
     generator seeded with ``rc.seed``; with ``rc.resume`` and a checkpoint
-    in ``rc.checkpoint_dir``, from that checkpoint.  Returns (state,
-    checkpointer or None)."""
+    in ``rc.checkpoint_dir``, from that checkpoint.  Under ``rc.group``
+    every rank restores, and rank 0's state is then broadcast to every rank
+    (``shard_train_state``).  Returns (state, checkpointer or None)."""
     net = spec.net
     gen = torch.Generator().manual_seed(rc.seed)
     if initweightfile:
@@ -544,11 +625,57 @@ def _init_state(spec: DarknetSpec, initweightfile: Optional[str],
         model = Darknet(spec, generator=gen, device=device)
     state = init_train_state(model, weight_decay=net.decay * net.batch,
                              momentum=net.momentum)
-    ckpt = Checkpointer(rc.checkpoint_dir) if rc.checkpoint_dir else None
+    ckpt = Checkpointer(rc.checkpoint_dir, group=rc.group) \
+        if rc.checkpoint_dir else None
     if rc.resume and ckpt is not None and ckpt.latest_step() is not None:
         ckpt.restore(state)
         _log(f"resumed from {rc.checkpoint_dir} at seen={state.seen}")
+    if rc.group is not None:
+        shard_train_state(rc.group, state)
     return state, ckpt
+
+
+def _train_device(rc: TrainRunConfig) -> torch.device:
+    """The run's device: the group's under data parallelism, else
+    ``rc.device``."""
+    return _resolve_device(rc.device if rc.group is None else rc.group.device)
+
+
+def _local_shard(ds: PoseDataset, batch_size: int, seen: int,
+                 group: Optional[DPGroup]) -> Tuple[int, int]:
+    """Data parallel (JAX's ``_multihost_local_shard``,
+    ``singleshotpose_tpu/drivers.py:870-888``): restrict ``ds`` to this
+    rank's shard of the dataset and divide the cfg's (global) batch over
+    the ranks.  Every rank keeps the run's loader seed, so the shuffles and
+    the multi-scale widths stay in lockstep; ``seen`` is global, but the
+    loader's multi-scale clock counts local samples, so the local seen is
+    returned.  Returns (the loader's batch, its seen)."""
+    if group is None:
+        return batch_size, seen
+    if batch_size % group.world:
+        raise ValueError(f"[net] batch={batch_size} must be divisible by the "
+                         f"{group.world} data-parallel ranks")
+    idx = process_local_indices(len(ds), process_id=group.rank,
+                                num_processes=group.world)
+    ds.lines = [ds.lines[i] for i in idx]
+    return batch_size // group.world, seen // group.world
+
+
+def _check_dp_options(rc: TrainRunConfig, backend: str) -> None:
+    """What a data-parallel run cannot take: a bank of the train data on the
+    device (``device_bank``, ``device_synth``: one process's loaders, as in
+    JAX, ``singleshotpose_tpu/drivers.py:793-797``, ``:1123-1126``) over more
+    than one rank, and captured steps at all."""
+    if rc.group is None:
+        return
+    if rc.group.world > 1 and backend in ("device_bank", "device_synth"):
+        raise ValueError(f"loader_backend={backend!r} is single-process; "
+                         "data parallel over several ranks takes the host "
+                         "loader")
+    if rc.precompile_buckets:
+        raise ValueError("precompile_buckets: a data-parallel train step "
+                         "is not captured (ROADMAP.md §1 item 3); train "
+                         "eagerly")
 
 
 def _train_epochs(epochs, train_one, evaluate, state: TrainState, processed,
@@ -565,11 +692,12 @@ def _train_epochs(epochs, train_one, evaluate, state: TrainState, processed,
             evaluate(epoch)
     except BaseException:
         # keep what was trained: a full-state save at the current batch
-        # before the error goes on
-        if ckpt is not None:
+        # before the error goes on (data parallel: rank 0's, with no
+        # barrier — the other ranks may be gone or waiting in a collective)
+        if ckpt is not None and _is_writer(rc.group):
             _log("checkpoint on failure")
             try:
-                ckpt.save(processed[0], state)
+                ckpt.save(processed[0], state, barrier=False)
             except Exception as e:      # the original error matters more
                 _log(f"checkpoint on failure failed: {e!r}")
         raise
@@ -589,11 +717,22 @@ def run_training(datacfg: str, modelcfg: Union[str, DarknetSpec],
     checkpoint in ``checkpoint_dir``, from that checkpoint.  Runs on
     ``run_cfg.device``, used as given (a CUDA device that is absent raises).
 
+    Data parallel (``run_cfg.group``, JAX's multi-host recipe: a torch rank
+    is a process): the cfg's batch is the global batch and must divide by
+    the world size; each rank trains on its ``process_local_indices`` shard
+    of the dataset with the local batch and the run's loader seed; the step
+    sums the gradients and synchronises BN over the group; the lr, the
+    weight decay and ``seen`` stay global; ``model.weights``, ``costs.npz``
+    and the checkpoints are rank 0's; ``eval_transfer="auto"`` is rank 0's
+    choice.  ``device_bank`` over several ranks and ``precompile_buckets``
+    raise.
+
     Returns {"state": the final TrainState, "best_acc": float,
     "history": dict of the training and testing curves}.
     """
     rc = run_cfg or TrainRunConfig()
-    device = _resolve_device(rc.device)
+    _check_dp_options(rc, rc.loader_backend)
+    device = _train_device(rc)
     dcfg = data_config_from_options(read_data_cfg(datacfg))
     spec = _resolve_model(modelcfg)
     net = spec.net
@@ -615,14 +754,18 @@ def run_training(datacfg: str, modelcfg: Union[str, DarknetSpec],
                                      pretrain_num_epochs=pretrain_num_epochs,
                                      im_width=dcfg.width, im_height=dcfg.height)
     step = make_train_step(loss_cfg, compute_dtype=rc.compute_dtype,
-                           fused_stem=_resolve_fused_stem(rc, device))
+                           fused_stem=_resolve_fused_stem(rc, device),
+                           group=rc.group)
     bg_files = get_all_files(rc.bg_dir) if os.path.isdir(rc.bg_dir) else []
     ds = PoseDataset(dcfg.train, train=True, bg_file_names=bg_files,
                      num_keypoints=spec.num_keypoints,
                      cache_decoded=rc.cache_decoded)
-    loader = Loader(ds, batch_size, schedule=SINGLE_SCHEDULE, seen=state.seen,
-                    num_workers=rc.num_workers, seed=rc.seed,
-                    backend=rc.loader_backend, out_uint8=True, device=device)
+    loader_batch, loader_seen = _local_shard(ds, batch_size, state.seen,
+                                             rc.group)
+    loader = Loader(ds, loader_batch, schedule=SINGLE_SCHEDULE,
+                    seen=loader_seen, num_workers=rc.num_workers,
+                    seed=rc.seed, backend=rc.loader_backend, out_uint8=True,
+                    device=device)
     if rc.precompile_buckets:
         step = _precompile_buckets(step, state, SINGLE_SCHEDULE.all_widths,
                                    batch_size, spec.num_keypoints)
@@ -654,7 +797,7 @@ def run_training(datacfg: str, modelcfg: Union[str, DarknetSpec],
     finally:
         window.close()
     _save_final_if_unsaved(spec, state, best[0], backupdir,
-                           processed[0] * batch_size)
+                           processed[0] * batch_size, rc.group)
     return {"state": state, "best_acc": best[0], "history": history}
 
 
@@ -679,7 +822,9 @@ def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
     them.  Loader backends: ``python`` (``auto``; the host synthesizer, u8)
     or ``device_synth`` (f32 scenes synthesized on ``run_cfg.device``, with
     ``synth_attempts``/``synth_propose_scale``; ``precompile_buckets``
-    captures f32 graphs); the single-object backends raise.
+    captures f32 graphs); the single-object backends raise.  Data parallel
+    (``run_cfg.group``) as :func:`run_training` runs it; ``device_synth``
+    over several ranks raises.
     """
     rc = run_cfg or TrainRunConfig(eval_every=20, eval_after=-1)
     backend = rc.loader_backend
@@ -691,7 +836,8 @@ def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
             "data/device_synth.py)")
     if backend == "auto":
         backend = "python"
-    device = _resolve_device(rc.device)
+    _check_dp_options(rc, backend)
+    device = _train_device(rc)
     dcfg = data_config_from_options(read_data_cfg(datacfg))
     spec = _resolve_model(modelcfg)
     net = spec.net
@@ -716,7 +862,8 @@ def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
                                      im_width=dcfg.width,
                                      im_height=dcfg.height, multi=True)
     step = make_train_step(loss_cfg, compute_dtype=rc.compute_dtype,
-                           fused_stem=_resolve_fused_stem(rc, device))
+                           fused_stem=_resolve_fused_stem(rc, device),
+                           group=rc.group)
     if linemod_root is None:
         linemod_root = os.path.dirname(os.path.dirname(
             os.path.dirname(train_lines[0])))
@@ -729,8 +876,10 @@ def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
                      cache_decoded=rc.cache_decoded)
     # device_synth yields f32 scenes on the device, the host synthesizer u8
     on_device = backend == "device_synth"
-    loader = Loader(ds, batch_size, schedule=MULTI_SCHEDULE, seen=state.seen,
-                    num_workers=rc.num_workers, seed=rc.seed,
+    loader_batch, loader_seen = _local_shard(ds, batch_size, state.seen,
+                                             rc.group)
+    loader = Loader(ds, loader_batch, schedule=MULTI_SCHEDULE,
+                    seen=loader_seen, num_workers=rc.num_workers, seed=rc.seed,
                     backend=backend, out_uint8=not on_device, device=device,
                     synth_attempts=rc.synth_attempts,
                     synth_propose_scale=rc.synth_propose_scale)
@@ -766,7 +915,7 @@ def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
     finally:
         window.close()
     _save_final_if_unsaved(spec, state, best[0], backupdir,
-                           processed[0] * batch_size)
+                           processed[0] * batch_size, rc.group)
     return {"state": state, "best_acc": best[0], "history": history}
 
 
@@ -785,19 +934,22 @@ def _multi_eval_and_keep_best(eval_datacfgs, spec, state, rc, device,
                                  batch_size=rc.eval_batch_size,
                                  num_workers=rc.num_workers,
                                  compute_dtype=rc.compute_dtype,
-                                 device=device,
-                                 transfer=transfer)["acc_table"][50]
+                                 device=device, transfer=transfer,
+                                 group=rc.group)["acc_table"][50]
             for dc in eval_datacfgs]
     mean_acc = float(np.mean(accs))
     history["testing_iters"].append(processed)
     history["testing_accuracies"].append(mean_acc)
-    np.savez(os.path.join(backupdir, "costs.npz"),
-             **{k: np.asarray(v) for k, v in history.items()})
+    writer = _is_writer(rc.group)
+    if writer:
+        np.savez(os.path.join(backupdir, "costs.npz"),
+                 **{k: np.asarray(v) for k, v in history.items()})
     if not mean_acc > best_acc:
         return best_acc
     path = os.path.join(backupdir, "model.weights")
     _log(f"[multi] best model so far! save weights to {path}")
-    W.save_weights(spec, state.model.state_dict(), path, seen=state.seen)
+    if writer:
+        W.save_weights(spec, state.model.state_dict(), path, seen=state.seen)
     return mean_acc
 
 
@@ -826,7 +978,8 @@ def _precompile_buckets(step: Callable, state: TrainState,
     (:func:`~singleshotpose_tpu_torch.training.capture_train_step`), after
     warm-up steps that leave the state as it was; a failed capture raises.
     On the CPU, eager PyTorch has nothing to compile: ``step`` itself.
-    Logs each bucket's time."""
+    Logs each bucket's time.  A data-parallel run never comes here
+    (:func:`_check_dp_options`); ``capture_train_step`` refuses its step."""
     device = next(state.model.parameters()).device
     if device.type != "cuda":
         _log(f"nothing to precompile on {device}: the step runs eagerly")
@@ -849,7 +1002,8 @@ class _ProfileWindow:
     run that ends inside the window writes what it traced."""
 
     def __init__(self, rc: TrainRunConfig, device: torch.device):
-        self.directory = rc.profile_dir
+        # data parallel: rank 0 traces its own steps
+        self.directory = rc.profile_dir if _is_writer(rc.group) else None
         self.start, self.stop = rc.profile_steps
         self.device = device
         self._prof = None
@@ -914,19 +1068,22 @@ def _eval_and_keep_best(datacfg, spec, state, rc, device, backupdir, history,
                              batch_size=rc.eval_batch_size,
                              num_workers=rc.num_workers,
                              compute_dtype=rc.compute_dtype, device=device,
-                             transfer=transfer)
+                             transfer=transfer, group=rc.group)
     acc = summary["acc_2d_proj"]
     history["testing_iters"].append(processed)
     history["testing_accuracies"].append(acc)
     history["testing_errors_pixel"].append(summary["mean_err_2d"])
     history["testing_errors_angle"].append(summary["mean_err_angle"])
-    np.savez(os.path.join(backupdir, "costs.npz"),
-             **{k: np.asarray(v) for k, v in history.items()})
+    writer = _is_writer(rc.group)
+    if writer:
+        np.savez(os.path.join(backupdir, "costs.npz"),
+                 **{k: np.asarray(v) for k, v in history.items()})
     if acc <= best_acc:
         return best_acc
     path = os.path.join(backupdir, "model.weights")
     _log(f"best model so far! save weights to {path}")
-    W.save_weights(spec, state.model.state_dict(), path, seen=state.seen)
+    if writer:
+        W.save_weights(spec, state.model.state_dict(), path, seen=state.seen)
     return acc
 
 
@@ -947,11 +1104,13 @@ def _drain_stats(pending, history, epoch) -> None:
 
 
 def _save_final_if_unsaved(spec: DarknetSpec, state: TrainState,
-                           best_acc: float, backupdir: str, seen: int) -> None:
+                           best_acc: float, backupdir: str, seen: int,
+                           group: Optional[DPGroup] = None) -> None:
     """A run that never reached the eval cadence would end with no
     ``model.weights`` (the best-model rule only writes on a new best eval):
-    write the final weights once, untouched when a best save happened."""
-    if best_acc != -float("inf") or not backupdir:
+    write the final weights once, untouched when a best save happened.
+    Data parallel: rank 0 writes."""
+    if best_acc != -float("inf") or not backupdir or not _is_writer(group):
         return
     os.makedirs(backupdir, exist_ok=True)
     path = os.path.join(backupdir, "model.weights")

@@ -28,6 +28,7 @@ from ..config import (NetConfig, RegionConfig, format_cfg_table,
                       net_config_from_block, parse_cfg,
                       region_config_from_block)
 from ..ops import stem
+from ..parallel.sharding import DPGroup
 from . import layers as L
 
 __all__ = ["ConvSpec", "MaxPoolSpec", "ReorgSpec", "RouteSpec",
@@ -210,7 +211,8 @@ class DarknetSpec:
         return format_cfg_table(self.blocks)
 
 
-def stem_supported(spec: DarknetSpec, compute_dtype, shape=None) -> bool:
+def stem_supported(spec: DarknetSpec, compute_dtype, shape=None,
+                   data_shards: int = 1) -> bool:
     """True when ``spec``'s first two layers are the fused stems' pattern
     (conv 3×3 s1 p1 3→32 with BN and leaky, then a 2×2/2 max pool, neither
     output re-read by a route) and the compute type is bf16 —
@@ -221,12 +223,17 @@ def stem_supported(spec: DarknetSpec, compute_dtype, shape=None) -> bool:
     package's batch gate as it stands there: B < 64, and H, W multiples of
     32 (its threshold, measured on its accelerator; ``chip_smoke.py
     --profile`` measures the fused and the unfused step on the card at
-    batch 64)."""
+    batch 64).  ``data_shards``: the data-parallel world size when ``shape``
+    is the global batch's — the gate then applies to the per-rank batch
+    (each rank runs the kernels on its own rows), which must be a whole,
+    nonzero share of B."""
     if compute_dtype != torch.bfloat16 or len(spec.layers) < 2:
         return False
     if shape is not None:
         B, H, W = shape[0], shape[1], shape[2]
-        if B >= 64 or H % 32 or W % 32:
+        if B % data_shards or B < data_shards:
+            return False
+        if B // data_shards >= 64 or H % 32 or W % 32:
             return False
     c, m = spec.layers[0], spec.layers[1]
     return (isinstance(c, ConvSpec) and isinstance(m, MaxPoolSpec)
@@ -234,6 +241,10 @@ def stem_supported(spec: DarknetSpec, compute_dtype, shape=None) -> bool:
             and c.stride == 1 and c.pad == 1 and c.batch_normalize
             and c.activation == "leaky" and m.size == 2 and m.stride == 2
             and 0 not in spec._live and 1 not in spec._live)
+
+
+def _world(group: Optional[DPGroup]) -> int:
+    return 1 if group is None else group.world
 
 
 # ---------------------------------------------------------------------------
@@ -366,21 +377,26 @@ class ConvBlock(nn.Module):
         return (self.weight.detach() * inv[:, None, None, None],
                 self.bias.detach() - self.running_mean * inv)
 
-    def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, compute_dtype=None,
+                group: Optional[DPGroup] = None) -> torch.Tensor:
         """Conv, then BN or the f32 bias add.  In training mode BN normalizes
         with the batch statistics and updates the running buffers in place
         (``DarknetSpec.apply(train=True)``, ``darknet.py:373-391``); in eval
         mode it uses the running statistics.  With a compute dtype the conv
         output is in that dtype and BN returns it in that dtype; the head's
-        f32 bias add promotes the head to f32."""
+        f32 bias add promotes the head to f32.  ``group``: the statistics
+        and the running update's count cover the data-parallel group's
+        global batch (sync-BN)."""
         y = _conv(self.spec, x, self.weight, compute_dtype)
         if not self.spec.batch_normalize:
             return y + L.per_channel(self.bias, y)
         if not self.training:
             return L.batch_norm(y, self.scale, self.bias, self.running_mean,
                                 self.running_var)
-        y, mean, var = L.batch_norm_train(y, self.scale, self.bias)
-        self.update_running(mean, var, y.shape[0] * y.shape[2] * y.shape[3])
+        y, mean, var = L.batch_norm_train(y, self.scale, self.bias,
+                                          group=group)
+        self.update_running(mean, var, y.shape[0] * y.shape[2] * y.shape[3]
+                            * _world(group))
         return y
 
     @torch.no_grad()
@@ -444,19 +460,28 @@ class Darknet(nn.Module):
         return m.weight, m.bias
 
     def forward(self, images: torch.Tensor, compute_dtype=None,
-                fused_stem: bool = False) -> torch.Tensor:
-        """``images`` NHWC float in [0, 1] → the raw head, NHWC."""
+                fused_stem: bool = False,
+                group: Optional[DPGroup] = None) -> torch.Tensor:
+        """``images`` NHWC float in [0, 1] → the raw head, NHWC.  ``group``:
+        ``images`` are this rank's rows of a data-parallel batch, and
+        training-mode BN is synchronised over the group (the fused stem's
+        too, gated on the per-rank batch)."""
         start, x = 0, _to_nchw(images)
+        world = _world(group)
         if fused_stem and self.training and stem_supported(
-                self.spec, compute_dtype, tuple(images.shape)):
+                self.spec, compute_dtype,
+                (images.shape[0] * world,) + tuple(images.shape[1:]),
+                data_shards=world):
             B, H, W, _ = images.shape
             c0 = getattr(self, self.spec.layers[0].name)
             pooled, mean, var = stem.stem_conv_bn_pool_train(
-                images.float().contiguous(), c0.weight, c0.scale, c0.bias)
-            c0.update_running(mean, var, B * H * W)
+                images.float().contiguous(), c0.weight, c0.scale, c0.bias,
+                group)
+            c0.update_running(mean, var, B * H * W * world)
             start, x = 2, _to_nchw(pooled)
         out = _walk(self.spec, x,
-                    lambda s, x: getattr(self, s.name)(x, compute_dtype),
+                    lambda s, x: getattr(self, s.name)(x, compute_dtype,
+                                                       group),
                     self._fc, start=start)
         return _to_nhwc(out)
 

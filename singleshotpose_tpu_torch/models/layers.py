@@ -10,9 +10,12 @@ replicate-padded stride-1 pool and darknet's ``reorg`` channel order.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.sharding import DPGroup, sync_sum
 
 __all__ = ["BN_EPS", "BN_MOMENTUM", "batch_norm", "batch_norm_train",
            "running_stat_update", "leaky_relu", "max_pool",
@@ -40,7 +43,7 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                     eps: float = BN_EPS):
+                     eps: float = BN_EPS, group: Optional[DPGroup] = None):
     """Training-mode batch norm of NCHW ``x`` over (N, H, W), the JAX
     formula written out (``singleshotpose_tpu/models/layers.py:62-84``):
     f32 math, ``mean = E[x]``, the *biased* ``var = E[x²] − mean²``, then
@@ -48,13 +51,25 @@ def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     The gradient flows through the batch statistics.  ``F.batch_norm`` is
     not used: its variance, eps handling and backward are not these.
 
+    ``group``: sync-BN over a data-parallel group (JAX gets it from GSPMD's
+    mean over the sharded batch axis): E[x] and E[x²] cover the global
+    batch — each rank's are summed over the ranks
+    (``parallel.sharding.sync_sum``, whose backward sums the cross-rank
+    gradient terms) and divided by the world size.  The ranks' batches are
+    the same size (the drivers split the global batch evenly), so this is
+    the global mean; with a group of one it is the ungrouped form bit for
+    bit.
+
     Returns (y, batch_mean, batch_var); the statistics are f32 and still
     attached to the graph (detach them for :func:`running_stat_update`).
     """
     x32 = x.float()
     dims = (0, 2, 3)
     mean = x32.mean(dim=dims)
-    var = torch.square(x32).mean(dim=dims) - torch.square(mean)
+    sq = torch.square(x32).mean(dim=dims)
+    if group is not None:
+        mean, sq = sync_sum(torch.stack([mean, sq]), group) / group.world
+    var = sq - torch.square(mean)
     return batch_norm(x, scale, bias, mean, var, eps), mean, var
 
 

@@ -14,6 +14,13 @@ CPU tensor it runs
 ``build_targets`` uses off a TPU (``singleshotpose_tpu/ops/targets.py:113-117``).
 There is no fallback from the one to the other: a CUDA tensor runs the
 kernel or raises.
+
+Data parallel (the counterpart of JAX's ``max_corner_confidence_sharded``,
+``pallas_kernels.py:126-151``): each rank's train step calls
+:func:`max_corner_confidence` on its own rows, with no collective.  Every
+row's result depends on that row alone, so a rank's output equals those
+rows of the call on the global batch bit for bit; the loss's stats are then
+summed over the ranks by the step.
 """
 
 from __future__ import annotations

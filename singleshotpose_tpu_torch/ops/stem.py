@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models import layers as L
+from ..parallel.sharding import all_reduce_sum_
 from . import cuda_build
 
 __all__ = ["stem_conv_pool_infer", "stem_conv_pool_infer_reference",
@@ -478,19 +479,31 @@ def _incoming_grad(g: torch.Tensor) -> torch.Tensor:
 class _StemTrain(torch.autograd.Function):
     """``_stem_core`` (``singleshotpose_tpu/ops/stem.py:450-474``):
     forward K3 + K4, backward K5 + K6; the image's gradient is a structural
-    zero (``None``), as in ``_stem_core_bwd``."""
+    zero (``None``), as in ``_stem_core_bwd``.
+
+    With a data-parallel ``group`` it follows ``_fwd_impl``/``_bwd_impl``
+    with ``axis_name`` (``:372-376``, ``:412-422``): K3's (2, 32) sums are
+    summed over the ranks before the statistics, with the global count, and
+    the backward sums a copy of K5's for c1/c2, which every rank must agree
+    on.  dW and the returned ``dscale``/``dbias`` stay the rank's own: the
+    train step's gradient all-reduce sums them (returning the global sums
+    would make the BN gradients world-size times too large)."""
 
     @staticmethod
-    def forward(ctx, images, w, scale, bias):
+    def forward(ctx, images, w, scale, bias, group):
         B, H, W, _ = images.shape
-        n = _count(B * H * W, images.device)
+        world = 1 if group is None else group.world
+        n = _count(B * H * W * world, images.device)
         y, sums = stem_conv_stats(images, w)
+        if group is not None:
+            all_reduce_sum_([sums], group)
         mean = sums[0] / n
         var = sums[1] / n - mean * mean
         inv = scale * torch.rsqrt(var + L.BN_EPS)
         shift = bias - mean * inv
         pooled = stem_bn_pool(y, inv, shift)
         ctx.save_for_backward(images, y, mean, var, inv, shift, n)
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return pooled, mean, var
 
@@ -501,21 +514,33 @@ class _StemTrain(torch.autograd.Function):
         g = _incoming_grad(g_pooled)
         rstd = torch.rsqrt(var + L.BN_EPS)
         sums = stem_bwd_sums(y, g, inv, shift, mean, rstd)
-        c1 = inv * sums[0] / n
-        c2 = inv * sums[1] / n
+        gsums = sums
+        if ctx.group is not None:
+            gsums = sums.clone()
+            all_reduce_sum_([gsums], ctx.group)
+        c1 = inv * gsums[0] / n
+        c2 = inv * gsums[1] / n
         dw = stem_bwd_dw(y, g, images, inv, shift, mean, rstd, c1, c2)
-        return None, dw, sums[1], sums[0]
+        return None, dw, sums[1], sums[0], None
 
 
 def stem_conv_bn_pool_train(images: torch.Tensor, w: torch.Tensor,
-                            scale: torch.Tensor, bias: torch.Tensor):
+                            scale: torch.Tensor, bias: torch.Tensor,
+                            group=None):
     """Fused stem forward for training
-    (``singleshotpose_tpu/ops/stem.py:stem_conv_bn_pool_train``).
+    (``singleshotpose_tpu/ops/stem.py:stem_conv_bn_pool_train``; with
+    ``group`` its ``stem_conv_bn_pool_train_sharded``).
 
     Args:
       images: (B, H, W, 3) f32 in [0, 1], H and W even.
       w: (32, 3, 3, 3) f32 OIHW conv weights.
       scale, bias: (32,) f32 BN affine parameters.
+      group: a ``parallel.sharding.DPGroup`` when ``images`` are this
+        rank's rows of a data-parallel batch: the kernels run on them
+        unchanged, and the BN statistics and the backward's c1/c2 sums are
+        all-reduced (sync-BN; the batch statistics returned are the global
+        batch's), while the gradients returned are this rank's share, for
+        the step's gradient all-reduce to sum.
 
     Returns (pooled, batch_mean, batch_var_biased):
       pooled: (B, H//2, W//2, 32) bf16, contiguous NHWC —
@@ -530,7 +555,7 @@ def stem_conv_bn_pool_train(images: torch.Tensor, w: torch.Tensor,
     _check_train_images(images)
     _check_tensor("w", w, (_CO, _CI, 3, 3), torch.float32, images.device)
     _check_vectors(images.device, scale=scale, bias=bias)
-    return _StemTrain.apply(images, w, scale, bias)
+    return _StemTrain.apply(images, w, scale, bias, group)
 
 
 stem_conv_bn_pool_train.grad_copies = 0

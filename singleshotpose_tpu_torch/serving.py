@@ -277,6 +277,10 @@ def load_serving(path: str, device="cuda"):
     ``ops/int8_conv.py``), but no cfg, weight file or model code: where
     JAX's artifact loads with jax alone, this one loads with torch and the
     port's ops.
+
+    A floating input is cast to the program's float input dtype, as JAX's
+    loaded artifact takes it with x64 off (a float64 numpy array runs as
+    f32).
     """
     from torch.export.passes import move_to_device_pass
 
@@ -285,11 +289,18 @@ def load_serving(path: str, device="cuda"):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"load_serving: device {device}: CUDA is not "
                            "available (pass device='cpu' to run on the CPU)")
-    module = move_to_device_pass(torch.export.load(path), device).module()
+    program = torch.export.load(path)
+    (name,) = program.graph_signature.user_inputs
+    dtype = next(n.meta["val"].dtype for n in program.graph.nodes
+                 if n.op == "placeholder" and n.name == name)
+    module = move_to_device_pass(program, device).module()
 
     @torch.inference_mode()
     def serve(images):
-        return module(torch.as_tensor(images).to(device))
+        x = torch.as_tensor(images)
+        if x.is_floating_point() and dtype.is_floating_point:
+            x = x.to(dtype)
+        return module(x.to(device))
 
     return serve
 

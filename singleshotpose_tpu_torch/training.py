@@ -26,15 +26,18 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from .data.device_augment import INV255
 from .models.darknet import Darknet
 from .ops.losses import RegionLossConfig, region_loss
+from .parallel.sharding import (DPGroup, all_reduce_grads, all_reduce_sum_,
+                                broadcast_)
 
-__all__ = ["TrainState", "init_train_state", "schedule_lr", "sgd_update",
+__all__ = ["TrainState", "init_train_state", "shard_train_state",
+           "schedule_lr", "sgd_update",
            "make_train_step", "CapturedTrainStep", "capture_train_step"]
 
 Scalar = Union[float, int, torch.Tensor]
@@ -97,6 +100,23 @@ def _momentum_buffers(optimizer: torch.optim.SGD,
     return bufs
 
 
+@torch.no_grad()
+def shard_train_state(group: DPGroup, state: TrainState) -> TrainState:
+    """Rank 0's train state on every rank of ``group``, in place (the
+    counterpart of JAX's ``parallel/sharding.shard_train_state``, which
+    places every leaf on the mesh): the parameters, the BN running
+    statistics, the momentum buffers (made as zeros first where there are
+    none yet, which the first step would do) and ``seen``, broadcast on a
+    flat buffer per dtype.  Returns ``state``."""
+    params = list(state.model.parameters())
+    seen = torch.tensor([int(state.seen)], dtype=torch.int64,
+                        device=group.device)
+    broadcast_([*(t.data for t in params), *state.model.buffers(),
+                *_momentum_buffers(state.optimizer, params), seen], group)
+    state.seen = int(seen.item())
+    return state
+
+
 def sgd_update(optimizer: torch.optim.SGD, lr: Scalar) -> None:
     """One darknet SGD step on the parameters that have a gradient, in place
     (``singleshotpose_tpu/training.py:sgd_apply``), with the momentum and
@@ -127,7 +147,8 @@ def _device_scalar(x: Scalar, dtype: torch.dtype,
 
 def make_train_step(loss_cfg: RegionLossConfig, *,
                     compute_dtype=torch.bfloat16,
-                    fused_stem: bool = False) -> Callable:
+                    fused_stem: bool = False,
+                    group: Optional[DPGroup] = None) -> Callable:
     """The train step ``step(state, images, target, lr, epoch) -> stats``.
 
     ``images`` NHWC, uint8 (scaled to [0, 1] on the device as the JAX
@@ -140,6 +161,16 @@ def make_train_step(loss_cfg: RegionLossConfig, *,
     place on ``state``.  ``stats`` are device tensors (no host sync).
     ``fused_stem``: layers 0–1 through the fused train stem where the model
     admits it (``Darknet.forward``), as the JAX step takes it.
+
+    ``group``: a data-parallel step (the JAX step on a ``make_mesh(dp)``
+    mesh), ``images`` and ``target`` this rank's rows of the global batch.
+    BN is synchronised over the group, the gradients are summed over it
+    before the update (darknet's loss is a sum, so this is the global
+    batch's gradient; ``lr`` and the weight decay stay the global batch's,
+    as the drivers set them), the stats are summed too (the logged loss is
+    the global one) and ``seen`` grows by the global batch.  The state must
+    start equal on every rank (:func:`shard_train_state`);
+    every rank then holds the same bytes after each step.
     """
     scale_u8 = {}
 
@@ -156,15 +187,19 @@ def make_train_step(loss_cfg: RegionLossConfig, *,
                 scale = scale_u8[dev] = torch.full((), INV255, device=dev)
             images = images.float() * scale
         model.train()
-        head = model(images, compute_dtype, fused_stem)
+        head = model(images, compute_dtype, fused_stem, group)
         loss, stats = region_loss(
             head, target, _device_scalar(epoch, torch.int64, dev), loss_cfg)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            all_reduce_grads(model.parameters(), group)
+            all_reduce_sum_(list(stats.values()), group)
         sgd_update(opt, _device_scalar(lr, torch.float32, dev))
-        state.seen += images.shape[0]
+        state.seen += images.shape[0] * (1 if group is None else group.world)
         return stats
 
+    step.group = group
     return step
 
 
@@ -256,8 +291,13 @@ def capture_train_step(step: Callable, state: TrainState,
     state's tensors, so capture after any checkpoint restore
     (``optimizer.load_state_dict`` replaces the momentum buffers).
 
-    Needs the state on a CUDA device; a failed capture raises.
+    Needs the state on a CUDA device; a failed capture raises, and so does
+    a data-parallel ``step`` (its collectives are not captured: gloo's
+    cannot be, and a captured NCCL step is not ported).
     """
+    if getattr(step, "group", None) is not None:
+        raise ValueError("a data-parallel train step cannot be captured "
+                         "(ROADMAP.md §1 item 3); run it eagerly")
     device = next(state.model.parameters()).device
     if device.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA device; the state is on "

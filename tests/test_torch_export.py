@@ -146,6 +146,24 @@ def test_float_input_symbolic_batch(nets, frames, tmp_path):
         _equal(loaded(x[:b]), serve(x[:b]))
 
 
+def test_float64_array_runs_as_f32(nets, tmp_path):
+    """A float64 numpy array (``np.random.rand``) through a float-input
+    artifact is cast to the program's f32, as JAX's loaded artifact takes
+    it with x64 off: the boxes equal ``make_serving_fn``'s on the same
+    array and on the array as f32, bit for bit."""
+    _, tspec, _, tf = nets["single"]
+    loaded = _save_load(TS.export_serving(
+        tspec, tf, width=SIZE, height=SIZE, input_dtype=torch.float32),
+        tmp_path / "a.pt2")
+    x = np.random.RandomState(25).rand(2, SIZE, SIZE, 3)
+    assert x.dtype == np.float64
+    serve = TS.make_serving_fn(tspec, tf, pick=("best",))
+    got = loaded(x)
+    assert got.dtype == torch.float32
+    _equal(got, serve(x))
+    _equal(got, serve(x.astype(np.float32)))
+
+
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
 def test_artifact_matches_jax_artifact(nets, frames, tmp_path, kind):
     jspec, tspec, jp, tp = nets["int8" if kind == "int8" else "single"]

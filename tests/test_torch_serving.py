@@ -223,6 +223,7 @@ from singleshotpose_tpu_torch.ops import (confidence, cuda_build, decode,
                                           int8_conv, losses,
                                           max_corner_confidence, pnp, stem,
                                           targets)
+from singleshotpose_tpu_torch.parallel import multihost, sharding
 from singleshotpose_tpu_torch.utils import geometry, labels, meshply
 import chip_smoke                    # the card's smoke script imports the same
 spec = zoo.yolo_pose_single(test_size=64)
