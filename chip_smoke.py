@@ -150,6 +150,23 @@ phases; any failure propagates and the exit code is nonzero:
      the boxes' gap printed; beside them one NCCL rank of ``--dp 1``: its
      step = the step with no group bit for bit, ``cli valid --dp 1`` (in
      process) = ``cli valid``.
+ 19. native: a small corpus written as files (64 train and 16 held-out
+     640x480 shaded renders as JPEG, PNG masks, 8 JPEG backgrounds); the
+     native C++ decoder (``singleshotpose_tpu_torch/native``) built with
+     g++ and its build time printed.  Where it builds: native against
+     python train batches of 8 at 416² (host clock, 8 workers; labels
+     equal, images within ``tests/test_native.py``'s bounds),
+     ``run_training(loader_backend="native")`` for one epoch of eager
+     full-width steps (K2–K6 once a step, counted), the frame bank built
+     with the native decoder and with PIL (seconds each).  Where it does
+     not: g++'s error, ``Loader(backend="native")`` raising it and ``auto``
+     resolving to ``python``.  Either way ``run_validation`` at 672² with
+     ``transfer="rgb"`` and ``"yuv420"`` (K1 counted in each; without the
+     library the planes are encoded from the decoded frames with numpy and
+     fed in place of ``drivers._eval_loader``'s); the yuv420 input
+     converted on the card = the CPU's conversion bit for bit and within
+     the luma/PSNR gate of the rgb input; bytes a batch, and the copy and
+     the serve timed both ways in turns.
 
 Phases 4–5 and 9 are the serving paths and phase 7's fused steps and phase
 10 the training paths: each kernel's launch count is set to 0 just before
@@ -157,8 +174,9 @@ its path and read just after; so are phase 14's eager steps fed from the
 bank (K2–K6) and its two evals (K1), and phase 15's eager steps fed from
 the synth (K2–K6), phase 16's int8 serves and evals (the int8
 conv), phase 17's calls of the loaded artifacts (K1, the int8
-conv), and in phase 18 each rank's DP steps (K2–K6) and its share of the
-DP eval (K1).  On the captured paths (11–13) a kernel's
+conv), in phase 18 each rank's DP steps (K2–K6) and its share of the
+DP eval (K1), and in phase 19 the native-fed steps (K2–K6) and each
+eval (K1).  On the captured paths (11–13) a kernel's
 wrapper runs only while a graph records it, so what is counted there is
 captures: the graphs that recorded it (and their replays, each of which
 launches it once).  The line before the last is the kernel summary (JSON:
@@ -168,8 +186,8 @@ bound and what sets it);
 the last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card;
 without one it exits nonzero before any result.  Reads image files only in
 phases 14 and 15, and only when Pillow imports there (to time the host
-loader and the host synthesizer, and the shaded script's JPEG round trip);
-imports no jax.
+loader and the host synthesizer, and the shaded script's JPEG round trip),
+and in phase 19, which needs Pillow; imports no jax.
 """
 
 from __future__ import annotations
@@ -309,6 +327,15 @@ HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def _reading_renders(frames):
+    """The loaders' decoders reading ``frames`` (path → array) from memory:
+    ``pipeline.load_image`` answers from it, and no native decoder is
+    found (it reads files)."""
+    return mock.patch.multiple(
+        pipeline, load_image=frames.__getitem__,
+        _native_decoder=lambda n: (None, "the frames are read from memory"))
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -2079,9 +2106,11 @@ def _script(name: str):
     return mod
 
 
-def _data_corpus(root: str):
-    """Render DATA_FRAMES + DATA_EVAL_FRAMES shaded LINEMOD-size frames
-    (``data/shaded.py``) and DATA_BACKGROUNDS noise backgrounds in memory;
+def _data_corpus(root: str, n_train: int = DATA_FRAMES,
+                 n_eval: int = DATA_EVAL_FRAMES,
+                 n_backgrounds: int = DATA_BACKGROUNDS):
+    """Render ``n_train`` + ``n_eval`` shaded LINEMOD-size frames
+    (``data/shaded.py``) and ``n_backgrounds`` noise backgrounds in memory;
     write the label files, the two lists, the mesh and a ``.data`` under
     ``root``.  Returns (the ``.data`` path, the train list, the background
     paths, the frames by path: images, 2-D masks, backgrounds)."""
@@ -2089,7 +2118,7 @@ def _data_corpus(root: str):
     colors = rng.randint(60, 255, (6, 3))
     os.makedirs(f"{root}/labels", exist_ok=True)
     frames, paths = {}, []
-    for i in range(DATA_FRAMES + DATA_EVAL_FRAMES):
+    for i in range(n_train + n_eval):
         img, mask, lab, _, _ = render_frame(rng, colors)
         path = f"{root}/JPEGImages/00{i:04d}.jpg"
         frames[path] = img
@@ -2097,11 +2126,11 @@ def _data_corpus(root: str):
         np.savetxt(f"{root}/labels/00{i:04d}.txt", lab[None])
         paths.append(path)
     bgs = []
-    for k in range(DATA_BACKGROUNDS):
+    for k in range(n_backgrounds):
         bgs.append(f"{root}/bg/{k:04d}.jpg")
         frames[bgs[-1]] = rng.randint(0, 256, (375, 500, 3), np.uint8)
-    for name, part in (("train", paths[:DATA_FRAMES]),
-                       ("test", paths[DATA_FRAMES:])):
+    for name, part in (("train", paths[:n_train]),
+                       ("test", paths[n_train:])):
         with open(f"{root}/{name}.txt", "w") as f:
             f.write("\n".join(part) + "\n")
     verts = SHADED_PTS[1:]
@@ -2171,7 +2200,7 @@ def phase_device_data(spec, dev, card: str) -> dict:
               f"{DATA_BACKGROUNDS} backgrounds in "
               f"{time.perf_counter() - t_phase:.1f} s")
         host_ms = _host_loader_ms(train_list, bgs, frames, root)
-        with mock.patch.object(pipeline, "load_image", frames.__getitem__):
+        with _reading_renders(frames):
             out = _device_data_checks(spec, dev, card, datacfg, train_list,
                                       bgs, host_ms)
         t = time.perf_counter()
@@ -2422,7 +2451,7 @@ def _synth_trainer(multi, dev, card: str, datacfg: str, root: str, frames):
                         num_workers=0, log_every=2, bg_dir=f"{root}/no_bg",
                         eval_every=20, eval_after=-1)
     t = time.perf_counter()
-    with mock.patch.object(pipeline, "load_image", frames.__getitem__), \
+    with _reading_renders(frames), \
             _counting_captures():
         result = run_training_multi(datacfg, multi, None, 0, None, root, rc)
     per_graph = [c[1:] for c in _CountingGraph.captured]
@@ -3151,7 +3180,7 @@ def phase_int8_cli(spec, model, dev, card: str, keep: str) -> int:
         datacfg, _, _, frames = _data_corpus(root)
         wfile, qfile = f"{root}/model.weights", f"{root}/q.npz"
         W.save_weights(spec, model.state_dict(), wfile)
-        with mock.patch.object(pipeline, "load_image", frames.__getitem__):
+        with _reading_renders(frames):
             _check(cli_main(["quantize", "--datacfg", datacfg, "--modelcfg",
                              "yolo-pose", "--weightfile", wfile, "--out",
                              qfile, "--calib_images", str(INT8_CALIB),
@@ -3628,7 +3657,7 @@ def _dp_gloo_rank(spec, dev, rank: int, port: int, root: str) -> dict:
                               DP_TIMED)
     del state, step
     stem.stem_conv_pool_infer.launches = 0
-    with mock.patch.object(pipeline, "load_image", _dp_frames(root).__getitem__):
+    with _reading_renders(_dp_frames(root)):
         out["eval"] = run_validation(
             f"{root}/obj.data", spec, model=_dp_model(spec, dev),
             batch_size=TRAIN_BATCH, num_workers=4, verbose=False,
@@ -3660,8 +3689,7 @@ def _dp_nccl_rank(spec, dev, root: str) -> dict:
     args = ["valid", "--datacfg", f"{root}/obj.data", "--modelcfg",
             "yolo-pose", "--weightfile", f"{root}/dp.weights",
             "--batch_size", str(TRAIN_BATCH), "--device", dev.type]
-    with mock.patch.object(pipeline, "load_image",
-                           _dp_frames(root).__getitem__), \
+    with _reading_renders(_dp_frames(root)), \
             mock.patch.object(drivers_mod, "run_validation",
                               lambda *a, **k: summaries.append(
                                   real(*a, **k)) or summaries[-1]):
@@ -3798,7 +3826,7 @@ def phase_dp(spec, dev, card: str) -> dict:
         gt, valid, pred = _dp_k2_inputs(dev)
         ref_k2 = mcc.max_corner_confidence(gt, valid, pred)
         ref, ref_losses, ref_first, _ = _dp_steps(spec, dev)
-        with mock.patch.object(pipeline, "load_image", frames.__getitem__):
+        with _reading_renders(frames):
             ref_eval, ref_eval8 = (
                 run_validation(datacfg, spec, model=model, batch_size=b,
                                num_workers=4, device=dev, verbose=False)
@@ -3931,6 +3959,327 @@ def phase_dp(spec, dev, card: str) -> dict:
             "k1": [r["k1"] for r in ranks]}
 
 
+# the native phase (19): a small corpus written as real files (640x480 JPEG
+# frames, PNG masks, JPEG backgrounds), read by the native C++ decoder
+# (singleshotpose_tpu_torch/native) where its library builds here, and the
+# yuv420 eval transfer through K1 either way
+NATIVE_FRAMES, NATIVE_EVAL_FRAMES, NATIVE_BACKGROUNDS = 64, 16, 8
+NATIVE_EPOCHS = 2            # host train batches: 2 epochs of 8, the first
+NATIVE_SERVES = 10           # dropped; serves (and copies) timed a transfer
+
+
+def _write_files(frames) -> None:
+    """``frames`` (path → array) as files: JPEG quality 92, PNG masks."""
+    from PIL import Image
+    for path, a in frames.items():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(a).save(path, **({} if path.endswith(".png")
+                                         else {"quality": 92}))
+
+
+def _yuv420_encode(rgb: np.ndarray):
+    """(B,H,W,3) u8 frames → (y (B,H,W), cbcr (B,H/2,W/2,2)) u8 planes, as
+    the native decoder gives them: full-range BT.601 (JFIF), each plane
+    rounded, chroma the rounded 2×2 mean."""
+    f = rgb.astype(np.float64)
+    r, g, b = f[..., 0], f[..., 1], f[..., 2]
+
+    def u8(x):
+        return np.clip(np.rint(x), 0, 255).astype(np.int32)
+
+    y = u8(0.299 * r + 0.587 * g + 0.114 * b)
+    c = np.stack([u8(128 - 0.168735892 * r - 0.331264108 * g + 0.5 * b),
+                  u8(128 + 0.5 * r - 0.418687589 * g - 0.081312411 * b)], -1)
+    c = (c[:, 0::2, 0::2] + c[:, 1::2, 0::2] + c[:, 0::2, 1::2]
+         + c[:, 1::2, 1::2] + 2) >> 2
+    return y.astype(np.uint8), c.astype(np.uint8)
+
+
+def _native_batches(train_list: str, bgs) -> dict:
+    """Train batches of TRAIN_BATCH at TRAIN_SIZE², the native backend
+    against the python one, 8 workers each, host clock from batch to batch
+    over NATIVE_EPOCHS epochs after the first batch; the first batches'
+    labels equal and images within ``tests/test_native.py``'s bounds (mean
+    difference < 0.01, 97 % of values within 0.1, in [0, 1] units)."""
+    times, first = {}, {}
+    for backend in ("native", "python"):
+        ld = Loader(PoseDataset(train_list, train=True, bg_file_names=bgs),
+                    TRAIN_BATCH, fixed_shape=(TRAIN_SIZE, TRAIN_SIZE),
+                    seed=25, num_workers=8, out_uint8=True, backend=backend)
+        ms, t = [], time.perf_counter()
+        for _ in range(NATIVE_EPOCHS):
+            for batch in ld:
+                ms.append((time.perf_counter() - t) * 1e3)
+                first.setdefault(backend, batch)
+                t = time.perf_counter()
+        times[backend] = ms[1:]
+    (ni, nl), (pi, pl) = first["native"], first["python"]
+    diff = np.abs(ni.astype(np.float32) - pi.astype(np.float32)) / 255.0
+    labels_equal = bool(np.allclose(nl, pl, rtol=1e-6, atol=1e-6))
+    nat, py = (statistics.median(times[b]) for b in ("native", "python"))
+    print(f"[native] train batch of {TRAIN_BATCH} at {TRAIN_SIZE}², u8, 8 "
+          f"workers, host clock, median of {len(times['native'])} (min-max):"
+          f" native {nat:.4f} ms ({min(times['native']):.4f}-"
+          f"{max(times['native']):.4f}), python {py:.4f} ms "
+          f"({min(times['python']):.4f}-{max(times['python']):.4f}), "
+          f"{py / nat:.1f}x; first batches: labels equal {labels_equal}, "
+          f"image difference mean {diff.mean():.5f}, within 0.1 "
+          f"{(diff < 0.1).mean():.5f}")
+    _check(labels_equal and diff.mean() < 0.01 and (diff < 0.1).mean() > 0.97,
+           "the native batch is not the python batch")
+    return {"native_ms": nat, "python_ms": py}
+
+
+def _native_trainer(spec, dev, card: str, datacfg: str, root: str):
+    """``drivers.run_training(loader_backend="native")`` for one epoch of
+    eager batch-8 416² steps of the full-width ``yolo_pose_single`` from
+    seeded weights, as ``cli train --loader_backend native`` runs it;
+    K2–K6 counted from 0 over the epoch, once a step each."""
+    from singleshotpose_tpu_torch.drivers import run_training
+    rc = TrainRunConfig(loader_backend="native", max_epochs_override=1,
+                        num_workers=8, log_every=2, bg_dir=f"{root}/bg",
+                        eval_every=1000, eval_after=1000, device=str(dev))
+    for f in _TRAIN_COUNTED:
+        f.launches = 0
+    t = time.perf_counter()
+    result = run_training(datacfg, spec, None, 15, rc)
+    torch.cuda.synchronize()
+    launches = _launches()
+    losses = result["history"]["training_losses"]
+    steps = NATIVE_FRAMES // TRAIN_BATCH
+    print(f"[native] run_training(loader_backend='native'), yolo_pose_single "
+          f"batch {TRAIN_BATCH} {TRAIN_SIZE}², one epoch: {len(losses)} "
+          f"steps, losses " + " ".join(f"{x:.6g}" for x in losses)
+          + f"; K2-K6 launched {launches}; {time.perf_counter() - t:.1f} s "
+          f"[{card}]")
+    _check(len(losses) == steps and np.isfinite(losses).all(),
+           "run_training on the native loader did not train its epoch")
+    _check(launches == [steps] * 5,
+           f"K2-K6 launched {launches} times in {steps} native-fed steps")
+    return launches
+
+
+def _native_bank(train_list: str, bgs) -> dict:
+    """The frame bank's build (``device_bank.build_frame_bank``) on the
+    train split, native decode against PIL: seconds each, host clock."""
+    from singleshotpose_tpu_torch.data.device_bank import build_frame_bank
+    from singleshotpose_tpu_torch.native import NativeLoader
+    ds = PoseDataset(train_list, train=True, bg_file_names=bgs)
+    t = time.perf_counter()
+    nat = build_frame_bank(ds, decode=NativeLoader().decode)
+    nat_s = time.perf_counter() - t
+    t = time.perf_counter()
+    pil = build_frame_bank(ds)
+    pil_s = time.perf_counter() - t
+    same = float((nat.images == pil.images).float().mean())
+    print(f"[native] frame bank of {nat.images.shape[0]} frames and "
+          f"{nat.bgs.shape[0]} backgrounds: native decode {nat_s:.3f} s, PIL "
+          f"{pil_s:.3f} s; bytes equal {same:.6f}")
+    return {"bank_native_s": nat_s, "bank_pil_s": pil_s}
+
+
+def _native_evals(spec, dev, card: str, datacfg: str, eval_paths, built):
+    """``run_validation`` at the test size on the held-out split, rgb and
+    yuv420 (the native decoder's planes; where its library does not build,
+    planes encoded from the same decoded frames with numpy, fed to the
+    eval in place of ``drivers._eval_loader``'s), K1 counted in each; on
+    the first batch the yuv420 input converted on the card = the CPU's
+    conversion bit for bit and within the luma/PSNR gate of the rgb input;
+    bytes a batch, the copy and the serve (copy included) timed in
+    turns."""
+    import singleshotpose_tpu_torch.drivers as drivers_mod
+    from singleshotpose_tpu_torch.ops.yuv import yuv420_to_rgb_resized
+    out_shape = (spec.net.test_width, spec.net.test_height)
+    model = _random_model(spec, dev, seed=90)
+    kw = dict(model=model, batch_size=TRAIN_BATCH, num_workers=8,
+              device=dev, verbose=False)
+    ds = PoseDataset(eval_paths, train=False)
+    if built:
+        from singleshotpose_tpu_torch.native import NativeLoader
+
+        def planes_of(paths):
+            return NativeLoader().test_batch_yuv420(paths)
+        feed = contextlib.nullcontext()
+    else:
+        def planes_of(paths):
+            return _yuv420_encode(np.stack([pipeline.load_image(p)
+                                            for p in paths]))
+        def batches():
+            # decoded and encoded as the pass iterates, as a loader would
+            for i in range(0, len(ds), TRAIN_BATCH):
+                rows = range(i, min(i + TRAIN_BATCH, len(ds)))
+                yield (planes_of([ds.lines[j] for j in rows]),
+                       np.stack([ds.get_test_label(j) for j in rows]))
+        real = drivers_mod._eval_loader
+        feed = mock.patch.object(
+            drivers_mod, "_eval_loader",
+            lambda *a, **k: batches() if a[4] == "yuv420" else real(*a, **k))
+    # in turns, each pass timed on the host clock (decode, serve, PnP and
+    # metrics); K1 counted from 0 over each pass
+    summaries, k1, secs = {}, {"rgb": [], "yuv420": []}, {"rgb": [],
+                                                          "yuv420": []}
+    for transfer in ("rgb", "yuv420", "yuv420", "rgb"):
+        stem.stem_conv_pool_infer.launches = 0
+        t = time.perf_counter()
+        with feed if transfer == "yuv420" else contextlib.nullcontext():
+            summaries[transfer] = run_validation(datacfg, spec,
+                                                 transfer=transfer, **kw)
+        torch.cuda.synchronize()
+        secs[transfer].append(time.perf_counter() - t)
+        k1[transfer].append(stem.stem_conv_pool_infer.launches)
+        sm = summaries[transfer]
+        print(f"[native] run_validation(transfer='{transfer}') on "
+              f"{sm['n_samples']} held-out frames at {out_shape[0]}², bf16: "
+              f"2D@5px {sm['acc_2d_proj']:.2f}%, mean px "
+              f"{sm['mean_err_2d']:.6g}; K1 launched {k1[transfer][-1]} "
+              f"times; {secs[transfer][-1] * 1e3:.1f} ms the pass [{card}]")
+    n_serves = -(-NATIVE_EVAL_FRAMES // TRAIN_BATCH)
+    _check(all(n == n_serves for t in k1 for n in k1[t]),
+           f"the evals launched K1 {k1}")
+    _check(all(summaries[t]["n_samples"] == NATIVE_EVAL_FRAMES and
+               np.isfinite(summaries[t]["mean_err_2d"]) for t in summaries),
+           f"the rgb and yuv420 evals did not score the split: {summaries}")
+
+    # the first batch's two inputs
+    rgb = next(iter(Loader(ds, TRAIN_BATCH, shuffle=False, schedule=None,
+                           fixed_shape=out_shape, num_workers=8,
+                           drop_last=False, out_uint8=True)))[0]
+    y, cbcr = planes_of(ds.lines[:TRAIN_BATCH])
+    card_in = yuv420_to_rgb_resized(torch.from_numpy(y).to(dev),
+                                    torch.from_numpy(cbcr).to(dev),
+                                    out_w=out_shape[0], out_h=out_shape[1])
+    cpu_in = yuv420_to_rgb_resized(torch.from_numpy(y),
+                                   torch.from_numpy(cbcr),
+                                   out_w=out_shape[0], out_h=out_shape[1])
+    same = torch.equal(card_in.cpu().view(torch.int32),
+                       cpu_in.view(torch.int32))
+    delta = (card_in.cpu().numpy() - rgb.astype(np.float32) / 255.0) * 255.0
+    luma = np.abs(delta @ np.array([0.299, 0.587, 0.114], np.float32))
+    psnr = 10 * np.log10(255.0 ** 2 / max(float((delta ** 2).mean()), 1e-12))
+    rgb_bytes, yuv_bytes = rgb.nbytes, y.nbytes + cbcr.nbytes
+    print(f"[native] yuv420 input of {TRAIN_BATCH} frames ("
+          + ("the native decoder's planes" if built else
+             "planes encoded with numpy from the PIL-decoded frames")
+          + f") converted to {out_shape[0]}² on the card = the CPU's "
+          f"conversion bit for bit: {same}; against the rgb input: luma "
+          f"drift mean {luma.mean():.4f} max {luma.max():.4f} u8 levels, "
+          f"PSNR {psnr:.2f} dB; bytes a batch: rgb u8 {rgb_bytes}, yuv420 "
+          f"{yuv_bytes} ({rgb_bytes / yuv_bytes:.2f}x fewer)")
+    _check(same, "the yuv420 conversion on the card is not the CPU's")
+    _check(luma.mean() < 1.0 and luma.max() < 16.0 and psnr > 27.0,
+           "the yuv420 input fails the luma/PSNR gate against rgb")
+
+    folded = fold_batchnorm(model)
+    serves = {"rgb": make_serving_fn(spec, folded, pick=("best",)),
+              "yuv420": make_serving_fn(spec, folded, pick=("best",),
+                                        transfer="yuv420",
+                                        out_shape=out_shape)}
+    args = {"rgb": (rgb,), "yuv420": (y, cbcr)}
+    copy = {"rgb": lambda: torch.from_numpy(rgb).to(dev),
+            "yuv420": lambda: (torch.from_numpy(y).to(dev),
+                               torch.from_numpy(cbcr).to(dev))}
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    serve_ms = {t: [] for t in serves}
+    copy_ms = {t: [] for t in serves}
+    for t in serves:                                   # warm
+        serves[t](*args[t])
+    for i in range(NATIVE_SERVES):
+        for t in (("rgb", "yuv420") if i % 2 == 0 else ("yuv420", "rgb")):
+            copy_ms[t].append(host_ms(copy[t]))
+            serve_ms[t].append(host_ms(lambda: serves[t](*args[t])))
+    med = {t: (statistics.median(copy_ms[t]), statistics.median(serve_ms[t]))
+           for t in serves}
+    print(f"[native] batch of {TRAIN_BATCH}, host arrays, in turns, median "
+          f"of {NATIVE_SERVES} (host clock with a sync): host-to-card copy "
+          f"rgb {med['rgb'][0]:.4f} ms, yuv420 {med['yuv420'][0]:.4f} ms; "
+          f"serve with its copy rgb {med['rgb'][1]:.4f} ms "
+          f"({min(serve_ms['rgb']):.4f}-{max(serve_ms['rgb']):.4f}), yuv420 "
+          f"{med['yuv420'][1]:.4f} ms ({min(serve_ms['yuv420']):.4f}-"
+          f"{max(serve_ms['yuv420']):.4f}) [{card}]")
+    return {"k1": [k1["rgb"][0], k1["yuv420"][0]], "rgb_bytes": rgb_bytes,
+            "yuv_bytes": yuv_bytes, "eval_s": secs, "copy_ms": med}
+
+
+def phase_native(spec, dev, card: str) -> dict:
+    """Phase 19: the native C++ decoder and the yuv420 eval transfer on a
+    small corpus written as files (NATIVE_FRAMES train and
+    NATIVE_EVAL_FRAMES held-out 640x480 shaded renders as JPEG, PNG masks,
+    NATIVE_BACKGROUNDS JPEG backgrounds).  The native library is built
+    (g++, libjpeg, libpng) and its build time printed.  Where it builds:
+    native against python train batches (8 at 416², host clock; labels
+    equal, images within bounds), ``run_training(loader_backend="native")``
+    for an epoch of eager full-width steps (K2–K6 once a step), the frame
+    bank built with both decoders.  Where it does not: g++'s error, that
+    ``backend="native"`` raises it and that ``auto`` resolves to
+    ``python``.  Either way ``run_validation`` at 672² with ``rgb`` and
+    ``yuv420`` (K1 in each) and the yuv420 input's checks
+    (:func:`_native_evals`).  Returns the numbers for the summary line."""
+    from singleshotpose_tpu_torch import native
+    t_phase = time.perf_counter()
+    build_dir = native.BUILD_DIR
+    root = tempfile.mkdtemp(prefix="ssp_native_")
+    try:
+        datacfg, train_list, bgs, frames = _data_corpus(
+            root, NATIVE_FRAMES, NATIVE_EVAL_FRAMES, NATIVE_BACKGROUNDS)
+        _write_files(frames)
+        print(f"[native] wrote {NATIVE_FRAMES} train + {NATIVE_EVAL_FRAMES} "
+              f"held-out 640x480 JPEG frames, their PNG masks and "
+              f"{NATIVE_BACKGROUNDS} JPEG backgrounds in "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        # the library's first build and load, timed: into the phase's own
+        # directory, with the module's load state reset, so an earlier
+        # build in the package's _build/ is not reused
+        with native._lock:
+            native.BUILD_DIR = f"{root}/_build"
+            native._lib = native._error = None
+        t = time.perf_counter()
+        built = native.load_native() is not None
+        build_s = time.perf_counter() - t
+        error = native.native_error()
+        out = {"built": built, "build_s": build_s, "train_launches": None}
+        if built:
+            print(f"[native] g++ built and loaded the native library in "
+                  f"{build_s:.2f} s: {native.library_path()}")
+            out.update(_native_batches(train_list, bgs))
+            out["train_launches"] = _native_trainer(spec, dev, card,
+                                                    datacfg, root)
+            out.update(_native_bank(train_list, bgs))
+        else:
+            print(f"[native] the native library does not build on this "
+                  f"machine ({build_s:.2f} s): {error}")
+            ds = PoseDataset(train_list, train=True, bg_file_names=bgs)
+            try:
+                Loader(ds, TRAIN_BATCH, backend="native")
+                raised = None
+            except RuntimeError as e:
+                raised = str(e)
+            auto = Loader(ds, TRAIN_BATCH).backend
+            print(f"[native] Loader(backend='native') raises: {raised}; "
+                  f"Loader(backend='auto') resolves to {auto!r}")
+            _check(raised is not None and error in raised,
+                   "backend='native' did not raise the build's error")
+            _check(auto == "python", f"auto resolved to {auto!r}")
+        out.update(_native_evals(spec, dev, card, datacfg,
+                                 f"{root}/test.txt", built))
+    finally:
+        native.BUILD_DIR = build_dir
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[native] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _nth(counts, i):
+    """``counts[i]``, or None where the counts were not taken."""
+    return None if counts is None else counts[i]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
                                  "on one NVIDIA card.")
@@ -4025,6 +4374,10 @@ def main(argv=None) -> int:
     # over its share of the DP eval
     dp = phase_dp(spec, dev, card)
     _free()
+    # the native decoder and the yuv420 transfer: K2-K6 counted from 0 over
+    # the native-fed epoch (where the library builds), K1 over each eval
+    nat = phase_native(spec, dev, card)
+    _free()
     if args.profile:
         phase_profile(spec, folded, dev, card, args.profile)
         phase_profile_k2(dev, card, args.profile, [
@@ -4049,7 +4402,10 @@ def main(argv=None) -> int:
     # launches_device_data, launches_device_synth: the eager steps fed from
     # the frame bank (phase 14) and from the scene synth (phase 15);
     # launches_dp: per rank, the two gloo ranks' DP steps (phase 18; K1:
-    # launches_dp_eval, their shares of the DP eval)
+    # launches_dp_eval, their shares of the DP eval); launches_native_train:
+    # the native-fed epoch's eager steps (phase 19; null where the native
+    # library does not build), K1's launches_native_eval: the rgb and the
+    # yuv420 eval of phase 19
     def captured_counts(c):
         return {"captures": c["captures"], "replays": c["replays"]}
 
@@ -4066,6 +4422,7 @@ def main(argv=None) -> int:
         "launches": launches, "launches_multi": multi_launches[0],
         "launches_eval_bank": device_data["k1_launches"],
         "launches_export": export["k1"], "launches_dp_eval": dp["k1"],
+        "launches_native_eval": nat["k1"],
         **k1_captured, **stem_numbers, "library_ms": None}, {
         "name": "max_corner_confidence", "route": "cuda",
         "source": "singleshotpose_tpu_torch/csrc/max_corner_confidence.cu",
@@ -4074,6 +4431,7 @@ def main(argv=None) -> int:
         "launches_device_data": device_data["launches"][0],
         "launches_device_synth": device_synth["launches"][0],
         "launches_dp": [r[0] for r in dp["launches"]],
+        "launches_native_train": _nth(nat["train_launches"], 0),
         **train_captured, **k2_numbers, "library_ms": None}]
     for i, ((_, name, replaces), n, n_multi, n_data, n_synth) in enumerate(
             zip(_STEM_KERNELS, train_launches[1:], multi_launches[2:],
@@ -4085,6 +4443,7 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": n, "launches_multi": n_multi,
             "launches_device_data": n_data, "launches_device_synth": n_synth,
             "launches_dp": [r[i] for r in dp["launches"]],
+            "launches_native_train": _nth(nat["train_launches"], i),
             **train_captured, **train_stem_numbers[name],
             "library_ms": None})
     # int8_conv: no Pallas original (JAX leaves its int8 conv to XLA); its

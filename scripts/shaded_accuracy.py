@@ -166,8 +166,10 @@ def run(n_train: int = 1024, n_eval: int = 512, epochs: int = 250,
              + ("(quality 92) done" if jpeg else
                 "SKIPPED (no Pillow): frames read from memory"))
         # without Pillow the loader's decoder reads the renders in memory
-        decode = contextlib.nullcontext() if jpeg else mock.patch.object(
-            pipeline, "load_image", frames.__getitem__)
+        # (and the native decoder, which reads files, is not used)
+        decode = contextlib.nullcontext() if jpeg else mock.patch.multiple(
+            pipeline, load_image=frames.__getitem__,
+            _native_decoder=lambda n: (None, "frames read from memory"))
         with decode:
             result = _train_and_eval(datacfg, base, n_train, epochs, batch,
                                      size, seed, device)

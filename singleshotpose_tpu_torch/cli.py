@@ -4,22 +4,23 @@
          [--initweightfile W] [--pretrain_num_epochs N] [--max_epochs N]
          [--bg_dir DIR] [--checkpoint_dir DIR [--resume]]
          [--precompile_buckets] [--profile_dir DIR] [--cache_decoded]
-         [--loader_backend auto|python|device|device_bank]
-         [--eval_transfer auto|rgb|bank] [--dp N] [--device cuda]
+         [--loader_backend auto|python|native|device|device_bank]
+         [--eval_transfer auto|rgb|yuv420|bank] [--dp N] [--device cuda]
   python -m singleshotpose_tpu_torch.cli valid --datacfg D.data --modelcfg M
          (--weightfile W.weights | --checkpoint_dir DIR [--step N])
-         [--batch_size N] [--transfer rgb|bank] [--quantize [Q.npz]]
+         [--batch_size N] [--transfer rgb|yuv420|bank] [--quantize [Q.npz]]
          [--save] [--add_s] [--dp N] [--device cuda]
   python -m singleshotpose_tpu_torch.cli train-multi --datacfg occlusion.data
          [--modelcfg M] [--initweightfile W] [--linemod_root DIR]
          [--eval_datacfgs D.data ...] [--max_epochs N] [--bg_dir DIR]
          [--checkpoint_dir DIR [--resume]] [--precompile_buckets]
-         [--profile_dir DIR] [--cache_decoded] [--eval_transfer auto|rgb|bank]
+         [--profile_dir DIR] [--cache_decoded]
+         [--eval_transfer auto|rgb|yuv420|bank]
          [--loader_backend auto|python|device_synth [--synth_attempts N]
          [--synth_propose_scale N]] [--dp N] [--device cuda]
   python -m singleshotpose_tpu_torch.cli valid-multi --weightfile W.weights
          [--modelcfg M] [--datacfgs D.data ... | --datacfg occlusion.data]
-         [--transfer rgb|bank] [--quantize] [--device cuda]
+         [--transfer rgb|yuv420|bank] [--quantize] [--device cuda]
   python -m singleshotpose_tpu_torch.cli quantize --datacfg D.data
          --modelcfg M --weightfile W.weights --out Q.npz [--calib_images 32]
          [--act_scales per_channel|scalar] [--device cuda]
@@ -193,9 +194,11 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--cache_decoded", action="store_true",
                    help="RAM-cache decoded images across epochs")
     p.add_argument("--loader_backend", type=str, default="auto",
-                   choices=["auto", "python", "device", "device_bank",
-                            "device_synth"],
-                   help="train: auto/python (host decode and augment), "
+                   choices=["auto", "python", "native", "device",
+                            "device_bank", "device_synth"],
+                   help="train: native (the C++ fused decode and augment), "
+                        "python (PIL and numpy), auto (native when its "
+                        "library builds, else python), "
                         "device (host decode, augment on the card) or "
                         "device_bank (the train split decoded once into "
                         "device memory, augmented on the card); train-multi: "
@@ -211,9 +214,11 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
                    help="device_synth: mask-overlap test resolution divisor "
                         "(1 = the host's full-resolution ratio)")
     p.add_argument("--eval_transfer", type=str, default="auto",
-                   choices=["auto", "rgb", "bank"],
+                   choices=["auto", "rgb", "yuv420", "bank"],
                    help="in-training eval input: rgb u8 batches from the "
-                        "host, or bank (the test split decoded once into "
+                        "host, yuv420 native-size planes (the native "
+                        "decoder's; the device converts), or bank (the test "
+                        "split decoded once into "
                         "device memory); auto picks bank when it fits the "
                         "card's free memory, else rgb")
     _add_dp_flag(p)
@@ -222,8 +227,10 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
 
 def _add_transfer_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument("--transfer", type=str, default="rgb",
-                   choices=["rgb", "bank"],
-                   help="input path: rgb u8 batches from the host, or bank "
+                   choices=["rgb", "yuv420", "bank"],
+                   help="input path: rgb u8 batches from the host, yuv420 "
+                        "native-size planes (the native decoder's; the "
+                        "device converts and resizes), or bank "
                         "(the split decoded once into device memory; "
                         "repeated evals in one process reuse it)")
 

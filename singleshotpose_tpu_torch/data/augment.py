@@ -25,7 +25,7 @@ import numpy as np
 
 __all__ = ["rand_scale", "distort_hsv", "random_distort", "crop_resize",
            "change_background", "transform_truths", "data_augmentation",
-           "resize_nearest", "rgb_to_hsv_u8", "hsv_to_rgb_u8"]
+           "resize_indices", "resize_nearest", "rgb_to_hsv_u8", "hsv_to_rgb_u8"]
 
 
 # ---------------------------------------------------------------------------
@@ -97,12 +97,17 @@ def random_distort(rng: np.random.RandomState, img: np.ndarray, hue: float,
 # ---------------------------------------------------------------------------
 
 
+def resize_indices(n_in: int, n_out: int) -> np.ndarray:
+    """The source row (or column) of each of ``n_out`` outputs: the center
+    sample of the nearest-neighbor resize."""
+    return np.minimum((np.arange(n_out) + 0.5) * n_in / n_out,
+                      n_in - 1).astype(np.int64)
+
+
 def resize_nearest(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
     """Center-sample nearest-neighbor resize (PIL ``resize`` default filter)."""
     h, w = img.shape[:2]
-    xi = np.minimum((np.arange(out_w) + 0.5) * w / out_w, w - 1).astype(np.int64)
-    yi = np.minimum((np.arange(out_h) + 0.5) * h / out_h, h - 1).astype(np.int64)
-    return img[yi][:, xi]
+    return img[resize_indices(h, out_h)][:, resize_indices(w, out_w)]
 
 
 def crop_resize(img: np.ndarray, pleft: int, ptop: int, swidth: int,

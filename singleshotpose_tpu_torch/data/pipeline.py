@@ -1,21 +1,25 @@
 """Host data pipeline: dataset, multi-scale schedule, thread-pooled loader.
 
-The port's own copy of ``singleshotpose_tpu/data/pipeline.py``, cut to what
-the drivers run, so the port imports nothing of the JAX package;
-``tests/test_torch_host.py`` and ``tests/test_torch_multi_host.py`` hold its
-``python`` batches equal, bit for bit, to the JAX package's
-``Loader(backend="python")``, the multi-object scene synthesizer's
-(``synthesizer=``) included, ``tests/test_torch_device_data.py`` its
-``device`` and ``device_bank`` batches to JAX's, and
-``tests/test_torch_device_synth.py`` its ``device_synth`` scenes to JAX's
-from the same draws.  Backends: ``python`` (host decode and augment;
-``auto`` resolves to it — the port has no native decoder), ``device`` (host
-decode, augment on the card: ``data/device_augment.py``), ``device_bank``
-(the train split decoded once into device memory: ``data/device_bank.py``)
-and ``device_synth`` (the multi-object corpus in device memory, scenes
-synthesized on the card: ``data/device_synth.py``).  Not ported yet, and a
-``ValueError`` names the ROADMAP item: the native C++ decoder (``native``,
-and its ``out_yuv420``).  Left out: the ``mesh`` option.
+The port's own copy of ``singleshotpose_tpu/data/pipeline.py``, so the port
+imports nothing of the JAX package; ``tests/test_torch_host.py`` and
+``tests/test_torch_multi_host.py`` hold its ``python`` batches equal, bit for
+bit, to the JAX package's ``Loader(backend="python")``, the multi-object
+scene synthesizer's (``synthesizer=``) included,
+``tests/test_torch_native.py`` its ``native`` and ``auto`` batches to JAX's,
+``tests/test_torch_device_data.py`` its ``device`` and ``device_bank``
+batches to JAX's, and ``tests/test_torch_device_synth.py`` its
+``device_synth`` scenes to JAX's from the same draws.  Backends: ``native``
+(the C++ fused decode and augment of ``native/``, train and test, and the
+test split's yuv420 planes with ``out_yuv420``), ``python`` (host decode and
+augment with PIL and numpy), ``auto`` (``native`` when its library builds
+and the dataset has no scene synthesizer, else ``python``; the choice is
+logged), ``device`` (host decode, augment on the card:
+``data/device_augment.py``), ``device_bank`` (the train split decoded once
+into device memory: ``data/device_bank.py``) and ``device_synth`` (the
+multi-object corpus in device memory, scenes synthesized on the card:
+``data/device_synth.py``).  The ``device`` and ``device_bank`` backends
+decode with the native decoder when it builds, as JAX's do.  Left out: the
+``mesh`` option.
 
 Rebuild of ``listDataset`` + torch ``DataLoader`` (reference:
 ``dataset.py:14-141``, ``train.py:56-65``):
@@ -205,6 +209,43 @@ class PoseDataset:
         img = augment.resize_nearest(img, w, h)
         return img.astype(np.float32) / 255.0, self.get_test_label(index)
 
+    def plan_train_sample(self, index: int, rng: np.random.RandomState):
+        """Draw augmentation parameters for the native fused path.
+
+        Consumes the SAME rng stream in the SAME order as :meth:`get_train`
+        (bg pick → crop jitter → flip → HSV), so the two backends are
+        parameter-identical given equal seeds.  Returns
+        (imgpath, maskpath|None, bgpath|None, crop(pleft,ptop,cw,ch),
+        hsv(dhue,dsat,dexp), flat label).
+        """
+        from PIL import Image
+        imgpath = self.lines[index]
+        with Image.open(imgpath) as im:
+            ow, oh = im.size
+        bgpath = None
+        if self.bg_file_names:
+            bgpath = self.bg_file_names[rng.randint(len(self.bg_file_names))]
+        dw, dh = int(ow * self.aug.jitter), int(oh * self.aug.jitter)
+        pleft = rng.randint(-dw, dw + 1)
+        pright = rng.randint(-dw, dw + 1)
+        ptop = rng.randint(-dh, dh + 1)
+        pbot = rng.randint(-dh, dh + 1)
+        swidth = ow - pleft - pright
+        sheight = oh - ptop - pbot
+        sx, sy = swidth / ow, sheight / oh
+        _flip = bool(rng.randint(2))     # drawn, never applied (parity)
+        dhue = rng.uniform(-self.aug.hue, self.aug.hue)
+        dsat = augment.rand_scale(rng, self.aug.saturation)
+        dexp = augment.rand_scale(rng, self.aug.exposure)
+        dx = (pleft / ow) / sx
+        dy = (ptop / oh) / sy
+        label = augment.transform_truths(
+            self._read_truths_full(imgpath), dx, dy, 1.0 / sx, 1.0 / sy,
+            self.num_keypoints, self.max_num_gt)
+        mask = mask_path_from_image(imgpath) if bgpath else None
+        return (imgpath, mask, bgpath, (pleft, ptop, swidth, sheight),
+                (dhue, dsat, dexp), label)
+
     def get_train(self, index: int, shape: Tuple[int, int],
                   rng: np.random.RandomState, as_uint8: bool = False):
         """One augmented train sample.  ``as_uint8`` skips the final /255
@@ -239,9 +280,17 @@ class PoseDataset:
 # ---------------------------------------------------------------------------
 
 
-# loader backends not ported yet, and the ROADMAP item that ports each
-_UNPORTED = {"native": "the native C++ decoder (ROADMAP.md §1 item 6)"}
-_BACKENDS = ("python", "device", "device_bank", "device_synth")
+_BACKENDS = ("python", "native", "device", "device_bank", "device_synth")
+
+
+def _native_decoder(num_workers: int):
+    """The native library's ``NativeLoader``, or None with the reason it
+    is unavailable."""
+    from ..native import NativeLoader, native_error
+    try:
+        return NativeLoader(nthreads=max(num_workers, 0)), None
+    except RuntimeError:
+        return None, native_error()
 
 
 class Loader:
@@ -249,17 +298,24 @@ class Loader:
 
     One authoritative ``seen`` counter drives the multi-scale schedule; each
     batch uses a single width so the stacked array is rectangular.  Yields
-    (images (B,H,W,3), labels (B, 50·(2K+3)) f32): on the ``python``
-    backend host arrays, images f32 — or u8 with ``out_uint8``; on the
-    ``device`` backend u8 images on ``device`` and host labels; on the
-    ``device_bank`` backend both on ``device``; on the ``device_synth``
-    backend f32 images in [0, 1] and labels, both on ``device``.
+    (images (B,H,W,3), labels (B, 50·(2K+3)) f32): on the ``python`` and
+    ``native`` backends host arrays, images f32 — or u8 with
+    ``out_uint8``, or with ``out_yuv420`` (test mode, ``native``) the
+    native-size planes ``(y (B,H,W), cbcr (B,H/2,W/2,2))`` u8, which
+    ``ops/yuv.py`` converts on the device; on the ``device`` backend u8
+    images on ``device`` and host labels; on the ``device_bank`` backend
+    both on ``device``; on the ``device_synth`` backend f32 images in
+    [0, 1] and labels, both on ``device``.
 
-    ``device`` (default the card) is where the device backends put their
-    batches; a CUDA device without CUDA raises.  ``synth_attempts`` and
-    ``synth_propose_scale``: ``device_synth``'s placement proposals per
-    companion (None: the synthesizer's ``max_attempts``) and its overlap
-    test's resolution divisor (``DeviceSynthStatic.from_config``).
+    ``backend="auto"`` is ``native`` when the native library builds and the
+    dataset has no scene synthesizer, else ``python``, as in JAX; it logs
+    its choice.  ``native`` and ``out_yuv420`` raise when the library does
+    not build, with g++'s error.  ``device`` (default the card) is where
+    the device backends put their batches; a CUDA device without CUDA
+    raises.  ``synth_attempts`` and ``synth_propose_scale``:
+    ``device_synth``'s placement proposals per companion (None: the
+    synthesizer's ``max_attempts``) and its overlap test's resolution
+    divisor (``DeviceSynthStatic.from_config``).
     """
 
     def __init__(self, dataset: PoseDataset, batch_size: int, *,
@@ -268,8 +324,8 @@ class Loader:
                  fixed_shape: Optional[Tuple[int, int]] = None,
                  num_workers: int = 8, seed: int = 0,
                  drop_last: bool = True, backend: str = "auto",
-                 out_uint8: bool = False, device="cuda",
-                 synth_attempts: Optional[int] = None,
+                 out_uint8: bool = False, out_yuv420: bool = False,
+                 device="cuda", synth_attempts: Optional[int] = None,
                  synth_propose_scale: int = 4):
         self.ds = dataset
         self.batch_size = batch_size
@@ -280,18 +336,37 @@ class Loader:
         self.rng = np.random.RandomState(seed)
         self.drop_last = drop_last
         # yield uint8 images (normalized on the device): 4x lighter
-        # host→device copies (the python backend; the device backends yield
-        # u8 always)
+        # host→device copies (the python and native backends; the device
+        # backends yield u8 always)
         self.out_uint8 = out_uint8
-        if backend == "auto":       # the port has no native decoder yet
-            backend = "python"
-        if backend in _UNPORTED:
-            raise ValueError(f"loader backend {backend!r} is not ported to "
-                             f"the PyTorch package yet: {_UNPORTED[backend]}")
+        # test mode, native: the frames' native-size YUV 4:2:0 planes,
+        # 1.5 B/px; the device converts and resizes (ops/yuv.py)
+        self.out_yuv420 = out_yuv420
+        if out_yuv420 and (dataset.train or dataset.synthesizer is not None
+                           or backend not in ("auto", "native")):
+            raise ValueError("out_yuv420 is a test-mode native-loader option")
+        self._native = None
+        if backend in ("auto", "native"):
+            if dataset.synthesizer is not None:
+                if backend == "native":
+                    raise ValueError("native backend does not cover the "
+                                     "scene-synthesis path")
+                why = "the dataset synthesizes scenes"
+            else:
+                self._native, err = _native_decoder(num_workers)
+                if self._native is None and (backend == "native"
+                                             or out_yuv420):
+                    raise RuntimeError(f"native library unavailable: {err}")
+                why = (f"the native library is unavailable: {err}"
+                       if self._native is None else
+                       "the native library built")
+            if backend == "auto":
+                backend = "python" if self._native is None else "native"
+                print(f"Loader backend auto: {backend} ({why})", flush=True)
         if backend not in _BACKENDS:
             raise ValueError(f"unknown loader backend {backend!r}")
         self.backend = backend
-        if backend != "python":
+        if backend not in ("python", "native"):
             if backend == "device_synth":
                 if getattr(dataset.synthesizer, "cfg", None) is None:
                     raise ValueError(
@@ -311,7 +386,17 @@ class Loader:
             self._synth_attempts = synth_attempts
             self._synth_propose_scale = synth_propose_scale
             self._synth_static = None
-        # the bank backends' batches are device work alone: no host workers
+        if backend in ("device", "device_bank"):
+            # the host decode of these backends: the native decoder when it
+            # builds, else PIL, as in JAX
+            dec, err = _native_decoder(num_workers)
+            self._decode = dec.decode if dec is not None else load_image
+            print(f"Loader backend {backend}: decoding with "
+                  + ("the native decoder" if dec is not None else
+                     f"PIL (the native library is unavailable: {err})"),
+                  flush=True)
+        # the bank backends' batches are device work alone, and the native
+        # backend runs its own threads: no host workers
         self.pool = ThreadPoolExecutor(max_workers=num_workers) \
             if num_workers > 0 and backend in ("python", "device") else None
 
@@ -344,6 +429,9 @@ class Loader:
                 continue
             if self.backend == "device":
                 yield self._device_batch(idxs, shape)
+                continue
+            if self.backend == "native":
+                yield self._native_batch(idxs, shape)
                 continue
             if self.ds.train:
                 seeds = self.rng.randint(0, 2 ** 31 - 1, size=len(idxs))
@@ -436,7 +524,7 @@ class Loader:
 
         if self._frame_bank is None:
             t0 = time.time()
-            bank = build_frame_bank(self.ds)
+            bank = build_frame_bank(self.ds, decode=self._decode)
             self._frame_bank = bank.device_put(self.device)
             print(f"device_bank: {bank.images.shape[0]} frames, "
                   f"{bank.nbytes() / 1e6:.0f} MB on {self.device} "
@@ -468,9 +556,9 @@ class Loader:
 
         def one(i):
             imgpath = self.ds.lines[int(i)]
-            img = self.ds._decode_cached(imgpath, load_image)
+            img = self.ds._decode_cached(imgpath, self._decode)
             mask = self.ds._decode_cached(mask_path_from_image(imgpath),
-                                          load_image)
+                                          self._decode)
             return img, mask if mask.ndim == 3 else mask[..., None]
 
         work = list(idxs)
@@ -487,7 +575,7 @@ class Loader:
         if self.ds.bg_file_names:
             bgs = np.stack([
                 augment.resize_nearest(
-                    load_image(self.ds.bg_file_names[r]), iw, ih)
+                    self._decode(self.ds.bg_file_names[r]), iw, ih)
                 for r in self._bg_rows(B)])
         else:
             bgs = np.zeros_like(imgs)
@@ -506,3 +594,35 @@ class Loader:
             for b, i in enumerate(work)])
         self.seen += B
         return out, labels
+
+    def _native_batch(self, idxs, shape):
+        """One batch through the C++ fused decode/augment thread pool: a
+        train batch from :meth:`PoseDataset.plan_train_sample`'s draws (the
+        ``python`` backend's rng stream), a test batch decoded and resized,
+        or its yuv420 planes."""
+        w, h = shape
+        if self.ds.train:
+            seeds = self.rng.randint(0, 2 ** 31 - 1, size=len(idxs))
+            plans = [self.ds.plan_train_sample(int(i),
+                                               np.random.RandomState(int(s)))
+                     for i, s in zip(idxs, seeds)]
+            batch_fn = self._native.train_batch_u8 if self.out_uint8 \
+                else self._native.train_batch
+            imgs = batch_fn(
+                [p[0] for p in plans], [p[1] for p in plans],
+                [p[2] for p in plans],
+                np.array([p[3] for p in plans], np.int32),
+                np.array([p[4] for p in plans], np.float32), w, h)
+            labels = np.stack([p[5] for p in plans])
+        else:
+            paths = [self.ds.lines[int(i)] for i in idxs]
+            if self.out_yuv420:
+                imgs = self._native.test_batch_yuv420(paths)  # (y, cbcr)
+            elif self.out_uint8:
+                imgs = self._native.test_batch_u8(paths, w, h)
+            else:
+                imgs = self._native.test_batch(paths, w, h)
+            labels = np.stack([self.ds.get_test_label(int(i))
+                               for i in idxs])
+        self.seen += len(idxs)
+        return imgs, labels

@@ -1,11 +1,11 @@
 """Multi-object scene synthesis for OCCLUSION training.
 
-The port's own copy of the numpy path of
-``singleshotpose_tpu/data/synth_multi.py``, so the port imports nothing of
-the JAX package; ``tests/test_torch_multi_host.py`` holds its scenes and
-labels, and the loader batches built from them, bit for bit to the JAX
-package's ``SynthConfig(native="off")``.  Left out: the C++ pixel core
-(``native``; ``SynthConfig`` takes no such option).
+The port's own copy of ``singleshotpose_tpu/data/synth_multi.py``, so the
+port imports nothing of the JAX package; ``tests/test_torch_multi_host.py``
+holds its numpy scenes and labels, and the loader batches built from them,
+bit for bit to the JAX package's ``SynthConfig(native="off")``, and
+``tests/test_torch_native.py`` its native ones (``native="auto"``: the C++
+pixel core of ``native/``, the same draws) to JAX's.
 
 A rebuild of the reference's object-pasting pipeline (reference:
 ``multi_obj_pose_estimation/image_multi.py:8-383``): LINEMOD single-object
@@ -187,6 +187,10 @@ class SynthConfig:
     flip: str = "off"                 # "off" | "reference" (image-only flip)
     num_keypoints: int = 9
     max_num_gt: int = 50
+    # "auto": the C++ pixel core (native/ssp_native.cpp) when it builds —
+    # bit-identical output, the same rng stream (the draws stay in Python);
+    # "off" forces the numpy ops; "on" raises if the library is unavailable
+    native: str = "auto"
 
 
 class MultiObjectSynthesizer:
@@ -197,6 +201,17 @@ class MultiObjectSynthesizer:
     def __init__(self, cfg: SynthConfig):
         self.cfg = cfg
         self._train_lists: Dict[str, List[str]] = {}
+        if cfg.native not in ("auto", "on", "off"):
+            raise ValueError(f"SynthConfig.native must be auto, on or off, "
+                             f"not {cfg.native!r}")
+        self._native = None
+        if cfg.native != "off":
+            from ..native import NativeSynthOps
+            try:
+                self._native = NativeSynthOps()
+            except RuntimeError:
+                if cfg.native == "on":
+                    raise
 
     def _train_list(self, obj: str) -> List[str]:
         if obj not in self._train_lists:
@@ -233,8 +248,16 @@ class MultiObjectSynthesizer:
         add_objs = list(ADD_OBJS.get(objname, ()))
         rng.shuffle(add_objs)
 
-        img = load_image(imgpath)
-        mask = load_image(mask_path_from_image(imgpath))
+        # honour the dataset's decoded-image cache: scene synthesis re-reads
+        # companion frames constantly
+        decode = getattr(dataset, "_decode_cached", None)
+        load = (lambda p: decode(p, load_image)) if decode else load_image
+
+        img = load(imgpath)
+        mask = load(mask_path_from_image(imgpath))
+        if self._native is not None and img.ndim == 3:
+            return self._call_native(dataset, imgpath, img, mask, add_objs,
+                                     load, out_w, out_h, rng)
         img, mask, flip, dx, dy, sx, sy = shifted_augment_with_mask(
             rng, img, mask, out_w, out_h, cfg.jitter, cfg.shift, apply_flip)
         total_label = augment.transform_truths(
@@ -253,8 +276,8 @@ class MultiObjectSynthesizer:
             for _attempt in range(cfg.max_attempts):
                 opath = lines[rng.randint(len(lines))]
                 try:
-                    oimg = load_image(opath)
-                    omask = load_image(mask_path_from_image(opath))
+                    oimg = load(opath)
+                    omask = load(mask_path_from_image(opath))
                 except (FileNotFoundError, OSError):
                     continue
                 omasked = mask_foreground(oimg, omask)
@@ -289,4 +312,83 @@ class MultiObjectSynthesizer:
             bg = load_image(dataset.bg_file_names[
                 rng.randint(len(dataset.bg_file_names))])
             canvas = augment.change_background(canvas, total_mask, bg)
+        return canvas, total_label.reshape(-1)
+
+    def _call_native(self, dataset, imgpath: str, img: np.ndarray,
+                     mask: np.ndarray, add_objs: List[str], load,
+                     out_w: int, out_h: int, rng: np.random.RandomState):
+        """The same scene synthesis through the C++ pixel core.
+
+        Control flow, label algebra, and every rng draw are identical to the
+        numpy path above (the shared ``_draw_crop`` consumes the stream in
+        the same order); only the pixel passes run natively, to the same
+        bytes.
+        """
+        cfg = self.cfg
+        K, nl = cfg.num_keypoints, 2 * cfg.num_keypoints + 3
+        apply_flip = cfg.flip == "reference"
+        nat = self._native
+
+        def as3(m):
+            # a 2-D mask broadcasts per channel in the numpy path; three
+            # equal channels are bit-equivalent
+            return np.repeat(m[:, :, None], 3, 2) if m.ndim == 2 else m
+
+        oh, ow = img.shape[:2]
+        pleft, ptop, sw, sh, sx, sy, flip = _draw_crop(rng, ow, oh,
+                                                       cfg.jitter)
+        shift_x = rng.randint(-cfg.shift, cfg.shift + 1)
+        shift_y = rng.randint(-cfg.shift, cfg.shift + 1)
+        dx = (pleft / ow) / sx - shift_x / out_w
+        dy = (ptop / oh) / sy - shift_y / out_h
+        base_masked, mask_sized = nat.masked_resize(
+            img, as3(mask), pleft, ptop, sw, sh, out_w, out_h,
+            shift_x=shift_x, shift_y=shift_y, flip=flip and apply_flip)
+        total_label = augment.transform_truths(
+            self._load_truths(imgpath), dx, dy, 1.0 / sx, 1.0 / sy, K,
+            cfg.max_num_gt, recompute_extents=True).reshape(-1, nl)
+
+        canvas = base_masked.copy()       # composites mutate in place; the
+        total_mask = mask_sized.copy()    # base pair is re-pasted at the end
+        count = 1
+
+        for obj in add_objs:
+            lines = self._train_list(obj)
+            if not lines:
+                continue
+            for _attempt in range(cfg.max_attempts):
+                opath = lines[rng.randint(len(lines))]
+                try:
+                    oimg = load(opath)
+                    omask = load(mask_path_from_image(opath))
+                except (FileNotFoundError, OSError):
+                    continue
+                ooh, oow = oimg.shape[:2]
+                opl, opt, osw, osh, osx, osy, oflip = _draw_crop(
+                    rng, oow, ooh, cfg.jitter)
+                omasked_s, omask_s, area, inter = nat.masked_resize(
+                    oimg, as3(omask), opl, opt, osw, osh, out_w, out_h,
+                    flip=oflip and apply_flip, total=total_mask,
+                    thresh=cfg.pixel_threshold)
+                if area < 1:
+                    continue
+                if float(inter) / area < cfg.max_intersection:
+                    olabel = augment.transform_truths(
+                        self._load_truths(opath), (opl / oow) / osx,
+                        (opt / ooh) / osy, 1.0 / osx, 1.0 / osy, K,
+                        cfg.max_num_gt, recompute_extents=True).reshape(
+                            -1, nl)
+                    nat.composite(omasked_s, omask_s, canvas, total_mask)
+                    if count < cfg.max_num_gt:
+                        total_label[count] = olabel[0]
+                        count += 1
+                    break
+
+        # base object re-pasted last: always fully visible
+        nat.composite(base_masked, mask_sized, canvas)
+
+        if dataset.bg_file_names:
+            bg = load_image(dataset.bg_file_names[
+                rng.randint(len(dataset.bg_file_names))])
+            nat.change_background(canvas, total_mask, bg)
         return canvas, total_label.reshape(-1)

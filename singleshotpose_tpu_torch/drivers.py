@@ -7,19 +7,24 @@ of ``singleshotpose_tpu/drivers.py``.
 
 Validation: on the ``rgb`` transfer the host ``PoseDataset``/``Loader``
 feed u8 batches (single object at the spec's test size, multi object at its
-train size); on the ``bank`` transfer the split is decoded once into a
+train size; decoded by the native decoder when its library builds, else by
+PIL: the ``Loader``'s ``auto``); on the ``yuv420`` transfer the native
+decoder's native-size YUV 4:2:0 planes, converted and resized on the device
+(``ops/yuv.py``); on the ``bank`` transfer the split is decoded once into a
 device-resident eval bank (``data/eval_bank.py``, LRU-cached across calls)
-with the same pixels.  The serving function (fold → bf16 forward → decode →
+with the ``rgb`` transfer's pixels.  The serving function (fold → bf16 forward → decode →
 box pick: the best box, or one box per class; with ``quantize`` the int8
 forward of ``models/quantize.py``, calibrated on the first batch or loaded
 from an ``.npz``) runs on the device, and the boxes of all batches meet the
 ground truth in one batched PnP + metric pass (ADD-S with ``add_s``;
 per-frame dumps with ``save``).
 
-Training: the ``Loader`` (multi-scale, u8; ``loader_backend`` ``python``:
-host decode and augment, for OCCLUSION over scenes from the multi-object
-synthesizer; ``device``: augment on the card; ``device_bank``: the train
-split in device memory; for OCCLUSION ``device_synth``: the corpus in device
+Training: the ``Loader`` (multi-scale, u8; ``loader_backend`` ``native``:
+the C++ fused decode and augment; ``python``: host decode and augment with
+PIL and numpy, for OCCLUSION over scenes from the multi-object synthesizer;
+``auto``: ``native`` when its library builds, else ``python``, and
+``python`` for OCCLUSION; ``device``: augment on the card; ``device_bank``:
+the train split in device memory; for OCCLUSION ``device_synth``: the corpus in device
 memory, f32 scenes synthesized on the card) feeds the train step — host batches through pinned
 memory, device batches as they are — eager, or with ``precompile_buckets``
 on a card replayed from one CUDA graph per multi-scale bucket; the
@@ -111,19 +116,27 @@ def _load_model(spec: DarknetSpec, weightfile: Optional[str],
 
 
 def _eval_params(spec: DarknetSpec, model: Optional[Darknet], loader, *,
-                 compute_dtype, device, quantize: Union[bool, str]):
+                 compute_dtype, device, quantize: Union[bool, str],
+                 transfer: str = "rgb"):
     """The serving params of an eval pass and the batches to run them on
     (``singleshotpose_tpu/drivers.py:172-210``): the folded weights; with
     ``quantize="<path>.npz"`` the int8 artifact of ``cli quantize`` /
     ``save_quantized`` (no float weights needed); with ``quantize=True``
     the model quantized with per-channel activation scales calibrated on
     the loader's first batch, which is chained back in front, so it is
-    decoded once."""
+    decoded once.  Calibration takes eval-size frames: ``quantize=True``
+    refuses the ``yuv420`` transfer, as JAX's does; an ``.npz`` composes
+    with any transfer."""
     if isinstance(quantize, str):
         return load_quantized(quantize, device=device), loader
     folded = fold_batchnorm(model)
     if not quantize:
         return folded, loader
+    if transfer == "yuv420":
+        raise ValueError(
+            "quantize=True requires transfer='rgb' (calibration runs on "
+            "eval-size RGB batches); pre-quantized quantize='<path>.npz' "
+            "composes with any transfer")
     it = iter(loader)
     first = next(it, None)
     if first is None:
@@ -145,14 +158,17 @@ def _serve_rows(serve, stream, group: DPGroup) -> List[Tuple]:
     every rank reads the whole split in the same batches (the eval loader is
     not dataset-sharded); a ragged batch is zero-padded to a multiple of the
     world size, each rank serves its contiguous rows, and once every batch
-    is launched one all-gather brings every rank all the boxes.  Returns
-    [(boxes of the batch's real rows, labels)]."""
+    is launched one all-gather brings every rank all the boxes.  A yuv420
+    batch's two planes are split by the same rows.  Returns [(boxes of the
+    batch's real rows, labels)]."""
     local, batches = [], []
     for images, labels in prefetch(stream):
-        padded = pad_rows(images, group.world)
-        per = len(padded) // group.world
-        local.append(serve(padded[group.rank * per:(group.rank + 1) * per]))
-        batches.append((len(images), per, labels))
+        planes = images if isinstance(images, tuple) else (images,)
+        padded = [pad_rows(a, group.world) for a in planes]
+        per = len(padded[0]) // group.world
+        local.append(serve(*(a[group.rank * per:(group.rank + 1) * per]
+                             for a in padded)))
+        batches.append((len(planes[0]), per, labels))
     if not local:
         return []
     gathered = all_gather_rows(torch.cat(local), group)   # (world, Σper, ..)
@@ -170,7 +186,9 @@ def _eval_pass(spec: DarknetSpec, model: Optional[Darknet], loader,
                pick: Tuple = ("best",), fix_gt_corners: bool = False,
                quantize: Union[bool, str] = False,
                add_s: bool = False,
-               group: Optional[DPGroup] = None) -> Tuple[PoseErrors, Dict]:
+               group: Optional[DPGroup] = None, transfer: str = "rgb",
+               out_shape: Optional[Tuple[int, int]] = None
+               ) -> Tuple[PoseErrors, Dict]:
     """Boxes for every batch (launched as the prefetch thread decodes the
     next batch), then one metric pass.  ``pick`` is the serving function's:
     ``("best",)`` gives a box an image; ``("per_class", conf)`` a box a
@@ -181,18 +199,24 @@ def _eval_pass(spec: DarknetSpec, model: Optional[Darknet], loader,
     calibrated on the whole first batch on every rank, so the ranks'
     scales agree).  ``add_s``: score the 3D metric as ADD-S.  ``group``:
     the batches served data-parallel (:func:`_serve_rows`); every rank then
-    scores all the boxes.  Returns (PoseErrors, artifacts with
+    scores all the boxes.  ``transfer``: the loader's (``rgb``, ``bank``:
+    eval-size frames; ``yuv420``: ``(y, cbcr)`` planes, converted on the
+    device to ``out_shape`` frames before the net).  Returns (PoseErrors,
+    artifacts with
     ``corners_gt``, ``corners_pr`` (pixels), ``image_idx`` and the
     ``metrics``; empty when there is no ground truth)."""
     K = spec.num_keypoints
     params, stream = _eval_params(spec, model, loader,
                                   compute_dtype=compute_dtype, device=device,
-                                  quantize=quantize)
+                                  quantize=quantize, transfer=transfer)
     serve = make_serving_fn(spec, params, pick=pick,
                             compute_dtype=compute_dtype,
-                            scales_as_constants=False)
+                            scales_as_constants=False,
+                            transfer="yuv420" if transfer == "yuv420"
+                            else "rgb", out_shape=out_shape)
     if group is None:
-        pending = [(serve(images), labels)
+        pending = [(serve(*images) if isinstance(images, tuple)
+                    else serve(images), labels)
                    for images, labels in prefetch(stream)]
     else:
         pending = _serve_rows(serve, stream, group)
@@ -230,29 +254,23 @@ def _eval_pass(spec: DarknetSpec, model: Optional[Darknet], loader,
                     "image_idx": np.concatenate(image_idx)}
 
 
-# eval transfers not ported yet, and the ROADMAP item that ports each
-_UNPORTED_TRANSFERS = {"yuv420": "ops/yuv.py with the native decoder "
-                                 "(ROADMAP.md §1 item 6)"}
-
-
 def _eval_loader(ds: PoseDataset, out_shape: Tuple[int, int], batch_size: int,
                  num_workers: int, transfer: str, cache_key: tuple,
                  device: torch.device):
     """The batches of an eval pass: a host ``Loader`` of u8 batches
-    (``rgb``), or the LRU-cached eval bank of the same pixels on ``device``
-    (``bank``)."""
-    if transfer in _UNPORTED_TRANSFERS:
-        raise ValueError(f"transfer {transfer!r} is not ported to the "
-                         f"PyTorch package yet: {_UNPORTED_TRANSFERS[transfer]}")
+    (``rgb``), of the frames' yuv420 planes (``yuv420``, the native
+    decoder's: it raises when the library does not build), or the
+    LRU-cached eval bank of the rgb pixels on ``device`` (``bank``)."""
     if transfer == "bank":
         return eval_bank.get_eval_bank(ds, out_shape, batch_size,
                                        num_workers=num_workers, device=device,
                                        cache_key=cache_key + (str(device),))
-    if transfer != "rgb":
+    if transfer not in ("rgb", "yuv420"):
         raise ValueError(f"unknown transfer {transfer!r}")
     return Loader(ds, batch_size, shuffle=False, schedule=None,
                   fixed_shape=out_shape, num_workers=num_workers,
-                  drop_last=False, out_uint8=True)
+                  drop_last=False, out_uint8=True,
+                  out_yuv420=transfer == "yuv420")
 
 
 def run_validation(datacfg: str, modelcfg: Union[str, DarknetSpec],
@@ -275,7 +293,12 @@ def run_validation(datacfg: str, modelcfg: Union[str, DarknetSpec],
     device-resident eval bank (``data/eval_bank.py``, LRU-cached across
     calls): repeated evals — the in-training cadence, reference
     ``train.py:395`` — then run with no host decode and no per-frame copy,
-    on pixels bit-identical to the rgb path's.
+    on pixels bit-identical to the rgb path's.  ``"yuv420"`` streams the
+    frames' native-size YUV 4:2:0 planes (the native decoder's; it raises
+    when the library does not build), converted and resized on the device
+    (``ops/yuv.py``): 1.5 bytes a native pixel against rgb's 3 an eval
+    pixel; the pixels differ from rgb's by the JPEG chroma round trip
+    (``tests/test_torch_yuv.py`` bounds it).
 
     ``quantize=True`` serves the backbone convs in int8 (per-channel
     weights, activation scales calibrated on the first batch:
@@ -313,7 +336,8 @@ def run_validation(datacfg: str, modelcfg: Union[str, DarknetSpec],
     errors, artifacts = _eval_pass(spec, model, loader, ctx,
                                    compute_dtype=compute_dtype, device=device,
                                    quantize=quantize, add_s=add_s,
-                                   group=group)
+                                   group=group, transfer=transfer,
+                                   out_shape=out_shape)
     summary = accuracy_summary(errors, ctx.diam)
     if save and artifacts and _is_writer(group):
         _save_predictions(dcfg, ds, artifacts)
@@ -434,7 +458,8 @@ def run_validation_multi(datacfg: Union[str, DataConfig],
         _log(f"   Testing {name}...")
     errors, _ = _eval_pass(spec, model, loader, ctx, pick=pick,
                            fix_gt_corners=True, compute_dtype=compute_dtype,
-                           device=device, quantize=quantize, group=group)
+                           device=device, quantize=quantize, group=group,
+                           transfer=transfer, out_shape=out_shape)
     table = multi_accuracy_table(errors.errs_2d)
     if verbose:
         for th, acc in table.items():
@@ -508,8 +533,8 @@ class TrainRunConfig:
     profile_dir: Optional[str] = None  # torch.profiler trace of a few steps
     profile_steps: Tuple[int, int] = (5, 10)
     cache_decoded: bool = False        # RAM-cache decoded images across epochs
-    # train loader: auto|python|device|device_bank (multi:
-    # auto|python|device_synth)
+    # train loader: auto|python|native|device|device_bank (multi:
+    # auto|python|device_synth); auto: native when its library builds
     loader_backend: str = "auto"
     # device_synth's placement knobs (the multi trainer with loader_backend
     # "device_synth"): proposals per companion (None: the host
@@ -517,10 +542,11 @@ class TrainRunConfig:
     # resolution divisor (data/device_synth.py)
     synth_attempts: Optional[int] = None
     synth_propose_scale: int = 4
-    # in-training eval input: "rgb" streams host batches, "bank" decodes the
-    # test split once into device memory (data/eval_bank.py); "auto" picks
-    # "bank" when the split fits the card's free memory with headroom
-    # (_resolve_eval_transfer), else "rgb"
+    # in-training eval input: "rgb" streams host batches, "yuv420" the
+    # frames' native-size planes (the native decoder's, converted on the
+    # device), "bank" decodes the test split once into device memory
+    # (data/eval_bank.py); "auto" picks "bank" when the split fits the
+    # card's free memory with headroom (_resolve_eval_transfer), else "rgb"
     eval_transfer: str = "auto"
     # data parallel (JAX's ``mesh``): this process is one rank of the group,
     # on the group's device in place of ``device`` (parallel/sharding.py)
@@ -819,7 +845,8 @@ def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
     (:func:`run_validation_multi`), the best ``model.weights`` kept on the
     mean of their acc@50 px (``train_multi.py:277``, ``417-421``).  The
     state, checkpoints, resume and device are as :func:`run_training` has
-    them.  Loader backends: ``python`` (``auto``; the host synthesizer, u8)
+    them.  Loader backends: ``python`` (``auto``; the host synthesizer, u8,
+    its pixel core native when the library builds: ``SynthConfig.native``)
     or ``device_synth`` (f32 scenes synthesized on ``run_cfg.device``, with
     ``synth_attempts``/``synth_propose_scale``; ``precompile_buckets``
     captures f32 graphs); the single-object backends raise.  Data parallel

@@ -105,7 +105,8 @@ class _ServeModule(torch.nn.Module):
 
 def make_serving_fn(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
                     *, pick: Pick = None, compute_dtype=torch.bfloat16,
-                    scales_as_constants: bool = True):
+                    scales_as_constants: bool = True, transfer: str = "rgb",
+                    out_shape: Optional[Tuple[int, int]] = None):
     """The serving function ``images → boxes`` over ``folded``: the folded
     weights of :func:`~singleshotpose_tpu_torch.models.darknet.fold_batchnorm`
     (bf16 forward, the serving stem's kernel), or an int8 pytree of
@@ -121,14 +122,34 @@ def make_serving_fn(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]
     the weights closed over (True), or as its eval driver, which passes them
     as arguments (False); ``models.quantize.apply_quantized`` has the two
     forms.
+
+    ``transfer="yuv420"``: the function takes ``(y, cbcr)``, the frames'
+    native-size u8 planes (``NativeLoader.test_batch_yuv420``), and
+    converts them on the device to f32 frames at ``out_shape`` (w, h)
+    before the net (``ops/yuv.yuv420_to_rgb_resized``), as JAX's eval
+    forward does (``singleshotpose_tpu/drivers.py:_eval_forward``).
     """
+    if transfer not in ("rgb", "yuv420"):
+        raise ValueError(f"unknown transfer {transfer!r}")
+    if transfer == "yuv420" and out_shape is None:
+        raise ValueError("transfer='yuv420' needs out_shape (w, h)")
     body = _ServeModule(spec, folded, pick=pick, compute_dtype=compute_dtype,
                        scales_as_constants=scales_as_constants)
     device = _device(folded)
 
-    @torch.inference_mode()
-    def serve(images):
-        return body(torch.as_tensor(images).to(device))
+    if transfer == "yuv420":
+        from .ops.yuv import yuv420_to_rgb_resized
+        out_w, out_h = out_shape
+
+        @torch.inference_mode()
+        def serve(y, cbcr):
+            return body(yuv420_to_rgb_resized(
+                torch.as_tensor(y).to(device),
+                torch.as_tensor(cbcr).to(device), out_w=out_w, out_h=out_h))
+    else:
+        @torch.inference_mode()
+        def serve(images):
+            return body(torch.as_tensor(images).to(device))
 
     serve.int8 = body.int8
     return serve

@@ -248,7 +248,6 @@ def test_step_scales_u8_as_jax(tiny):
 
 
 @pytest.mark.parametrize("backend,match", [
-    ("native", "not ported.*item 6"),
     # device_synth is ported now (tests/test_torch_device_synth.py): the
     # case keeps its id and holds that a dataset without a scene
     # synthesizer is refused
@@ -298,18 +297,23 @@ def test_frame_bank_preflight(monkeypatch):
 
 def test_cache_decoded_hits_once(tiny, monkeypatch):
     """With cache_decoded, each image and mask file is decoded once across
-    epochs, on the python and the device backend."""
+    epochs, on the python and the device backend (the latter through the
+    decoder it binds: the native one when it builds, else PIL)."""
     lst, bgs = tiny
     calls = []
-    real = TP.load_image
-    monkeypatch.setattr(TP, "load_image",
-                        lambda path: calls.append(path) or real(path))
+
+    def counting(decode):
+        return lambda path: calls.append(path) or decode(path)
+
+    monkeypatch.setattr(TP, "load_image", counting(TP.load_image))
     for backend in ("python", "device"):
         calls.clear()
         ds = TP.PoseDataset(lst, train=True, bg_file_names=bgs,
                             cache_decoded=True)
         ld = TP.Loader(ds, 4, fixed_shape=(32, 32), num_workers=0, seed=0,
                        backend=backend, device=CPU)
+        if backend == "device" and ld._decode is not TP.load_image:
+            ld._decode = counting(ld._decode)
         for _ in range(3):
             for _ in ld:
                 pass

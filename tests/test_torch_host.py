@@ -227,8 +227,7 @@ def linemod(tmp_path_factory):
 
 def _batches(P, listfile, bgs, *, train, **kw):
     ds = P.PoseDataset(listfile, train=train, bg_file_names=bgs)
-    extra = {"backend": "python"} if P is JP else {}
-    return list(P.Loader(ds, 2, **kw, **extra))
+    return list(P.Loader(ds, 2, backend="python", **kw))
 
 
 @pytest.mark.parametrize("out_uint8", [False, True], ids=["f32", "u8"])
@@ -277,15 +276,11 @@ def test_schedule_matches_jax():
             JP.SINGLE_SCHEDULE.draw(b, seen, 5, 8)
 
 
-@pytest.mark.parametrize("option", ["backend", "out_yuv420", "mesh"])
+@pytest.mark.parametrize("option", ["mesh"])
 def test_loader_refuses_the_options_it_does_not_take(linemod, option):
-    """``out_yuv420`` and ``mesh`` are not the port's; of ``backend``'s
-    values, the native decoder's is not ported yet and raises."""
+    """``mesh`` is not the port's (the native backend and ``out_yuv420``
+    are: ``tests/test_torch_native.py``)."""
     listfile, _ = linemod
     ds = TP.PoseDataset(listfile, train=True)
-    if option == "backend":
-        with pytest.raises(ValueError, match="not ported"):
-            TP.Loader(ds, 2, backend="native")
-        return
     with pytest.raises(TypeError):
         TP.Loader(ds, 2, **{option: True})
