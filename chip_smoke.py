@@ -31,6 +31,8 @@ phases; any failure propagates and the exit code is nonzero:
      of outputs with the plain version's bits and a SHA-256 of its output;
   4. model: fold BN, bf16 forward at batch 8, 672²; the stem went through
      the kernel, and the head equals the forward with the plain stem;
+     ``training.make_eval_forward(model, folded=True)`` gives the same head
+     bit for bit, K1 once;
   5. serve: ``make_serving_fn`` behind a ``MicroBatcher`` answering 16
      frames from 4 client threads, held to one direct batch-16 call;
      batch-1 latency and batch-8 frames per second;
@@ -148,7 +150,15 @@ phases; any failure propagates and the exit code is nonzero:
      a batch of 8 of them served whole and as its halves: K1 the same bits,
      the decoded heads before the pick within 0.05, the cells picked and
      the boxes' gap printed; beside them one NCCL rank of ``--dp 1``: its
-     step = the step with no group bit for bit, ``cli valid --dp 1`` (in
+     step = the step with no group bit for bit; its step captured by
+     ``drivers._precompile_buckets`` at three widths (K2–K6 and the step's
+     all-reduces recorded once in each graph; capture s and GiB reserved)
+     = its eager steps bit for bit over 10 steps across the widths and the
+     pretrain gate, by default and with ``init_train_state(decay_bn_bias=
+     False)``; the captured and the eager step timed in turns (CUDA
+     events) once the gloo ranks are done; ``run_training(group=...,
+     precompile_buckets=True)`` for one epoch of phase 14's renders (all
+     20 widths captured, every step a replay); ``cli valid --dp 1`` (in
      process) = ``cli valid``.
  19. native: a small corpus written as files (64 train and 16 held-out
      640x480 shaded renders as JPEG, PNG masks, 8 JPEG backgrounds); the
@@ -175,7 +185,8 @@ bank (K2–K6) and its two evals (K1), and phase 15's eager steps fed from
 the synth (K2–K6), phase 16's int8 serves and evals (the int8
 conv), phase 17's calls of the loaded artifacts (K1, the int8
 conv), in phase 18 each rank's DP steps (K2–K6) and its share of the
-DP eval (K1), and in phase 19 the native-fed steps (K2–K6) and each
+DP eval (K1) (and the NCCL rank's graphs: captures and replays), and in
+phase 19 the native-fed steps (K2–K6) and each
 eval (K1).  On the captured paths (11–13) a kernel's
 wrapper runs only while a graph records it, so what is counted there is
 captures: the graphs that recorded it (and their replays, each of which
@@ -260,6 +271,7 @@ from singleshotpose_tpu_torch.data.pipeline import (MULTI_SCHEDULE,
 from singleshotpose_tpu_torch.serving import (MicroBatcher, aot_serving,
                                               make_serving_fn)
 from singleshotpose_tpu_torch.training import (init_train_state,
+                                               make_eval_forward,
                                                make_train_step, schedule_lr,
                                                shard_train_state)
 from singleshotpose_tpu_torch.zoo import (occlusion_datacfg, yolo_pose_multi,
@@ -721,7 +733,7 @@ def _random_model(spec, dev, seed: int = 0) -> Darknet:
     return model
 
 
-def phase_model(spec, folded, dev) -> None:
+def phase_model(spec, model, folded, dev) -> None:
     g = torch.Generator(device=dev).manual_seed(1)
     imgs = torch.rand((MODEL_BATCH, SIZE, SIZE, 3), generator=g, device=dev)
     before = stem.stem_conv_pool_infer.launches
@@ -733,6 +745,12 @@ def phase_model(spec, folded, dev) -> None:
         with mock.patch.object(stem, "stem_conv_pool_infer",
                                stem.stem_conv_pool_infer_reference):
             ref = apply_folded(spec, folded, imgs, compute_dtype=torch.bfloat16)
+        # the same forward through training.make_eval_forward
+        before = stem.stem_conv_pool_infer.launches
+        fwd_head = make_eval_forward(model, compute_dtype=torch.bfloat16,
+                                     folded=True)(imgs)
+        torch.cuda.synchronize()
+        fwd_ran = stem.stem_conv_pool_infer.launches - before
     want = (MODEL_BATCH, SIZE // 32, SIZE // 32, 20)
     _check(tuple(head.shape) == want, f"head shape {tuple(head.shape)} != {want}")
     _check(bool(torch.isfinite(head).all()), "head has non-finite values")
@@ -740,8 +758,13 @@ def phase_model(spec, folded, dev) -> None:
     scale = float(ref.float().abs().max())
     print(f"[model] yolo_pose_single {SIZE}² batch {MODEL_BATCH} bf16: head "
           f"{tuple(head.shape)}, max|head|={scale:.6g}, stem kernel launches "
-          f"{ran}, max|head - head(plain stem)|={d:.6g} (bound {2e-2 * scale:.6g})")
+          f"{ran}, max|head - head(plain stem)|={d:.6g} (bound {2e-2 * scale:.6g}); "
+          f"make_eval_forward(folded=True): the same head bit for bit "
+          f"{_same_bits(fwd_head, head)}, stem kernel launches {fwd_ran}")
     _check(ran >= 1, "the folded forward did not launch the stem kernel")
+    _check(_same_bits(fwd_head, head) and fwd_ran == 1,
+           f"make_eval_forward(folded=True) is not the folded forward "
+           f"({fwd_ran} K1 launches)")
     _check(d <= 2e-2 * scale, f"head vs plain-stem head {d} > {2e-2 * scale}")
 
 
@@ -1336,9 +1359,11 @@ class _CountingGraph(torch.cuda.CUDAGraph):
     """A CUDA graph that notes, for each of its captures, how many times
     each kernel's wrapper (K1-K6) ran while it recorded: those launches
     went into the graph, and each of its replays launches them again
-    without the wrapper.  ``captured`` holds one K1-K6 list a capture."""
+    without the wrapper.  ``captured`` holds one K1-K6 list a capture;
+    ``replays`` counts the replays of every such graph."""
 
     captured = []
+    replays = 0
 
     def capture_begin(self, *args, **kwargs):
         self._before = [f.launches for f in _ALL_COUNTED]
@@ -1349,11 +1374,16 @@ class _CountingGraph(torch.cuda.CUDAGraph):
         _CountingGraph.captured.append(
             [f.launches - b for f, b in zip(_ALL_COUNTED, self._before)])
 
+    def replay(self):
+        _CountingGraph.replays += 1
+        super().replay()
+
 
 def _counting_captures():
     """While active, every CUDA graph made through ``torch.cuda.CUDAGraph``
     counts what it recorded (:class:`_CountingGraph`)."""
     _CountingGraph.captured.clear()
+    _CountingGraph.replays = 0
     return mock.patch.object(torch.cuda, "CUDAGraph", _CountingGraph)
 
 
@@ -3534,6 +3564,11 @@ def phase_export(spec, folded, multi, multi_folded, qfile: str, dev,
 # model, batches and kernel inputs
 DP_WORLD, DP_STEPS, DP_TIMED, DP_SEED = 2, 3, 5, 80
 DP_TIMEOUT = datetime.timedelta(seconds=300)   # a lost rank fails the phase
+# the NCCL rank's captured step: three of SINGLE_SCHEDULE's widths, and 10
+# steps across them and the pretrain gate
+DP_CAPTURED_WIDTHS = (320, 416, 608)
+DP_CAPTURED_SEQUENCE = (416, 416, 320, 608, 416, 608, 320, 416, 608, 320)
+DP_CAPTURED_EPOCHS = (15,) * 5 + (16,) * 5
 
 
 def _dp_model(spec, dev) -> Darknet:
@@ -3668,11 +3703,149 @@ def _dp_gloo_rank(spec, dev, rank: int, port: int, root: str) -> dict:
     return out
 
 
+def _counting_all_reduces(counts: dict):
+    """While active, ``torch.distributed.all_reduce`` counts its calls in
+    ``counts``: under ``"captured"`` those issued while the current stream
+    records a CUDA graph (so recorded into it), under ``"eager"`` the
+    rest."""
+    real = dist.all_reduce
+
+    def all_reduce(*args, **kwargs):
+        capturing = torch.cuda.is_current_stream_capturing()
+        counts["captured" if capturing else "eager"] += 1
+        return real(*args, **kwargs)
+
+    return mock.patch.object(dist, "all_reduce", all_reduce)
+
+
+def _dp_captured(spec, dev, group, *, decay_bn_bias: bool = True,
+                 timed: bool = False) -> dict:
+    """The NCCL group-of-one step captured by ``drivers._precompile_buckets``
+    at DP_CAPTURED_WIDTHS, as ``run_training(precompile_buckets=True)``
+    builds it for a group, against the eager step of the same group: from
+    one seeded state (``init_train_state(decay_bn_bias=)``, broadcast over
+    the group), 10 steps over DP_CAPTURED_SEQUENCE and DP_CAPTURED_EPOCHS
+    each way on the same host batches through ``drivers._to_device``.
+    Records what each graph recorded (K2–K6 and the all-reduces), the
+    capture's seconds and the memory it reserved, the replays, the bits of
+    the losses and of every state tensor; ``timed``: the captured and the
+    eager step at 416² in turns."""
+    net = spec.net
+    cfg = loss_config_from_spec(spec, pretrain_num_epochs=15, im_width=IM_W,
+                                im_height=IM_H)
+
+    def setup():
+        state = init_train_state(_dp_model(spec, dev),
+                                 weight_decay=net.decay * net.batch,
+                                 momentum=net.momentum,
+                                 decay_bn_bias=decay_bn_bias)
+        shard_train_state(group, state)
+        return state, make_train_step(cfg, compute_dtype=torch.bfloat16,
+                                      fused_stem=True, group=group)
+
+    (cap_state, cap_step), (eager_state, step) = setup(), setup()
+    host = torch.device("cpu")
+    batches = [tuple(t.numpy() for t in _train_batches(
+        host, 1, seed=DP_SEED * 10 + i, size=w)[0])
+        for i, w in enumerate(DP_CAPTURED_SEQUENCE)]
+    counts = {"captured": 0, "eager": 0}
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved(dev)
+    t0 = time.perf_counter()
+    with _counting_captures(), _counting_all_reduces(counts):
+        captured = _precompile_buckets(cap_step, cap_state,
+                                       DP_CAPTURED_WIDTHS, TRAIN_BATCH,
+                                       spec.num_keypoints)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        # as run_training leaves it: only the captured step holds the step
+        del cap_step
+        _scribble(dev)
+        out = {"per_graph": [c[1:] for c in _CountingGraph.captured],
+               "reduces_captured": counts["captured"],
+               "capture_s": capture_s,
+               "reserved_gib": (torch.cuda.memory_reserved(dev) - reserved)
+               / 2**30,
+               "reserved_total_gib": torch.cuda.memory_reserved(dev) / 2**30}
+        for f in _TRAIN_COUNTED:
+            f.launches = 0
+        cap_losses = _run_steps(captured, cap_state, batches,
+                                DP_CAPTURED_EPOCHS, spec, dev)
+        out["wrapped"] = _launches()
+        counts.update(captured=0, eager=0)
+        eager_losses = _run_steps(step, eager_state, batches,
+                                  DP_CAPTURED_EPOCHS, spec, dev)
+        torch.cuda.synchronize()
+        out["reduces_eager_step"] = counts["eager"] / len(batches)
+        out["replays"] = _CountingGraph.replays
+    diffs, n = _state_diffs(cap_state, eager_state)
+    out.update(replays_step=captured.replays, tensors=n, diffs=diffs[:10],
+               same_losses=_same_bits(cap_losses, eager_losses),
+               losses=cap_losses, finite=bool(torch.isfinite(
+                   cap_losses).all()),
+               seen=(cap_state.seen, eager_state.seen))
+    if timed:
+        frames, labels = [(_to_device(f, dev), _to_device(t, dev))
+                          for (f, t), w in zip(batches, DP_CAPTURED_SEQUENCE)
+                          if w == TRAIN_SIZE][0]
+        turns = {"captured": [], "eager": []}
+        # CUDA events on the current stream, which NCCL's stream joins
+        # before the step returns
+        for which in ("captured", "eager", "eager", "captured"):
+            fn, st = (captured, cap_state) if which == "captured" else \
+                (step, eager_state)
+            turns[which].append(_time_ms(
+                lambda: fn(st, frames, labels, _lr(spec, 0), TRAIN_EPOCH),
+                iters=TIMED_STEPS, warmup=0))
+        out["turns"] = turns
+    return out
+
+
+def _dp_run_training(spec, dev, group, root: str) -> dict:
+    """``drivers.run_training(group=..., precompile_buckets=True)`` for one
+    epoch of phase 14's renders (the host Python loader, read from memory)
+    at ``yolo_pose_single``'s batch 8, no eval: every SINGLE_SCHEDULE width
+    captured with the group's collectives, every step a replay."""
+    from singleshotpose_tpu_torch.drivers import run_training
+    rc = TrainRunConfig(group=group, precompile_buckets=True,
+                        max_epochs_override=1, num_workers=8, log_every=4,
+                        bg_dir=f"{root}/no_bg", eval_every=1000,
+                        eval_after=1000, loader_backend="python")
+    for f in _TRAIN_COUNTED:
+        f.launches = 0
+    t = time.perf_counter()
+    with _reading_renders(_dp_frames(root)), _counting_captures():
+        result = run_training(f"{root}/obj.data", spec, None, 15, rc)
+        torch.cuda.synchronize()
+        replays = _CountingGraph.replays
+        per_graph = [c[1:] for c in _CountingGraph.captured]
+    with open(f"{root}/train.txt") as f:
+        frames = sum(1 for ln in f if ln.strip())
+    return {"per_graph": per_graph, "replays": replays, "frames": frames,
+            "launches": _launches(), "seconds": time.perf_counter() - t,
+            "losses": result["history"]["training_losses"],
+            "seen": result["state"].seen}
+
+
+def _wait_for(flag: str, root: str) -> None:
+    """Wait until ``flag`` exists; raise once ``root`` is gone (the phase
+    failed and cleaned up) or after DP_TIMEOUT."""
+    t = time.perf_counter()
+    while not os.path.exists(flag):
+        if not os.path.isdir(root) or \
+                time.perf_counter() - t > DP_TIMEOUT.total_seconds():
+            raise RuntimeError(f"{flag} never came")
+        time.sleep(0.05)
+
+
 def _dp_nccl_rank(spec, dev, root: str) -> dict:
     """``--dp 1`` through NCCL: one step with a group of one against the
-    step with none, from one state; then ``cli valid --dp 1`` (its group
-    of one in this process, as the CLI runs it outside ``torchrun``)
-    against ``cli valid``, the summaries recorded from
+    step with none, from one state; the group's step captured against its
+    eager steps (:func:`_dp_captured`), by default and with
+    ``decay_bn_bias=False``; ``run_training`` with the group and
+    ``precompile_buckets`` (:func:`_dp_run_training`); then ``cli valid
+    --dp 1`` (its group of one in this process, as the CLI runs it outside
+    ``torchrun``) against ``cli valid``, the summaries recorded from
     ``drivers.run_validation``."""
     import singleshotpose_tpu_torch.drivers as drivers_mod
     from singleshotpose_tpu_torch import cli
@@ -3684,6 +3857,19 @@ def _dp_nccl_rank(spec, dev, root: str) -> dict:
     out.update(step_equal=not diffs and _same_bits(la, lb), tensors=n,
                diffs=diffs[:3], seen=(a.seen, b.seen))
     del a, b
+    t = time.perf_counter()
+    out["captured_no_decay"] = _dp_captured(spec, dev, group,
+                                            decay_bn_bias=False)
+    _free()
+    out["run_training"] = _dp_run_training(spec, dev, group, root)
+    _free()
+    # the timed run waits until the gloo ranks are done with the card
+    t_wait = time.perf_counter()
+    _wait_for(f"{root}/gloo_done", root)
+    out["waited_s"] = time.perf_counter() - t_wait
+    out["captured"] = _dp_captured(spec, dev, group, timed=True)
+    out["captured_s"] = time.perf_counter() - t - out["waited_s"]
+    _free()
     dist.destroy_process_group()
     summaries, real = [], drivers_mod.run_validation
     args = ["valid", "--datacfg", f"{root}/obj.data", "--modelcfg",
@@ -3798,21 +3984,27 @@ def phase_dp(spec, dev, card: str) -> dict:
     on the first 8 frames served whole and as two halves
     (:func:`_split_serve`): K1 the same bits both ways, the decoded heads
     before the pick within 0.05 at every cell, and the images whose pick
-    falls on another cell with the margin between the two cells.
-    Beside them one
-    NCCL rank: a step with a group of one = the step with none bit for
-    bit, and ``cli valid --dp 1`` = ``cli valid``.  Returns the per-rank
-    launches."""
+    falls on another cell with the margin between the two cells.  Beside
+    them one NCCL rank: a step with a group of one = the step with none bit
+    for bit; the group's step captured at three widths = its eager steps
+    bit for bit, by default and with ``decay_bn_bias=False``, K2–K6 and the
+    step's all-reduces recorded once in each graph, the captured and the
+    eager step in turns once the gloo ranks are done with the card;
+    ``run_training`` with the group and ``precompile_buckets`` for one
+    epoch (20 graphs, every step a replay); and ``cli valid --dp 1`` =
+    ``cli valid``.  Returns the per-rank launches and the NCCL graphs'
+    captures and replays."""
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="ssp_dp_")
     try:
         datacfg, _, _, frames = _data_corpus(root)
         with open(f"{root}/test.txt") as f:
             paths = [ln.strip() for ln in f if ln.strip()]
+        # every render: the NCCL rank trains an epoch on the train split
         np.savez(f"{root}/frames.npz",
-                 **{f"f{i}": frames[p] for i, p in enumerate(paths)})
+                 **{f"f{i}": a for i, a in enumerate(frames.values())})
         with open(f"{root}/frames.json", "w") as f:
-            json.dump(paths, f)
+            json.dump(list(frames), f)
         model = _dp_model(spec, dev)
         W.save_weights(spec, model.state_dict(), f"{root}/dp.weights")
         ctx = torch.multiprocessing.start_processes(
@@ -3840,6 +4032,9 @@ def phase_dp(spec, dev, card: str) -> dict:
         split = _split_serve(spec, fold_batchnorm(model), batch, dev)
         while not ctx.join():
             pass
+        # the NCCL rank times its steps with the card to itself
+        _free()
+        open(f"{root}/gloo_done", "w").close()
         while not nccl.join():
             pass
         ranks = [torch.load(f"{root}/gloo{r}.pt", weights_only=False)
@@ -3954,9 +4149,87 @@ def phase_dp(spec, dev, card: str) -> dict:
     _check(one["backend"] == "nccl" and one["step_equal"],
            f"the NCCL group-of-one step differs: {one['diffs']}")
     _check(valid_same, f"valid --dp 1 differs: {s_dp} vs {s_one}")
-    print(f"[dp] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    captures, replays = _report_dp_captured(one, card)
+    print(f"[dp] phase {time.perf_counter() - t_phase:.1f} s, of which the "
+          f"NCCL rank's captured steps {one['captured_s']:.1f} s (and "
+          f"{one['waited_s']:.1f} s waiting for the gloo ranks) [{card}]")
     return {"launches": [r["launches"] for r in ranks],
-            "k1": [r["k1"] for r in ranks]}
+            "k1": [r["k1"] for r in ranks], "captures": captures,
+            "replays": replays}
+
+
+def _report_dp_captured(one: dict, card: str):
+    """Print and check the NCCL rank's captured steps (:func:`_dp_captured`,
+    :func:`_dp_run_training`).  Returns the graphs that recorded K2–K6 and
+    their replays."""
+    n_widths = len(DP_CAPTURED_WIDTHS)
+    for tag, c in (("default", one["captured"]),
+                   ("decay_bn_bias=False", one["captured_no_decay"])):
+        per_step = c["reduces_eager_step"]
+        print(f"[dp nccl captured, {tag}] {n_widths} widths "
+              f"{DP_CAPTURED_WIDTHS} captured at batch {TRAIN_BATCH} in "
+              f"{c['capture_s']:.2f} s (warm-up steps and capture), "
+              f"{c['reserved_gib']:.2f} GiB more reserved "
+              f"({c['reserved_total_gib']:.2f} GiB in all); K2-K6 recorded "
+              f"in each graph: {c['per_graph']}; all-reduces issued while "
+              f"capturing {c['reduces_captured']} ({per_step:g} an eager "
+              f"step); {len(DP_CAPTURED_SEQUENCE)} steps "
+              f"({' '.join(map(str, DP_CAPTURED_SEQUENCE))}), epochs "
+              f"{DP_CAPTURED_EPOCHS[0]}->{DP_CAPTURED_EPOCHS[-1]}: "
+              f"{c['replays']} replays (K2-K6 wrappers ran {c['wrapped']} "
+              f"times in them); losses {float(c['losses'][0]):.8g} ... "
+              f"{float(c['losses'][-1]):.8g}; captured = eager bit for bit: "
+              f"losses {c['same_losses']}, {c['tensors'] - len(c['diffs'])} "
+              f"of {c['tensors']} state tensors; seen {c['seen']} [{card}]")
+        for name, n, d in c["diffs"]:
+            print(f"[dp nccl captured, {tag}]   captured != eager: {name}: "
+                  f"{n} elements, max|d| {d:.6g}")
+        _check(c["per_graph"] == [[1] * 5] * n_widths,
+               f"K2-K6 were not recorded once in each NCCL graph: "
+               f"{c['per_graph']}")
+        _check(per_step > 0 and c["reduces_captured"] == per_step * n_widths,
+               f"{c['reduces_captured']} all-reduces recorded in "
+               f"{n_widths} graphs, {per_step} an eager step")
+        _check(c["wrapped"] == [0] * 5 and c["replays"] == c["replays_step"]
+               == len(DP_CAPTURED_SEQUENCE),
+               f"replays {c['replays']}, wrappers {c['wrapped']}")
+        _check(c["same_losses"] and not c["diffs"] and c["finite"],
+               f"the captured NCCL steps ({tag}) do not give the eager "
+               "steps' bits")
+        _check(c["seen"] == (len(DP_CAPTURED_SEQUENCE) * TRAIN_BATCH,) * 2,
+               f"seen {c['seen']}")
+    turns = one["captured"]["turns"]
+    print(f"[dp nccl captured] {TRAIN_SIZE}² b{TRAIN_BATCH} step of the "
+          f"NCCL group of one, ms in turns captured/eager/eager/captured, "
+          f"CUDA events, median of {TIMED_STEPS} steps each: "
+          + "; ".join(f"{k} " + " ".join(f"{t:.4f}" for t in v)
+                      for k, v in turns.items()) + f" [{card}]")
+    r = one["run_training"]
+    steps = r["frames"] // TRAIN_BATCH
+    n_all = len(SINGLE_SCHEDULE.all_widths)
+    print(f"[dp nccl captured] run_training(group=NCCL of one, "
+          f"precompile_buckets=True), one epoch of {r['frames']} renders: "
+          f"{len(r['per_graph'])} graphs, K2-K6 recorded in each "
+          f"{r['per_graph'][0] if r['per_graph'] else None} (all alike: "
+          f"{all(g == [1] * 5 for g in r['per_graph'])}), {r['replays']} "
+          f"replays for {len(r['losses'])} steps, K2-K6 wrappers ran "
+          f"{r['launches']} times (warm-ups and captures), losses "
+          + " ".join(f"{x:.6g}" for x in r["losses"][:3]) + " ... "
+          f"{r['losses'][-1]:.6g}; seen {r['seen']}; {r['seconds']:.1f} s "
+          f"[{card}]")
+    _check(r["per_graph"] == [[1] * 5] * n_all,
+           f"run_training's NCCL graphs recorded {r['per_graph']}")
+    _check(r["replays"] == len(r["losses"]) == steps and
+           np.isfinite(r["losses"]).all() and r["seen"] == steps * TRAIN_BATCH,
+           f"run_training replayed {r['replays']} times for "
+           f"{len(r['losses'])} steps")
+    # the trainer's warm-up steps and captures alone ran the wrappers
+    _check(r["launches"] == [3 * n_all] * 5,
+           f"K2-K6 wrappers ran {r['launches']} times in run_training")
+    captures = 2 * n_widths + len(r["per_graph"])
+    replays = one["captured"]["replays"] + \
+        one["captured_no_decay"]["replays"] + r["replays"]
+    return captures, replays
 
 
 # the native phase (19): a small corpus written as real files (640x480 JPEG
@@ -4309,7 +4582,7 @@ def main(argv=None) -> int:
     print(f"[model] yolo_pose_single: {n_params} parameters and BN statistics")
     # the main path: every launch counted from here on came from it
     stem.stem_conv_pool_infer.launches = 0
-    phase_model(spec, folded, dev)
+    phase_model(spec, model, folded, dev)
     served = phase_serve(spec, folded, dev, card)
     launches = stem.stem_conv_pool_infer.launches
     _check(launches > 0, "the serving path launched no stem kernel")
@@ -4402,7 +4675,10 @@ def main(argv=None) -> int:
     # launches_device_data, launches_device_synth: the eager steps fed from
     # the frame bank (phase 14) and from the scene synth (phase 15);
     # launches_dp: per rank, the two gloo ranks' DP steps (phase 18; K1:
-    # launches_dp_eval, their shares of the DP eval); launches_native_train:
+    # launches_dp_eval, their shares of the DP eval); captures_dp_nccl,
+    # replays_dp_nccl: the NCCL rank's graphs of its captured DP step (phase
+    # 18: 3 + 3 widths and run_training's 20) and their replays;
+    # launches_native_train:
     # the native-fed epoch's eager steps (phase 19; null where the native
     # library does not build), K1's launches_native_eval: the rgb and the
     # yuv420 eval of phase 19
@@ -4414,7 +4690,9 @@ def main(argv=None) -> int:
                    "replays_multi": aot["replays_multi"]}
     train_captured = {**captured_counts(captured),
                       "captures_multi": captured_multi["captures"],
-                      "replays_multi": captured_multi["replays"]}
+                      "replays_multi": captured_multi["replays"],
+                      "captures_dp_nccl": dp["captures"],
+                      "replays_dp_nccl": dp["replays"]}
     kernels = [{
         "name": "stem_conv_pool_infer", "route": "cuda",
         "source": "singleshotpose_tpu_torch/csrc/stem_serve.cu",

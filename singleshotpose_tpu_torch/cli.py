@@ -30,9 +30,13 @@
          [--pick grid|best|per_class|for_class] [--conf_thresh 0.1]
          [--cls 0] [--compute bfloat16|float32] [--float_input]
          [--device cuda]
+  python -m singleshotpose_tpu_torch.cli make-labels --mesh M.ply --poses P.npz
+         --out labels/ [--class_id 0] [--width 640] [--height 480]
+  python -m singleshotpose_tpu_torch.cli print-cfg <cfgfile>
 
 Flags follow ``singleshotpose_tpu/cli.py`` (``train``, ``valid``,
-``train-multi``, ``valid-multi``, ``quantize``, ``export``; the ``.npz`` of
+``train-multi``, ``valid-multi``, ``quantize``, ``export``, ``make-labels``,
+``print-cfg``, the last two host-only and device-free; the ``.npz`` of
 ``quantize`` is the JAX package's format, so either package serves the
 other's), with ``--checkpoint_dir`` in place of
 ``--orbax_dir``.  ``export`` has ``--device`` in place of ``--platforms``:
@@ -51,7 +55,9 @@ with no group, ``1`` a group of one).  Under ``torchrun`` (``RANK``,
 this process, and a larger N starts N local ranks (spawned, a TCP
 rendezvous on a free local port).  Rank r runs on
 ``cuda:<local rank>`` with NCCL — N cards are needed — or, with ``--device
-cpu``, on the CPU with gloo.  ``valid --checkpoint_dir`` evaluates a
+cpu``, on the CPU with gloo.  ``--precompile_buckets`` captures each
+rank's step with its NCCL collectives (``--dp 1`` on one card too); over
+gloo it is refused.  ``valid --checkpoint_dir`` evaluates a
 full-state checkpoint (JAX's ``--orbax_dir``): the offline eval of a
 data-parallel training run.
 """
@@ -581,9 +587,26 @@ def cmd_export(argv: Sequence[str]) -> int:
     return 0
 
 
+def cmd_make_labels(argv: Sequence[str]) -> int:
+    """Create 21-float label files from a mesh + GT poses (the recipe the
+    reference only documents, ``label_file_creation.md``)."""
+    from .make_labels import main as run
+    return run(argv)
+
+
+def cmd_print_cfg(argv: Sequence[str]) -> int:
+    from .config import parse_cfg, print_cfg
+    if not argv:
+        print("usage: ssp print-cfg <cfgfile>", file=sys.stderr)
+        return 2
+    print_cfg(parse_cfg(argv[0]))
+    return 0
+
+
 COMMANDS = {"train": cmd_train, "valid": cmd_valid,
             "train-multi": cmd_train_multi, "valid-multi": cmd_valid_multi,
-            "quantize": cmd_quantize, "export": cmd_export}
+            "quantize": cmd_quantize, "export": cmd_export,
+            "make-labels": cmd_make_labels, "print-cfg": cmd_print_cfg}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

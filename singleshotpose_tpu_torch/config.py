@@ -2,8 +2,7 @@
 
 The port's own copy of ``singleshotpose_tpu/config.py`` (plain Python, no
 framework), kept so the port imports nothing of the JAX package;
-``tests/test_torch_host.py`` holds it equal to the original.  Left out:
-``print_cfg``.
+``tests/test_torch_host.py`` holds it equal to the original.
 
 A rebuild of the reference config layer (reference: ``cfg.py:4-34``
 ``parse_cfg`` and ``utils.py:343-358`` ``read_data_cfg``).  The parsers keep the
@@ -30,6 +29,7 @@ __all__ = [
     "data_config_from_options",
     "occlusion_sweep",
     "format_cfg_table",
+    "print_cfg",
 ]
 
 
@@ -360,3 +360,7 @@ def format_cfg_table(blocks: Sequence[Dict[str, str]]) -> str:
         out_heights.append(prev_height)
         out_filters.append(prev_filters)
     return "\n".join(lines)
+
+
+def print_cfg(blocks: Sequence[Dict[str, str]]) -> None:
+    print(format_cfg_table(blocks))

@@ -76,7 +76,7 @@ from .zoo import _resolve_model
 
 __all__ = ["run_validation", "run_validation_multi",
            "run_validation_multi_sweep", "run_training", "run_training_multi",
-           "TrainRunConfig", "loss_config_from_spec",
+           "TrainRunConfig", "load_spec", "loss_config_from_spec",
            "OCCLUSION_EVAL_OBJECTS"]
 
 
@@ -490,21 +490,36 @@ def run_validation_multi_sweep(occlusion_datacfg: str,
 # ---------------------------------------------------------------------------
 
 
+def load_spec(modelcfg: Union[str, DarknetSpec]) -> DarknetSpec:
+    """Accept a `.cfg` path or an already-built DarknetSpec."""
+    if isinstance(modelcfg, DarknetSpec):
+        return modelcfg
+    return DarknetSpec.from_cfg(modelcfg)
+
+
 def loss_config_from_spec(spec: DarknetSpec, *, pretrain_num_epochs: int,
                           im_width: float, im_height: float,
-                          multi: bool = False) -> RegionLossConfig:
+                          multi: bool = False,
+                          honor_cfg_scales: bool = False) -> RegionLossConfig:
     """Loss config: topology from the spec's [region] block, scales as the
-    reference's loss modules really use them — the config's defaults,
-    coord/object/noobject/class 1/5/1/1 and threshold 0.6, whatever the cfg
-    says (``singleshotpose_tpu/drivers.py:67-95``); ``multi`` adds the class
-    term where the region has more than one class."""
+    reference's loss modules really use them — coord/noobject/object/class
+    1/1/5/1 and threshold 0.6, whatever the cfg says
+    (``singleshotpose_tpu/drivers.py:67-95``) — or, with
+    ``honor_cfg_scales``, the [region] block's scales and ``thresh``;
+    ``multi`` adds the class term where the region has more than one
+    class."""
     r = spec.region
+    scales = dict(coord_scale=r.coord_scale, noobject_scale=r.noobject_scale,
+                  object_scale=r.object_scale, class_scale=r.class_scale,
+                  sil_thresh=r.thresh) if honor_cfg_scales else \
+        dict(coord_scale=1.0, noobject_scale=1.0, object_scale=5.0,
+             class_scale=1.0, sil_thresh=0.6)
     return RegionLossConfig(
         num_keypoints=spec.num_keypoints, num_classes=r.classes,
         num_anchors=r.num, anchors=r.anchors,
         pretrain_num_epochs=pretrain_num_epochs,
         with_class_loss=multi and r.classes > 1,
-        im_width=float(im_width), im_height=float(im_height))
+        im_width=float(im_width), im_height=float(im_height), **scales)
 
 
 @dataclasses.dataclass
@@ -512,6 +527,9 @@ class TrainRunConfig:
     """Run settings beyond the reference CLI (defaults = the reference)."""
     eval_every: int = 10           # train.py:395 (epoch % 10)
     eval_after: int = 15           # train.py:395 (epoch > 15)
+    # the run_validation summary key that picks the best model.weights
+    # (the single-object trainer; the multi one keeps its mean acc@50 px)
+    save_best_metric: str = "acc_2d_proj"
     compute_dtype: object = torch.bfloat16
     num_workers: int = 8
     eval_batch_size: int = 16
@@ -691,17 +709,21 @@ def _check_dp_options(rc: TrainRunConfig, backend: str) -> None:
     """What a data-parallel run cannot take: a bank of the train data on the
     device (``device_bank``, ``device_synth``: one process's loaders, as in
     JAX, ``singleshotpose_tpu/drivers.py:793-797``, ``:1123-1126``) over more
-    than one rank, and captured steps at all."""
+    than one rank, and captured steps over a gloo group (gloo's collectives
+    run on the host: a CUDA graph cannot record them; an NCCL group's step
+    is captured)."""
     if rc.group is None:
         return
     if rc.group.world > 1 and backend in ("device_bank", "device_synth"):
         raise ValueError(f"loader_backend={backend!r} is single-process; "
                          "data parallel over several ranks takes the host "
                          "loader")
-    if rc.precompile_buckets:
-        raise ValueError("precompile_buckets: a data-parallel train step "
-                         "is not captured (ROADMAP.md §1 item 3); train "
-                         "eagerly")
+    if rc.precompile_buckets and rc.group.backend != "nccl":
+        raise ValueError(
+            f"precompile_buckets: a data-parallel step over a "
+            f"{rc.group.backend} group cannot be captured (its collectives "
+            "run on the host, outside any CUDA graph); train eagerly, or "
+            "over NCCL")
 
 
 def _train_epochs(epochs, train_one, evaluate, state: TrainState, processed,
@@ -750,8 +772,9 @@ def run_training(datacfg: str, modelcfg: Union[str, DarknetSpec],
     sums the gradients and synchronises BN over the group; the lr, the
     weight decay and ``seen`` stay global; ``model.weights``, ``costs.npz``
     and the checkpoints are rank 0's; ``eval_transfer="auto"`` is rank 0's
-    choice.  ``device_bank`` over several ranks and ``precompile_buckets``
-    raise.
+    choice; ``precompile_buckets`` captures the step of an NCCL group,
+    collectives and all, per rank.  ``device_bank`` over several ranks and
+    ``precompile_buckets`` over gloo raise.
 
     Returns {"state": the final TrainState, "best_acc": float,
     "history": dict of the training and testing curves}.
@@ -794,7 +817,7 @@ def run_training(datacfg: str, modelcfg: Union[str, DarknetSpec],
                     device=device)
     if rc.precompile_buckets:
         step = _precompile_buckets(step, state, SINGLE_SCHEDULE.all_widths,
-                                   batch_size, spec.num_keypoints)
+                                   loader_batch, spec.num_keypoints)
 
     history: Dict[str, List] = {"training_iters": [], "training_losses": [],
                                 "testing_iters": [], "testing_accuracies": [],
@@ -912,7 +935,7 @@ def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
                     synth_propose_scale=rc.synth_propose_scale)
     if rc.precompile_buckets:
         step = _precompile_buckets(
-            step, state, MULTI_SCHEDULE.all_widths, batch_size,
+            step, state, MULTI_SCHEDULE.all_widths, loader_batch,
             spec.num_keypoints,
             image_dtype=torch.float32 if on_device else torch.uint8)
 
@@ -997,7 +1020,7 @@ def _precompile_buckets(step: Callable, state: TrainState,
                         image_dtype: torch.dtype = torch.uint8) -> Callable:
     """Pay for every multi-scale bucket before epoch 0
     (``singleshotpose_tpu/drivers.py:905-930``).  Returns the step to train
-    with.
+    with.  ``batch``: the rows of one step on this rank (the loader's batch).
 
     On a card: ``step`` captured as one CUDA graph per width for images of
     ``image_dtype`` (u8 from the host loaders and the single-object banks,
@@ -1005,8 +1028,10 @@ def _precompile_buckets(step: Callable, state: TrainState,
     (:func:`~singleshotpose_tpu_torch.training.capture_train_step`), after
     warm-up steps that leave the state as it was; a failed capture raises.
     On the CPU, eager PyTorch has nothing to compile: ``step`` itself.
-    Logs each bucket's time.  A data-parallel run never comes here
-    (:func:`_check_dp_options`); ``capture_train_step`` refuses its step."""
+    Logs each bucket's time.  A data-parallel step (NCCL; gloo is refused
+    before, :func:`_check_dp_options`) is captured with its collectives: every
+    rank captures the same widths in the same order, and replays in
+    lockstep."""
     device = next(state.model.parameters()).device
     if device.type != "cuda":
         _log(f"nothing to precompile on {device}: the step runs eagerly")
@@ -1087,7 +1112,8 @@ def _eval_and_keep_best(datacfg, spec, state, rc, device, backupdir, history,
                         processed, best_acc) -> float:
     """The in-training eval of the model in memory: the curves to
     ``costs.npz``, and ``model.weights`` when the 2D accuracy is a new best
-    (reference ``train.py:395-409``).  Returns the best accuracy."""
+    (reference ``train.py:395-409``); the accuracy is the summary's
+    ``rc.save_best_metric``.  Returns the best accuracy."""
     out_shape = (spec.net.test_width, spec.net.test_height)
     transfer = _resolve_eval_transfer(rc, _bank_bytes(
         _valid_split_frames(datacfg), out_shape, rc.eval_batch_size), device)
@@ -1096,7 +1122,7 @@ def _eval_and_keep_best(datacfg, spec, state, rc, device, backupdir, history,
                              num_workers=rc.num_workers,
                              compute_dtype=rc.compute_dtype, device=device,
                              transfer=transfer, group=rc.group)
-    acc = summary["acc_2d_proj"]
+    acc = summary[rc.save_best_metric]
     history["testing_iters"].append(processed)
     history["testing_accuracies"].append(acc)
     history["testing_errors_pixel"].append(summary["mean_err_2d"])
@@ -1105,7 +1131,8 @@ def _eval_and_keep_best(datacfg, spec, state, rc, device, backupdir, history,
     if writer:
         np.savez(os.path.join(backupdir, "costs.npz"),
                  **{k: np.asarray(v) for k, v in history.items()})
-    if acc <= best_acc:
+    # as the JAX trainer compares (a NaN metric is no new best)
+    if not acc > best_acc:
         return best_acc
     path = os.path.join(backupdir, "model.weights")
     _log(f"best model so far! save weights to {path}")

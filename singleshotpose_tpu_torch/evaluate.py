@@ -31,7 +31,8 @@ from .utils.geometry import (adi, calc_pts_diameter, fix_corner_order,
 from .utils.meshply import MeshPly
 
 __all__ = ["EvalContext", "PoseErrors", "pose_metrics", "accuracy_summary",
-           "truths_length", "gt_corner_boxes", "multi_accuracy_table"]
+           "truths_length", "gt_corner_boxes", "box3d_iou",
+           "multi_accuracy_table"]
 
 EPS = 1e-5
 PX_THRESHOLD = 5.0
@@ -173,6 +174,38 @@ def accuracy_summary(errors: PoseErrors, diam: float,
         "mean_err_angle": float(ea.mean()) if n else float("nan"),
         "n_samples": n,
     }
+
+
+def box3d_iou(Rt_gt: np.ndarray, Rt_pr: np.ndarray,
+              corners3d: np.ndarray, grid: int = 24) -> float:
+    """IoU of the posed 3D bounding boxes (deterministic grid approximation).
+
+    The BASELINE config sweep names "3D IoU" alongside 2D-projection and ADD;
+    the reference repo itself never computes it, so this is a beyond-parity
+    metric.  Exact oriented-box intersection is a convex-polytope problem;
+    here a ``grid³`` lattice over the gt box is transformed into the pred
+    box's frame and counted — deterministic, accurate to ~1/grid, and
+    symmetric enough for thresholded accuracy use.  numpy, as
+    ``singleshotpose_tpu/evaluate.py:232`` computes it.
+
+    Args:
+      Rt_gt / Rt_pr: (3,4) object→camera transforms.
+      corners3d: (8,3) model-frame box corners (axis-aligned around origin).
+    """
+    lo = corners3d.min(axis=0)
+    hi = corners3d.max(axis=0)
+    ax = [np.linspace(l, h, grid, dtype=np.float32) for l, h in zip(lo, hi)]
+    gx, gy, gz = np.meshgrid(*ax, indexing="ij")
+    pts = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)    # gt-frame lattice
+
+    # gt-frame point → camera → pred object frame
+    cam = pts @ Rt_gt[:, :3].T + Rt_gt[:, 3]
+    obj_pr = (cam - Rt_pr[:, 3]) @ Rt_pr[:, :3]             # R^T (x - t)
+    eps = 1e-5 * (hi - lo)   # absorb f32 cancellation at the box boundary
+    inside = np.all((obj_pr >= lo - eps) & (obj_pr <= hi + eps), axis=1)
+    inter = inside.mean() * np.prod(hi - lo)
+    union = 2.0 * np.prod(hi - lo) - inter
+    return float(inter / union) if union > 0 else 0.0
 
 
 def multi_accuracy_table(errs_2d: Sequence[float],

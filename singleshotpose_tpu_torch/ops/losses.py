@@ -48,6 +48,24 @@ class RegionLossConfig:
     im_height: float = 480.0
     max_num_gt: int = 50
 
+    @classmethod
+    def single(cls, pretrain_num_epochs: int = 15, **kw) -> "RegionLossConfig":
+        """Defaults of the single-object RegionLoss (``region_loss.py:81-93``).
+
+        Note the reference *hard-codes* noobject_scale=1/object_scale=5 in the
+        loss module and ignores the [region] block values for the driver-built
+        loss (``train.py:335``); pass overrides to honor a cfg instead."""
+        return cls(pretrain_num_epochs=pretrain_num_epochs, **kw)
+
+    @classmethod
+    def multi(cls, anchors: Tuple[float, ...], num_classes: int = 13,
+              num_anchors: int = 5, pretrain_num_epochs: int = 15,
+              **kw) -> "RegionLossConfig":
+        """The multi-object loss: 13 classes, 5 anchors, the class term."""
+        return cls(num_classes=num_classes, num_anchors=num_anchors,
+                   anchors=anchors, with_class_loss=True,
+                   pretrain_num_epochs=pretrain_num_epochs, **kw)
+
 
 def activate_head(output: torch.Tensor, K: int, C: int, nA: int):
     """Split and activate the raw NHWC head with the decoder's

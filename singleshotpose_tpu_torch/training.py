@@ -14,12 +14,15 @@ with the darknet conventions applied by ``drivers.run_training``:
 :func:`sgd_update` runs it with ``lr`` a 0-dim device tensor, so no step
 reads a value back to the host; the momentum buffers live in the
 ``torch.optim.SGD`` state, where a checkpoint keeps them.  Weight decay
-applies to every parameter, the reference's behavior.
+applies to every parameter, the reference's behavior, unless
+``init_train_state(decay_bn_bias=False)`` exempts the BN affine terms and
+the biases (:func:`no_decay_mask_for`).
 
 The step runs eagerly on the model's device and updates the state in place
 (the torch idiom) instead of returning a new one.  :func:`capture_train_step`
 records it once per input shape as a ``torch.cuda.CUDAGraph``, the
-counterpart of the JAX package's one compiled program per bucket.
+counterpart of the JAX package's one compiled program per bucket; a
+data-parallel step over NCCL is captured with its collectives.
 """
 
 from __future__ import annotations
@@ -31,14 +34,15 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from .data.device_augment import INV255
-from .models.darknet import Darknet
+from .models.darknet import Darknet, apply_folded, fold_batchnorm
 from .ops.losses import RegionLossConfig, region_loss
 from .parallel.sharding import (DPGroup, all_reduce_grads, all_reduce_sum_,
                                 broadcast_)
 
-__all__ = ["TrainState", "init_train_state", "shard_train_state",
-           "schedule_lr", "sgd_update",
-           "make_train_step", "CapturedTrainStep", "capture_train_step"]
+__all__ = ["TrainState", "init_train_state", "no_decay_mask_for",
+           "shard_train_state", "schedule_lr", "sgd_update",
+           "make_train_step", "make_eval_forward", "CapturedTrainStep",
+           "capture_train_step"]
 
 Scalar = Union[float, int, torch.Tensor]
 
@@ -54,12 +58,37 @@ class TrainState:
     seen: int = 0
 
 
+def no_decay_mask_for(model: Darknet) -> Dict[str, bool]:
+    """Each parameter's name → whether weight decay skips it under
+    ``decay_bn_bias=False``: True for the BN scale and bias and the conv and
+    connected biases (JAX's ``"scale"``, ``"bias"``, ``"b"``,
+    ``singleshotpose_tpu/training.py:99-104``; the torch names holding
+    ``.bn`` or ``.bias``, reference ``train.py:383-386``), False for the
+    weights."""
+    return {name: name.rsplit(".", 1)[-1] in ("scale", "bias")
+            for name, _ in model.named_parameters()}
+
+
 def init_train_state(model: Darknet, *, weight_decay: float, momentum: float,
-                     seen: int = 0) -> TrainState:
+                     seen: int = 0, decay_bn_bias: bool = True) -> TrainState:
     """A fresh state around ``model``: SGD (dampening 0, no Nesterov) with
     ``weight_decay`` on every parameter.  The learning rate is the step's
-    argument (:func:`sgd_update`)."""
-    opt = torch.optim.SGD(model.parameters(), lr=0.0, momentum=momentum,
+    argument (:func:`sgd_update`).
+
+    ``decay_bn_bias=False``: the parameters :func:`no_decay_mask_for` marks
+    go into a second parameter group with weight decay 0 — where JAX's
+    ``make_train_step(decay_bn_bias=False)`` went (JAX keeps the decay in
+    the step, the port in the optimizer's groups, which every step and
+    checkpoint carry)."""
+    if decay_bn_bias:
+        groups = [{"params": list(model.parameters())}]
+    else:
+        skip = no_decay_mask_for(model)
+        named = list(model.named_parameters())
+        groups = [{"params": [p for n, p in named if not skip[n]]},
+                  {"params": [p for n, p in named if skip[n]],
+                   "weight_decay": 0.0}]
+    opt = torch.optim.SGD(groups, lr=0.0, momentum=momentum,
                           dampening=0.0, weight_decay=weight_decay,
                           nesterov=False)
     return TrainState(model, opt, seen)
@@ -122,15 +151,17 @@ def sgd_update(optimizer: torch.optim.SGD, lr: Scalar) -> None:
     (``singleshotpose_tpu/training.py:sgd_apply``), with the momentum and
     weight decay of ``optimizer``'s groups and ``lr`` a float or a 0-dim
     tensor on the parameters' device: foreach ops only, so nothing is read
-    back to the host and a CUDA graph can record it."""
+    back to the host and a CUDA graph can record it.  A group with weight
+    decay 0 takes the gradient itself, as JAX's masked ``sgd_apply`` does."""
     for group in optimizer.param_groups:
         params = [p for p in group["params"] if p.grad is not None]
         if not params:
             continue
         bufs = _momentum_buffers(optimizer, params)
         with torch.no_grad():
-            d = torch._foreach_add([p.grad for p in params], params,
-                                   alpha=group["weight_decay"])
+            grads = [p.grad for p in params]
+            d = grads if group["weight_decay"] == 0 else \
+                torch._foreach_add(grads, params, alpha=group["weight_decay"])
             torch._foreach_mul_(bufs, group["momentum"])
             torch._foreach_add_(bufs, d)
             torch._foreach_sub_(params, torch._foreach_mul(bufs, lr))
@@ -203,6 +234,30 @@ def make_train_step(loss_cfg: RegionLossConfig, *,
     return step
 
 
+def make_eval_forward(model: Darknet, *, compute_dtype=torch.bfloat16,
+                      folded: bool = False) -> Callable:
+    """The inference forward ``fwd(images) -> raw head`` (decode
+    separately; ``singleshotpose_tpu/training.py:154``), ``images`` NHWC
+    float in [0, 1], without gradients.  ``folded=False``: the module in
+    eval mode (running BN statistics; its mode is restored after);
+    ``folded=True``: the BN-folded serving forward
+    (``models.darknet.apply_folded`` over ``fold_batchnorm`` of the model's
+    current parameters), whose stem is K1 on a card in bf16."""
+    def fwd(images: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            if folded:
+                return apply_folded(model.spec, fold_batchnorm(model), images,
+                                    compute_dtype=compute_dtype)
+            was_training = model.training
+            model.eval()
+            try:
+                return model(images, compute_dtype)
+            finally:
+                model.train(was_training)
+
+    return fwd
+
+
 def _set(static: torch.Tensor, value: Scalar) -> None:
     if isinstance(value, torch.Tensor):
         static.copy_(value)
@@ -217,8 +272,8 @@ class CapturedTrainStep:
 
     Each call copies its arguments into the graphs' static inputs on the
     current stream, replays the graph of the images' shape, adds the batch
-    to ``state.seen`` and returns a clone of the graph's stats, which the
-    next replay overwrites.  ``replays`` counts the replays; the kernels'
+    (the global batch under data parallelism) to ``state.seen`` and returns
+    a clone of the graph's stats, which the next replay overwrites.  ``replays`` counts the replays; the kernels'
     own ``launches`` counters ran once per graph, at its capture.
     ``capture_seconds``: for each images shape captured, the host seconds
     its warm-up steps and capture took.  Any other state, images shape or
@@ -235,6 +290,8 @@ class CapturedTrainStep:
         self._state = state
         self._graphs = graphs          # images shape -> (graph, images, stats)
         self._target, self._lr, self._epoch = target, lr, epoch
+        group = getattr(step, "group", None)
+        self._world = 1 if group is None else group.world
         self.capture_seconds = capture_seconds
         self.replays = 0
 
@@ -258,13 +315,14 @@ class CapturedTrainStep:
         _set(self._epoch, epoch)
         graph.replay()
         self.replays += 1
-        state.seen += images.shape[0]
+        state.seen += images.shape[0] * self._world
         return {k: v.clone() for k, v in stats.items()}
 
 
 # eager steps on a side stream before each capture: they build the kernels'
-# libraries, cuDNN's plans and the step's cached device constants, none of
-# which may happen inside a capture
+# libraries, cuDNN's plans, the step's cached device constants and, for a
+# data-parallel step, NCCL's communicator (made at its first collective),
+# none of which may happen inside a capture
 _WARMUP_STEPS = 2
 
 
@@ -291,13 +349,26 @@ def capture_train_step(step: Callable, state: TrainState,
     state's tensors, so capture after any checkpoint restore
     (``optimizer.load_state_dict`` replaces the momentum buffers).
 
-    Needs the state on a CUDA device; a failed capture raises, and so does
-    a data-parallel ``step`` (its collectives are not captured: gloo's
-    cannot be, and a captured NCCL step is not ported).
+    A data-parallel ``step`` over an NCCL group is captured collectives and
+    all: each graph records the sync-BN all-reduces of the forward and the
+    backward, the flat gradient all-reduce, the stats' all-reduce, K2 on
+    the rank's rows and the SGD, so a replay is one data-parallel step of
+    this rank (every rank captures the same widths in the same order, and
+    replays in lockstep; ``batch`` is the rank's rows).  ProcessGroupNCCL
+    runs each collective on its own stream joined to the capturing one by
+    events, which the graph records; the warm-up steps make the
+    communicator.  Nothing on the step's path reads a value back to the
+    host.  A gloo group's collectives run on the host and cannot be
+    recorded: its step raises.
+
+    Needs the state on a CUDA device; a failed capture raises.
     """
-    if getattr(step, "group", None) is not None:
-        raise ValueError("a data-parallel train step cannot be captured "
-                         "(ROADMAP.md §1 item 3); run it eagerly")
+    group = getattr(step, "group", None)
+    if group is not None and group.backend != "nccl":
+        raise ValueError(
+            f"a data-parallel train step over a {group.backend} group "
+            "cannot be captured: its collectives run on the host, outside "
+            "any CUDA graph; run it eagerly, or over NCCL")
     device = next(state.model.parameters()).device
     if device.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA device; the state is on "
@@ -314,6 +385,9 @@ def capture_train_step(step: Callable, state: TrainState,
     epoch = torch.zeros((), dtype=torch.int64, device=device)
     side = torch.cuda.Stream(device)
     pool = torch.cuda.graph_pool_handle()
+    # NCCL's watchdog thread queries CUDA events while this thread captures,
+    # which CUDA's global capture mode forbids in every thread
+    mode = "global" if group is None else "thread_local"
     graphs, seconds = {}, {}
     try:
         for w in widths:
@@ -326,7 +400,8 @@ def capture_train_step(step: Callable, state: TrainState,
                     step(state, images, target, lr, epoch)
             torch.cuda.current_stream(device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool, stream=side):
+            with torch.cuda.graph(graph, pool=pool, stream=side,
+                                  capture_error_mode=mode):
                 stats = step(state, images, target, lr, epoch)
             graphs[tuple(images.shape)] = (graph, images, stats)
             seconds[tuple(images.shape)] = time.perf_counter() - t0

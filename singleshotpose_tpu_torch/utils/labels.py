@@ -1,9 +1,9 @@
 """Label-file codec and path-derivation rules.
 
-The port's own copy of the functions of ``singleshotpose_tpu/utils/labels.py``
-that its loader and training driver call (plain Python and numpy), so the
-port imports nothing of the JAX package; ``tests/test_torch_host.py`` holds
-them equal to the originals.
+The port's own copy of ``singleshotpose_tpu/utils/labels.py`` (plain Python
+and numpy), so the port imports nothing of the JAX package;
+``tests/test_torch_host.py`` and ``tests/test_torch_host_api.py`` hold it
+equal to the original.
 
 Reference semantics: 21 floats per object — class, x0 y0 (centroid), x1..y8
 (8 corners), x-range, y-range, all normalized by image W/H
@@ -18,8 +18,19 @@ import os
 
 import numpy as np
 
-__all__ = ["num_label_floats", "label_path_from_image", "mask_path_from_image",
-           "read_truths", "read_truths_args", "get_all_files"]
+__all__ = [
+    "get_image_size",
+    "num_label_floats",
+    "label_path_from_image",
+    "mask_path_from_image",
+    "read_truths",
+    "read_truths_args",
+    "read_pose",
+    "pack_test_labels",
+    "get_all_files",
+    "file_lines",
+    "load_class_names",
+]
 
 
 def num_label_floats(num_keypoints: int = 9) -> int:
@@ -60,6 +71,32 @@ def read_truths_args(lab_path: str, num_keypoints: int = 9) -> np.ndarray:
     return truths[:, :nl].reshape(-1)
 
 
+def read_pose(lab_path: str) -> np.ndarray:
+    """Raw loadtxt of a pose/label file (reference: ``utils.py:317-323``)."""
+    if os.path.getsize(lab_path):
+        return np.loadtxt(lab_path)
+    return np.array([])
+
+
+def pack_test_labels(truths_flat: np.ndarray, num_keypoints: int = 9,
+                     max_num_gt: int = 50) -> np.ndarray:
+    """Zero-padded test-label tensor of ``max_num_gt * (2K+3)`` floats.
+
+    Mirrors the reference test path (``dataset.py:123-133``): the flattened
+    (2K+1)-stride truths are copied verbatim into the front of a
+    (2K+3)-stride-sized zero buffer.  (Yes — the strides differ; the eval
+    consumer reads back with the 21-float stride, so objects beyond the first
+    straddle field boundaries.  The reference behaves identically and LINEMOD
+    test images have exactly one object, so slot 0 is always well-formed.)
+    """
+    nl = num_label_floats(num_keypoints)
+    label = np.zeros(max_num_gt * nl, dtype=np.float32)
+    t = np.asarray(truths_flat, dtype=np.float32).reshape(-1)
+    n = min(t.size, label.size)
+    label[:n] = t[:n]
+    return label
+
+
 def get_all_files(directory: str):
     """Recursive file listing (reference: ``utils.py:21-29``)."""
     files = []
@@ -70,3 +107,28 @@ def get_all_files(directory: str):
         else:
             files.extend(get_all_files(p))
     return files
+
+
+def file_lines(path: str) -> int:
+    """Newline count (reference: ``utils.py:391-400``)."""
+    count = 0
+    with open(path, "rb") as fp:
+        while True:
+            buf = fp.read(8192 * 1024)
+            if not buf:
+                break
+            count += buf.count(b"\n")
+    return count
+
+
+def load_class_names(namesfile: str):
+    with open(namesfile, "r") as fp:
+        return [line.rstrip() for line in fp]
+
+
+def get_image_size(fname: str):
+    """(width, height) from the image header without a full decode
+    (reference: ``utils.py:381-414``; PIL lazy-open reads only the header)."""
+    from PIL import Image
+    with Image.open(fname) as im:
+        return im.size

@@ -1,17 +1,19 @@
 """ASCII PLY mesh reader (reference: ``MeshPly.py:3-49``).
 
 The port's own copy of ``singleshotpose_tpu/utils/meshply.py`` (plain
-Python), so the port imports nothing of the JAX package;
+Python and numpy), so the port imports nothing of the JAX package;
 ``tests/test_torch_host.py`` holds it equal to the original.  Same data
 surface as the reference class — ``vertices`` / ``normals`` / ``colors`` /
-face ``indices`` as Python lists.  Parsing is header-driven: ``element
-vertex N`` / ``element face M`` counts then body rows, colors normalized by
-255 with a configurable default.
+face ``indices`` as Python lists — plus numpy accessors.  Parsing is
+header-driven: ``element vertex N`` / ``element face M`` counts then body
+rows, colors normalized by 255 with a configurable default.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence
+
+import numpy as np
 
 __all__ = ["MeshPly"]
 
@@ -58,3 +60,15 @@ class MeshPly:
                         nb_faces = int(elements[2])
                 elif elements[0] == "end_header":
                     vertex_mode = True
+
+    # numpy conveniences -----------------------------------------------------
+
+    def vertices_array(self) -> np.ndarray:
+        """(N, 3) float64 vertex array."""
+        return np.asarray(self.vertices, dtype=np.float64)
+
+    def homogeneous_vertices(self) -> np.ndarray:
+        """(4, N) homogeneous vertex matrix, as the eval drivers build it
+        (reference: ``valid.py:67``)."""
+        v = self.vertices_array()
+        return np.concatenate([v.T, np.ones((1, v.shape[0]))], axis=0)

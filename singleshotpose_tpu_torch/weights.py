@@ -55,10 +55,13 @@ def _conv_keys(spec: ConvSpec) -> Tuple[str, ...]:
     return (f"{n}.bias", f"{n}.weight")
 
 
-def _layer_entries(spec: DarknetSpec, skip_last_blocks: int = 0):
+def _layer_entries(spec: DarknetSpec, skip_last_blocks: int = 0,
+                   cutoff: int = 0):
     """(state-dict key, shape) in darknet file order, over the spec's layers
-    but its last ``skip_last_blocks``."""
-    layers = spec.layers[:len(spec.layers) - skip_last_blocks]
+    but its last ``skip_last_blocks``, or over its first ``cutoff`` layers
+    when ``cutoff`` > 0."""
+    layers = spec.layers[:cutoff] if cutoff > 0 else \
+        spec.layers[:len(spec.layers) - skip_last_blocks]
     for lspec in layers:
         if isinstance(lspec, ConvSpec):
             keys = _conv_keys(lspec)
@@ -112,14 +115,18 @@ def load_weights_until_last(spec: DarknetSpec, path: str,
 
 
 def save_weights(spec: DarknetSpec, state: State, path: str,
-                 seen: int = 0) -> None:
-    """Write darknet binary format from a :class:`Darknet` state dict, with
-    ``seen`` in the header."""
-    hdr = WeightsHeader()
+                 seen: int = 0, header: Optional[WeightsHeader] = None,
+                 cutoff: int = 0) -> None:
+    """Write darknet binary format from a :class:`Darknet` state dict
+    (``singleshotpose_tpu/weights.py:138``): ``header``'s four values (zeros
+    when None) with ``seen`` in place of its last, then the layers.
+    ``cutoff`` counts *blocks after [net]* like the reference's
+    ``save_weights(cutoff)``; 0 ⇒ all layers."""
+    hdr = WeightsHeader(None if header is None else header.values)
     hdr.seen = seen
     with open(path, "wb") as fp:
         hdr.values.tofile(fp)
-        for key, shape in _layer_entries(spec):
+        for key, shape in _layer_entries(spec, cutoff=cutoff):
             t = state[key].detach().to("cpu", torch.float32)
             if tuple(t.shape) != shape:
                 raise ValueError(f"{key}: shape {tuple(t.shape)} != {shape}")

@@ -3,8 +3,8 @@
 Mirrors ``singleshotpose_tpu/zoo.py``: the same block dicts (Darknet-19 to a
 13×13×1024 map, a passthrough route → 1×1×64 conv → reorg → concat, a 3×3
 fuse conv and a 1×1 linear head with ``nA·(2K+1+C)`` filters), built into
-this package's jax-free :class:`DarknetSpec`; and the OCCLUSION ``.data``
-renderer.
+this package's jax-free :class:`DarknetSpec`; and the LINEMOD and OCCLUSION
+``.data`` renderers.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ from .models.darknet import DarknetSpec
 
 __all__ = ["yolo_pose_blocks", "yolo_pose_single", "yolo_pose_multi",
            "yolo_pose_pretrain", "MULTI_ANCHORS", "LINEMOD_OBJECTS",
-           "LINEMOD_DIAMETERS", "OCCLUSION_OBJECTS", "occlusion_datacfg"]
+           "LINEMOD_DIAMETERS", "linemod_datacfg", "OCCLUSION_OBJECTS",
+           "occlusion_datacfg"]
 
 # 5 anchor (w, h) pairs in grid units (yolo-pose-multi.cfg:240)
 MULTI_ANCHORS: Tuple[float, ...] = (
@@ -132,6 +133,30 @@ LINEMOD_DIAMETERS: Dict[str, float] = {
     "lamp": 0.285155, "phone": 0.213,
 }
 LINEMOD_OBJECTS: Tuple[str, ...] = tuple(LINEMOD_DIAMETERS)
+
+
+def linemod_datacfg(obj: str, linemod_root: str = "LINEMOD",
+                    backup_root: str = "backup") -> str:
+    """Render a per-object ``.data`` config (≡ ``cfg/<obj>.data``) for a
+    LINEMOD tree at ``linemod_root`` — parseable by ``read_data_cfg``."""
+    if obj not in LINEMOD_DIAMETERS:
+        raise ValueError(f"unknown LINEMOD object {obj!r}; "
+                         f"choose from {sorted(LINEMOD_DIAMETERS)}")
+    r = f"{linemod_root}/{obj}"
+    return (f"train = {r}/train.txt\n"
+            f"valid = {r}/test.txt\n"
+            f"backup = {backup_root}/{obj}\n"
+            f"mesh = {r}/{obj}.ply\n"
+            f"tr_range = {r}/training_range.txt\n"
+            f"name = {obj}\n"
+            f"diam = {LINEMOD_DIAMETERS[obj]}\n"
+            "gpus = 0\n"
+            "width = 640\n"
+            "height = 480\n"
+            "fx = 572.4114\n"
+            "fy = 573.5704\n"
+            "u0 = 325.2611\n"
+            "v0 = 242.0489\n")
 
 
 # Objects with OCCLUSION test annotations (the reference ships one

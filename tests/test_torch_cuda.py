@@ -16,8 +16,8 @@ same cells above the 0.6 silencing threshold.  The train stem's kernels
 (K3–K6) and their plain versions use the same formulas with f32 sums in
 another order: y and pooled as the serving stem (K3 runs the serving
 stem's tensor-core conv); the sums of K3 and K5 rel 1e-5 of max|ref|; K6's
-dW rel 1e-4 of max|ref|.  The captured paths hold the CUDA graphs to the
-eager calls bit for bit; there the kernels' ``launches`` counters count
+dW rel 1e-4 of max|ref|.  The captured paths (a data-parallel step over an NCCL group of one
+among them) hold the CUDA graphs to the eager calls bit for bit; there the kernels' ``launches`` counters count
 captures (a wrapper runs while a graph records it, not when it replays).
 The device-resident data paths (plain PyTorch ops: the frame bank, the
 augment, the eval bank, the scene synth) hold the card's batches to the
@@ -663,6 +663,69 @@ def test_precompiled_buckets_fed_as_the_trainers_feed_them(dev, tmp_path):
     with open(tmp_path / "train_steps_1_4.json") as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
+
+
+@pytest.mark.cuda
+def test_captured_nccl_group_of_one_equals_eager(dev):
+    """``--dp 1``'s NCCL group: its data-parallel step captured per width
+    (the sync-BN, gradient and stats all-reduces inside each graph, the
+    communicator made by the warm-up steps) gives the eager steps of the
+    same group bit for bit over interleaved widths and the pretrain gate;
+    each replay counts the global batch in ``seen``."""
+    import torch.distributed as dist
+    from singleshotpose_tpu_torch.parallel.sharding import make_dp_group
+    group = make_dp_group(1, device=dev)
+    try:
+        assert group.backend == "nccl"
+        step = make_train_step(RegionLossConfig(), fused_stem=True,
+                               group=group)
+        eager, cap = _tiny_train_state(dev), _tiny_train_state(dev)
+        captured = capture_train_step(
+            make_train_step(RegionLossConfig(), fused_stem=True,
+                            group=group), cap, (64, 96), 2, 50 * 21)
+        _scribble(dev)
+        g = torch.Generator().manual_seed(12)
+        losses = []
+        for w, e in zip((96, 64, 64, 96, 64), (15, 15, 16, 16, 16)):
+            target = torch.zeros((2, 50, 21))
+            target[:, 0, 1:19] = torch.rand((2, 18), generator=g) * 0.6 + 0.2
+            target[:, 0, 19:21] = 0.3
+            x = torch.randint(0, 256, (2, w, w, 3), generator=g,
+                              dtype=torch.uint8).to(dev)
+            t = target.reshape(2, -1).to(dev)
+            losses.append((captured(cap, x, t, 1e-3, e)["loss"],
+                           step(eager, x, t, 1e-3, e)["loss"]))
+        torch.cuda.synchronize()
+        assert captured.replays == 5 and cap.seen == eager.seen == 10
+        for got, want in losses:
+            assert torch.equal(_bits(got), _bits(want))
+        for (k, a), b in zip(cap.model.state_dict().items(),
+                             eager.model.state_dict().values()):
+            assert torch.equal(_bits(a), _bits(b)), k
+        for p, q in zip(cap.model.parameters(), eager.model.parameters()):
+            assert torch.equal(
+                _bits(cap.optimizer.state[p]["momentum_buffer"]),
+                _bits(eager.optimizer.state[q]["momentum_buffer"]))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_captured_gloo_step_is_refused_on_the_card(dev):
+    """A gloo group's collectives run on the host: its step on the card is
+    refused before any capture, with the reason."""
+    import torch.distributed as dist
+    from singleshotpose_tpu_torch.parallel.sharding import DPGroup, free_port
+    dist.init_process_group("gloo", world_size=1, rank=0,
+                            init_method=f"tcp://localhost:{free_port()}")
+    try:
+        step = make_train_step(RegionLossConfig(), fused_stem=True,
+                               group=DPGroup(dev))
+        with pytest.raises(ValueError, match="gloo group cannot be captured"):
+            capture_train_step(step, _tiny_train_state(dev), (64,), 2,
+                               50 * 21)
+    finally:
+        dist.destroy_process_group()
 
 
 def _tiny_folded(dev):

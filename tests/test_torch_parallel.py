@@ -458,9 +458,10 @@ def group_of_one():
 
 
 def test_captured_steps_refuse_a_group(group_of_one, tmp_path):
-    """No fallback: a data-parallel step is never captured — not by
-    ``capture_train_step`` nor by ``run_training(precompile_buckets=True)``
-    (which refuses before it would reach the CPU's eager no-op)."""
+    """No fallback: a data-parallel step over gloo (whose collectives run
+    on the host) is never captured — not by ``capture_train_step`` nor by
+    ``run_training(precompile_buckets=True)`` (which refuses before it would
+    reach the CPU's eager no-op)."""
     from singleshotpose_tpu_torch.training import capture_train_step
     step = make_train_step(RegionLossConfig(), group=group_of_one)
     spec = TD.DarknetSpec(json.loads(json.dumps(stem_spec().blocks)))
