@@ -160,6 +160,15 @@ phases; any failure propagates and the exit code is nonzero:
      precompile_buckets=True)`` for one epoch of phase 14's renders (all
      20 widths captured, every step a replay); ``cli valid --dp 1`` (in
      process) = ``cli valid``.
+ 20. tensor parallel (run right after 18): two gloo ranks sharing the
+     card as a dp=1 × mp=2 grid (``make_dp_group(1, 2)``), each holding
+     half of every conv's output channels of ``yolo_pose_single`` (its
+     parameter and momentum bytes printed: half the model's); 3 fused
+     bf16 steps at batch 8, 416² against one process (the first step to
+     the JAX package's bf16 bounds, the state gathered; K2–K6 once a rank
+     a step); the folded forward at batch 8, 672², on the grid (K1 on
+     conv_1's gathered folded weights) against one process (every cell's
+     decoded corners and confidence within 0.05);
  19. native: a small corpus written as files (64 train and 16 held-out
      640x480 shaded renders as JPEG, PNG masks, 8 JPEG backgrounds); the
      native C++ decoder (``singleshotpose_tpu_torch/native``) built with
@@ -185,7 +194,8 @@ bank (K2–K6) and its two evals (K1), and phase 15's eager steps fed from
 the synth (K2–K6), phase 16's int8 serves and evals (the int8
 conv), phase 17's calls of the loaded artifacts (K1, the int8
 conv), in phase 18 each rank's DP steps (K2–K6) and its share of the
-DP eval (K1) (and the NCCL rank's graphs: captures and replays), and in
+DP eval (K1) (and the NCCL rank's graphs: captures and replays), in phase
+20 each grid rank's steps (K2–K6) and its eval batch (K1), and in
 phase 19 the native-fed steps (K2–K6) and each
 eval (K1).  On the captured paths (11–13) a kernel's
 wrapper runs only while a graph records it, so what is counted there is
@@ -254,10 +264,11 @@ from singleshotpose_tpu_torch.evaluate import (EvalContext, PoseErrors,
 from singleshotpose_tpu_torch.models import darknet
 from singleshotpose_tpu_torch.models import layers as L
 from singleshotpose_tpu_torch.models.darknet import (Darknet, apply_folded,
-                                                     fold_batchnorm)
+                                                     fold_batchnorm,
+                                                     shard_folded)
 from singleshotpose_tpu_torch.ops import cuda_build, int8_conv, stem, targets
 from singleshotpose_tpu_torch.ops import max_corner_confidence as mcc
-from singleshotpose_tpu_torch.ops.decode import (DecodedGrid,
+from singleshotpose_tpu_torch.ops.decode import (DecodedGrid, best_boxes,
                                                  best_boxes_per_class)
 from singleshotpose_tpu_torch.ops.losses import region_loss
 from singleshotpose_tpu_torch.ops.pnp import pnp_batched, so3_exp
@@ -270,7 +281,8 @@ from singleshotpose_tpu_torch.data.pipeline import (MULTI_SCHEDULE,
                                                     SINGLE_SCHEDULE)
 from singleshotpose_tpu_torch.serving import (MicroBatcher, aot_serving,
                                               make_serving_fn)
-from singleshotpose_tpu_torch.training import (init_train_state,
+from singleshotpose_tpu_torch.training import (gather_train_state,
+                                               init_train_state,
                                                make_eval_forward,
                                                make_train_step, schedule_lr,
                                                shard_train_state)
@@ -3616,8 +3628,9 @@ def _dp_k2_inputs(dev):
 def _dp_steps(spec, dev, group=None, n: int = DP_STEPS):
     """``n`` fused bf16 steps of the seeded model on the seeded batch-8
     416² batches (under ``group``: this rank's rows, the state first
-    broadcast from rank 0 as the drivers do).  Returns (state, losses,
-    the state after the first step)."""
+    broadcast from rank 0 as the drivers do, and on a data × model grid
+    split over the model axis).  Returns (state, losses, the whole state
+    after the first step — gathered on a grid —, the step)."""
     net = spec.net
     state = init_train_state(_dp_model(spec, dev),
                              weight_decay=net.decay * net.batch,
@@ -3636,8 +3649,10 @@ def _dp_steps(spec, dev, group=None, n: int = DP_STEPS):
         losses.append(step(state, frames, labels, _lr(spec, i),
                            TRAIN_EPOCH)["loss"])
         if i == 0:
+            whole = state if group is None else \
+                gather_train_state(group, state)
             first = {k: v.detach().clone()
-                     for k, v in state.model.state_dict().items()}
+                     for k, v in whole.model.state_dict().items()}
     torch.cuda.synchronize()
     return state, torch.stack(losses), first, step
 
@@ -4158,6 +4173,158 @@ def phase_dp(spec, dev, card: str) -> dict:
             "replays": replays}
 
 
+# the tensor-parallel phase (phase 20): two gloo ranks sharing cuda:0 as a
+# dp=1 × mp=2 grid, each holding half of every conv's output channels
+TP_DP, TP_MP = 1, 2
+
+
+def _state_bytes(state) -> list:
+    """[parameter bytes, momentum bytes] a train state holds."""
+    params = list(state.model.parameters())
+    return [sum(p.numel() * p.element_size() for p in params),
+            sum(state.optimizer.state[p]["momentum_buffer"].numel()
+                * state.optimizer.state[p]["momentum_buffer"].element_size()
+                for p in params)]
+
+
+def _tp_frames(dev) -> torch.Tensor:
+    """The eval batch: seeded u8 frames, (TRAIN_BATCH, SIZE, SIZE, 3)."""
+    return _train_batches(dev, 1, DP_SEED + 5, size=SIZE)[0][0]
+
+
+def _tp_serve(spec, dev, group=None) -> dict:
+    """The seeded model's folded forward (BN folded; on a grid this rank's
+    split convs) on the eval batch, decoded: every cell's corners and
+    confidence, and the best boxes."""
+    folded = fold_batchnorm(_dp_model(spec, dev))
+    if group is not None:
+        folded = shard_folded(spec, folded, group)
+    decoded = make_serving_fn(spec, folded, pick=("grid",),
+                              group=group)(_tp_frames(dev))
+    torch.cuda.synchronize()
+    return {"corners": decoded.corners, "det_conf": decoded.det_conf,
+            "boxes": best_boxes(decoded)}
+
+
+def _tp_child(rank: int, port: int, root: str, device: str) -> None:
+    """A spawned rank of phase 20: DP_STEPS fused bf16 steps on the
+    dp=1 × mp=2 grid (K2–K6 counted from 0), its bytes, then the eval
+    batch's folded forward on the grid (K1 counted from 0); the results go
+    to ``root/tp<rank>.pt``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    spec = yolo_pose_single()
+    initialize_distributed(backend="gloo",
+                           init_method=f"tcp://localhost:{port}",
+                           world_size=TP_DP * TP_MP, rank=rank, device=dev,
+                           timeout=DP_TIMEOUT)
+    grid = make_dp_group(TP_DP, TP_MP, device=dev)
+    for f in _TRAIN_COUNTED:
+        f.launches = 0
+    t = time.perf_counter()
+    state, losses, first, _ = _dp_steps(spec, dev, grid)
+    out = {"launches": _launches(), "steps_s": time.perf_counter() - t,
+           "bytes": _state_bytes(state), "losses": losses,
+           "seen": state.seen, "layout": [grid.rank, grid.world,
+                                          grid.model_rank, grid.mp],
+           "first": {k: first[k] for k in ("conv_1.weight", "conv_2.weight",
+                                           "conv_1.running_mean")}}
+    del state
+    stem.stem_conv_pool_infer.launches = 0
+    out["eval"] = _tp_serve(spec, dev, grid)
+    out["k1"] = stem.stem_conv_pool_infer.launches
+    dist.destroy_process_group()
+    torch.save(_to_cpu(out), f"{root}/tp{rank}.pt")
+
+
+def phase_tp(spec, dev, card: str) -> None:
+    """Phase 20: tensor parallelism on this card at full width.  Two gloo
+    ranks (spawned; NCCL takes one rank a card) as a dp=1 × mp=2 grid
+    (``make_dp_group(1, 2)``): each holds half of every conv's output
+    channels — its parameter and momentum bytes printed against the
+    whole model's, exactly half — and runs DP_STEPS fused bf16 steps on
+    the whole batch-8 416² batch (K3–K6 on conv_1's gathered weight, K2
+    on the rank's rows), held against one process: the first step's loss
+    rel 1e-3, conv_1's and conv_2's weights (gathered) atol 6e-4, conv_1's
+    running mean atol 1e-5 (the JAX package's bf16 bounds); the two
+    ranks' losses the same bits; K2–K6 once a rank a step.  Then the
+    seeded model's folded forward at batch 8, 672², on the grid (K1 on
+    conv_1's gathered folded weights, once a rank) against one process:
+    every cell's decoded corners and confidence within 0.05 (JAX's limit
+    for a serve's boxes) and the best boxes' gap printed."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ssp_tp_")
+    try:
+        ctx = torch.multiprocessing.start_processes(
+            _tp_child, args=(free_port(), root, str(dev)),
+            nprocs=TP_DP * TP_MP, join=False, start_method="spawn")
+        # the one-process references while the ranks start
+        ref, ref_losses, ref_first, _ = _dp_steps(spec, dev)
+        whole = _state_bytes(ref)
+        del ref
+        ref_eval = _tp_serve(spec, dev)
+        while not ctx.join():
+            pass
+        ranks = [torch.load(f"{root}/tp{r}.pt", weights_only=False)
+                 for r in range(TP_DP * TP_MP)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    r0 = ranks[0]
+    loss_rel = abs(float(r0["losses"][0]) - float(ref_losses[0])) \
+        / abs(float(ref_losses[0]))
+    first_d = {k: float((r0["first"][k] - ref_first[k].cpu()).abs().max())
+               for k in r0["first"]}
+    share = [[b / w for b, w in zip(r["bytes"], whole)] for r in ranks]
+    same_loss = all(_same_bits(r["losses"], r0["losses"]) for r in ranks)
+    print(f"[tp] a dp={TP_DP} x mp={TP_MP} grid of two gloo ranks on {dev} "
+          f"(layouts {[r['layout'] for r in ranks]}: data rank, dp, model "
+          f"rank, mp), yolo_pose_single: a rank holds "
+          f"{[r['bytes'] for r in ranks]} parameter and momentum bytes of "
+          f"the model's {whole} (shares {share}) [{card}]")
+    print(f"[tp] the batch-{TRAIN_BATCH} {TRAIN_SIZE}² bf16 fused step on "
+          f"the grid: first loss {float(r0['losses'][0]):.6g} vs one "
+          f"process {float(ref_losses[0]):.6g} (rel {loss_rel:.3g}); after "
+          f"one step max|d| conv_1.weight {first_d['conv_1.weight']:.3g}, "
+          f"conv_2.weight {first_d['conv_2.weight']:.3g}, conv_1 running "
+          f"mean {first_d['conv_1.running_mean']:.3g}; the ranks' losses "
+          f"over {DP_STEPS} steps the same bits {same_loss}; K2-K6 launched "
+          f"{[r['launches'] for r in ranks]}; {DP_STEPS} steps took "
+          f"{[round(r['steps_s'], 2) for r in ranks]} s a rank (host clock; "
+          f"two ranks sharing one card over gloo: not a TP speed) [{card}]")
+    _check(all(s == [0.5, 0.5] for s in share),
+           f"a rank does not hold half of the model: {share}")
+    _check(loss_rel <= 1e-3, f"the grid step's loss is {loss_rel:.3g} off")
+    _check(first_d["conv_1.weight"] <= 6e-4 and
+           first_d["conv_2.weight"] <= 6e-4 and
+           first_d["conv_1.running_mean"] <= 1e-5,
+           f"the grid step's state is off one process's: {first_d}")
+    _check(same_loss, "the model ranks' losses differ")
+    _check(all(r["launches"] == [DP_STEPS] * 5 for r in ranks),
+           f"K2-K6 launched {[r['launches'] for r in ranks]} times in "
+           f"{DP_STEPS} grid steps a rank")
+    _check(all(r["seen"] == DP_STEPS * TRAIN_BATCH for r in ranks),
+           "seen is not the global batch's")
+
+    gaps = {k: max(float((r["eval"][k] - ref_eval[k].cpu()).abs().max())
+                   for r in ranks) for k in ("corners", "det_conf")}
+    box_gap = max(float((r["eval"]["boxes"] - ref_eval["boxes"].cpu())
+                        .abs().max()) for r in ranks)
+    print(f"[tp] the folded forward at batch {TRAIN_BATCH}, {SIZE}², on the "
+          f"grid vs one process: every cell max|d corner| "
+          f"{gaps['corners']:.6g}, max|d confidence| {gaps['det_conf']:.6g} "
+          f"(bound 0.05 each); the best boxes' max|d| {box_gap:.6g}; K1 "
+          f"launched {[r['k1'] for r in ranks]} [{card}]")
+    _check(gaps["corners"] <= 0.05 and gaps["det_conf"] <= 0.05,
+           f"the grid's folded forward is off one process's: {gaps}")
+    _check(all(r["k1"] == 1 for r in ranks),
+           f"K1 launched {[r['k1'] for r in ranks]} times in the grid's "
+           "eval batch")
+    print(f"[tp] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def _report_dp_captured(one: dict, card: str):
     """Print and check the NCCL rank's captured steps (:func:`_dp_captured`,
     :func:`_dp_run_training`).  Returns the graphs that recorded K2–K6 and
@@ -4646,6 +4813,10 @@ def main(argv=None) -> int:
     # data parallel: K2-K6 counted from 0 on each rank over its DP steps, K1
     # over its share of the DP eval
     dp = phase_dp(spec, dev, card)
+    _free()
+    # tensor parallel: K2-K6 counted from 0 on each rank of the dp=1 x mp=2
+    # grid over its steps, K1 over its eval batch
+    phase_tp(spec, dev, card)
     _free()
     # the native decoder and the yuv420 transfer: K2-K6 counted from 0 over
     # the native-fed epoch (where the library builds), K1 over each eval

@@ -29,8 +29,8 @@ The top-level API is the JAX package's (``singleshotpose_tpu/__init__.py``),
 each name bound to this package's counterpart and imported at its first
 use, so ``import singleshotpose_tpu_torch`` loads no torch module of the
 package.  One name differs: JAX's ``make_mesh`` has no counterpart (a torch
-rank is a process, not a mesh device); its data-parallel part is
-``make_dp_group``, exported under its own name in its place.
+rank is a process, not a mesh device); ``make_dp_group(dp, mp)``, its data
+× model grid of ranks, is exported under its own name in its place.
 """
 
 __version__ = "0.1.0"

@@ -40,6 +40,11 @@ class Checkpointer:
     def __init__(self, directory: str, max_to_keep: int = 3, group=None):
         if max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
+        if group is not None and group.mp > 1:
+            raise ValueError(
+                f"checkpoints of a state split over a dp×mp grid (mp="
+                f"{group.mp}) are not ported yet: a rank holds a slice of "
+                "the state (ROADMAP.md §1 item 3)")
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.group = group        # a parallel.sharding.DPGroup, or None

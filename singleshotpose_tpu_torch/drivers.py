@@ -61,7 +61,8 @@ from .data.prefetch import prefetch
 from .data.synth_multi import MultiObjectSynthesizer, SynthConfig
 from .evaluate import (EvalContext, PoseErrors, accuracy_summary,
                        multi_accuracy_table, pose_metrics)
-from .models.darknet import Darknet, DarknetSpec, fold_batchnorm
+from .models.darknet import (Darknet, DarknetSpec, fold_batchnorm,
+                             gather_folded, shard_folded)
 from .models.quantize import (calibrate_activations, load_quantized,
                               quantize_folded)
 from .ops.losses import RegionLossConfig
@@ -93,9 +94,10 @@ def _log(msg: str) -> None:
 
 def _is_writer(group: Optional[DPGroup]) -> bool:
     """Whether this process writes the run's files: rank 0 of a
-    data-parallel group (the ranks hold the same bytes), or the one
+    data-parallel group (the ranks hold the same bytes) — on a data ×
+    model grid the rank at data and model coordinate 0 —, or the one
     process."""
-    return group is None or group.rank == 0
+    return group is None or (group.rank == 0 and group.model_rank == 0)
 
 
 def _resolve_device(device) -> torch.device:
@@ -117,7 +119,7 @@ def _load_model(spec: DarknetSpec, weightfile: Optional[str],
 
 def _eval_params(spec: DarknetSpec, model: Optional[Darknet], loader, *,
                  compute_dtype, device, quantize: Union[bool, str],
-                 transfer: str = "rgb"):
+                 transfer: str = "rgb", group: Optional[DPGroup] = None):
     """The serving params of an eval pass and the batches to run them on
     (``singleshotpose_tpu/drivers.py:172-210``): the folded weights; with
     ``quantize="<path>.npz"`` the int8 artifact of ``cli quantize`` /
@@ -126,10 +128,23 @@ def _eval_params(spec: DarknetSpec, model: Optional[Darknet], loader, *,
     the loader's first batch, which is chained back in front, so it is
     decoded once.  Calibration takes eval-size frames: ``quantize=True``
     refuses the ``yuv420`` transfer, as JAX's does; an ``.npz`` composes
-    with any transfer."""
+    with any transfer.
+
+    On a data × model grid (``group.mp > 1``) the folded weights are this
+    rank's split convs (JAX's ``folded_param_shardings``: the fold of a
+    split model, or the split of a whole model's fold), and the int8
+    pytree is whole on every rank (JAX replicates it)."""
     if isinstance(quantize, str):
         return load_quantized(quantize, device=device), loader
+    mp = 1 if group is None else group.mp
+    if model.model_shards not in (1, mp):
+        raise ValueError(f"the model is split over {model.model_shards} "
+                         f"model ranks, the eval's group over mp={mp}")
     folded = fold_batchnorm(model)
+    if mp > 1 and quantize and model.model_shards > 1:
+        folded = gather_folded(spec, folded, group)
+    elif mp > 1 and not quantize and model.model_shards == 1:
+        folded = shard_folded(spec, folded, group)
     if not quantize:
         return folded, loader
     if transfer == "yuv420":
@@ -199,7 +214,9 @@ def _eval_pass(spec: DarknetSpec, model: Optional[Darknet], loader,
     calibrated on the whole first batch on every rank, so the ranks'
     scales agree).  ``add_s``: score the 3D metric as ADD-S.  ``group``:
     the batches served data-parallel (:func:`_serve_rows`); every rank then
-    scores all the boxes.  ``transfer``: the loader's (``rgb``, ``bank``:
+    scores all the boxes.  On a data × model grid the rows follow the data
+    coordinate, the float serve's split convs are gathered over the model
+    group, and the int8 params are whole (:func:`_eval_params`).  ``transfer``: the loader's (``rgb``, ``bank``:
     eval-size frames; ``yuv420``: ``(y, cbcr)`` planes, converted on the
     device to ``out_shape`` frames before the net).  Returns (PoseErrors,
     artifacts with
@@ -208,12 +225,13 @@ def _eval_pass(spec: DarknetSpec, model: Optional[Darknet], loader,
     K = spec.num_keypoints
     params, stream = _eval_params(spec, model, loader,
                                   compute_dtype=compute_dtype, device=device,
-                                  quantize=quantize, transfer=transfer)
+                                  quantize=quantize, transfer=transfer,
+                                  group=group)
     serve = make_serving_fn(spec, params, pick=pick,
                             compute_dtype=compute_dtype,
                             scales_as_constants=False,
                             transfer="yuv420" if transfer == "yuv420"
-                            else "rgb", out_shape=out_shape)
+                            else "rgb", out_shape=out_shape, group=group)
     if group is None:
         pending = [(serve(*images) if isinstance(images, tuple)
                     else serve(images), labels)
@@ -714,6 +732,12 @@ def _check_dp_options(rc: TrainRunConfig, backend: str) -> None:
     is captured)."""
     if rc.group is None:
         return
+    if rc.group.mp > 1:
+        raise ValueError(
+            f"the trainers do not run on a dp×mp grid (mp={rc.group.mp}) "
+            "yet: its checkpoints and in-training eval of a split state "
+            "are not ported (ROADMAP.md §1 item 3); make_train_step runs "
+            "the grid's step")
     if rc.group.world > 1 and backend in ("device_bank", "device_synth"):
         raise ValueError(f"loader_backend={backend!r} is single-process; "
                          "data parallel over several ranks takes the host "

@@ -28,13 +28,15 @@ from ..config import (NetConfig, RegionConfig, format_cfg_table,
                       net_config_from_block, parse_cfg,
                       region_config_from_block)
 from ..ops import stem
-from ..parallel.sharding import DPGroup
+from ..parallel.sharding import (DPGroup, channel_rows, copy_to_model,
+                                  gather_channels, gather_model,
+                                  shards_channels)
 from . import layers as L
 
 __all__ = ["ConvSpec", "MaxPoolSpec", "ReorgSpec", "RouteSpec",
            "ShortcutSpec", "AvgPoolSpec", "SoftmaxSpec", "ConnectedSpec",
            "RegionSpec", "DarknetSpec", "Darknet", "fold_batchnorm",
-           "apply_folded", "stem_supported"]
+           "apply_folded", "shard_folded", "gather_folded", "stem_supported"]
 
 
 # ---------------------------------------------------------------------------
@@ -290,14 +292,18 @@ def _walk_other(spec: DarknetSpec, lspec, i: int, x: torch.Tensor,
 
 
 def _walk(spec: DarknetSpec, x: torch.Tensor, conv_fn, fc_params,
-          start: int = 0) -> torch.Tensor:
+          start: int = 0, gather=None) -> torch.Tensor:
     """Run ``spec.layers[start:]`` on NCHW ``x``.  ``conv_fn(spec, x)``
     supplies the conv + norm + bias body; every other layer type has one
-    implementation here, and only outputs a later layer re-reads are kept."""
+    implementation here, and only outputs a later layer re-reads are kept.
+    ``gather(spec, x)``, when given, takes each conv's activated output (on
+    a data × model grid: a split conv's channels gathered)."""
     cache: Dict[int, torch.Tensor] = {}
     for i, lspec in enumerate(spec.layers[start:], start):
         if isinstance(lspec, ConvSpec):
             x = _activate(conv_fn(lspec, x), lspec.activation)
+            if gather is not None:
+                x = gather(lspec, x)
         elif isinstance(lspec, MaxPoolSpec):
             x = L.max_pool(x, lspec.size, lspec.stride) if lspec.stride > 1 \
                 else L.max_pool_stride1(x)
@@ -349,7 +355,8 @@ class ConvBlock(nn.Module):
     """One darknet conv: OIHW ``weight`` plus either BN (``scale``, ``bias``,
     running statistics) or a conv ``bias``.  With a generator, initialised
     as the JAX package's ``init_params``: U(±1/√fan_in), BN scale 1, bias 0,
-    mean 0, var 1."""
+    mean 0, var 1.  ``model_shards``: the model axis its output channels
+    are split over (:meth:`keep_shard`); 1 holds them all."""
 
     def __init__(self, spec: ConvSpec, generator: Optional[torch.Generator],
                  device=None):
@@ -366,6 +373,21 @@ class ConvBlock(nn.Module):
             self.register_buffer("running_var", torch.ones(n, device=device))
         else:
             self.bias = nn.Parameter(_uniform((n,), bound, generator, device))
+        self.model_shards = 1
+
+    @torch.no_grad()
+    def keep_shard(self, group: DPGroup) -> slice:
+        """Keep this rank's output channels of every tensor — the weight's
+        rows, the BN terms and running statistics, or the bias — in place
+        (the parameters stay the same objects, so an optimizer built on
+        them still holds them).  Returns the rows kept."""
+        rows = channel_rows(self.spec.filters, group)
+        for p in self.parameters(recurse=False):
+            p.data = p.data[rows].clone()
+        for name, b in list(self.named_buffers(recurse=False)):
+            setattr(self, name, b[rows].clone())
+        self.model_shards = group.mp
+        return rows
 
     def folded(self, eps: float = L.BN_EPS) -> Tuple[torch.Tensor, torch.Tensor]:
         """(weight, bias) with the running BN folded in, f32, OIHW.  The
@@ -385,8 +407,12 @@ class ConvBlock(nn.Module):
         mode it uses the running statistics.  With a compute dtype the conv
         output is in that dtype and BN returns it in that dtype; the head's
         f32 bias add promotes the head to f32.  ``group``: the statistics
-        and the running update's count cover the data-parallel group's
-        global batch (sync-BN)."""
+        and the running update's count cover the data group's global batch
+        (sync-BN).  A split conv (``model_shards > 1``) takes ``x`` through
+        :func:`~..parallel.sharding.copy_to_model` and returns its own
+        channels; the caller gathers them."""
+        if self.model_shards > 1:
+            x = copy_to_model(x, group)
         y = _conv(self.spec, x, self.weight, compute_dtype)
         if not self.spec.batch_normalize:
             return y + L.per_channel(self.bias, y)
@@ -442,6 +468,11 @@ class Darknet(nn.Module):
     to be replaced by ``load_state_dict``.  State-dict keys are
     ``<layer>.weight`` plus ``<layer>.{scale,bias,running_mean,running_var}``
     for BN convs and ``<layer>.bias`` otherwise, e.g. ``conv_1.weight``.
+
+    ``model_shards``: the model axis of the data × model grid the model is
+    split over (:meth:`keep_model_shard`; 1: whole).  A split model runs
+    only on its grid: each split conv holds this rank's output channels and
+    its output is gathered over the model group.
     """
 
     def __init__(self, spec: DarknetSpec, *,
@@ -453,7 +484,27 @@ class Darknet(nn.Module):
                 self.add_module(lspec.name, ConvBlock(lspec, generator, device))
             elif isinstance(lspec, ConnectedSpec):
                 self.add_module(lspec.name, Connected(lspec, generator, device))
+        self.model_shards = 1
         self.eval()
+
+    def keep_model_shard(self, group: DPGroup) -> List[Tuple[torch.Tensor,
+                                                              slice]]:
+        """Split the model over ``group``'s model axis in place: each conv
+        whose filters divide by ``group.mp`` keeps this rank's output
+        channels (``ConvBlock.keep_shard``), every other conv and connected
+        layer stays whole.  Returns the split parameters with their rows
+        (their momentum buffers take the same rows)."""
+        if self.model_shards != 1:
+            raise ValueError(f"the model is already split over "
+                             f"{self.model_shards} model ranks")
+        kept = []
+        for lspec in self.spec.conv_specs():
+            if shards_channels(lspec.filters, group.mp):
+                block = getattr(self, lspec.name)
+                rows = block.keep_shard(group)
+                kept += [(p, rows) for p in block.parameters()]
+        self.model_shards = group.mp
+        return kept
 
     def _fc(self, lspec: ConnectedSpec):
         m = getattr(self, lspec.name)
@@ -464,8 +515,18 @@ class Darknet(nn.Module):
                 group: Optional[DPGroup] = None) -> torch.Tensor:
         """``images`` NHWC float in [0, 1] → the raw head, NHWC.  ``group``:
         ``images`` are this rank's rows of a data-parallel batch, and
-        training-mode BN is synchronised over the group (the fused stem's
-        too, gated on the per-rank batch)."""
+        training-mode BN is synchronised over the data group (the fused
+        stem's too, gated on the per-data-rank batch).  A model split over
+        a grid's model axis runs only on that grid: each split conv's
+        output is gathered over the model group, and the fused stem, whose
+        kernels compute all 32 channels, runs on conv_1's gathered weight,
+        scale and bias and updates this rank's running channels."""
+        mp = 1 if group is None else group.mp
+        if self.model_shards != mp:
+            raise ValueError(
+                f"the model is split over {self.model_shards} model ranks "
+                f"but runs on a group of mp={mp} (split it with "
+                "training.shard_train_state on its grid)")
         start, x = 0, _to_nchw(images)
         world = _world(group)
         if fused_stem and self.training and stem_supported(
@@ -474,15 +535,27 @@ class Darknet(nn.Module):
                 data_shards=world):
             B, H, W, _ = images.shape
             c0 = getattr(self, self.spec.layers[0].name)
+            w, scale, bias = c0.weight, c0.scale, c0.bias
+            if c0.model_shards > 1:
+                w, scale, bias = (gather_model(t, group)
+                                  for t in (w, scale, bias))
             pooled, mean, var = stem.stem_conv_bn_pool_train(
-                images.float().contiguous(), c0.weight, c0.scale, c0.bias,
-                group)
+                images.float().contiguous(), w, scale, bias, group)
+            if c0.model_shards > 1:
+                rows = channel_rows(c0.spec.filters, group)
+                mean, var = mean[rows], var[rows]
             c0.update_running(mean, var, B * H * W * world)
             start, x = 2, _to_nchw(pooled)
+
+        def gather(s: ConvSpec, x: torch.Tensor) -> torch.Tensor:
+            if getattr(self, s.name).model_shards > 1:
+                return gather_channels(x, group)
+            return x
+
         out = _walk(self.spec, x,
                     lambda s, x: getattr(self, s.name)(x, compute_dtype,
                                                        group),
-                    self._fc, start=start)
+                    self._fc, start=start, gather=gather if mp > 1 else None)
         return _to_nhwc(out)
 
     def forward_train(self, images: torch.Tensor, compute_dtype=None,
@@ -505,7 +578,9 @@ class Darknet(nn.Module):
 def fold_batchnorm(model: Darknet) -> Dict[str, Dict[str, torch.Tensor]]:
     """Fold the running BN statistics into each conv's weight and bias:
     ``{layer: {"w": OIHW f32, "b": (O,) f32}}``, plus the connected layers'
-    own ``w``/``b`` — the serving parameters of :func:`apply_folded`."""
+    own ``w``/``b`` — the serving parameters of :func:`apply_folded`.  The
+    fold is per channel, so a split model's fold is the split of the
+    fold: each split conv's ``w``/``b`` hold this rank's channels."""
     folded: Dict[str, Dict[str, torch.Tensor]] = {}
     with torch.no_grad():
         for lspec in model.spec.layers:
@@ -517,8 +592,38 @@ def fold_batchnorm(model: Darknet) -> Dict[str, Dict[str, torch.Tensor]]:
     return folded
 
 
+def _split_convs(spec: DarknetSpec, group: Optional[DPGroup]) -> List[ConvSpec]:
+    mp = 1 if group is None else group.mp
+    return [l for l in spec.conv_specs() if shards_channels(l.filters, mp)]
+
+
+def shard_folded(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
+                 group: DPGroup) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The whole folded params' split over ``group``'s model axis: each
+    split conv's ``w``/``b`` rows of this rank (views), every other layer
+    as it is (JAX's ``folded_param_shardings``)."""
+    out = dict(folded)
+    for lspec in _split_convs(spec, group):
+        rows = channel_rows(lspec.filters, group)
+        out[lspec.name] = {k: v[rows] for k, v in folded[lspec.name].items()}
+    return out
+
+
+def gather_folded(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
+                  group: DPGroup) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Split folded params whole on every rank: each split conv's ``w``/``b``
+    gathered over the model group in model-rank order."""
+    out = dict(folded)
+    with torch.no_grad():
+        for lspec in _split_convs(spec, group):
+            out[lspec.name] = {k: gather_model(v, group)
+                               for k, v in folded[lspec.name].items()}
+    return out
+
+
 def apply_folded(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
-                 images: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
+                 images: torch.Tensor, *, compute_dtype=None,
+                 group: Optional[DPGroup] = None) -> torch.Tensor:
     """Inference with BN folded into the convs — the serving forward
     (``DarknetSpec.apply_folded``).  ``images`` NHWC float in [0, 1].
 
@@ -530,12 +635,30 @@ def apply_folded(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
     first conv + leaky + pool run as one kernel
     (:func:`~singleshotpose_tpu_torch.ops.stem.stem_conv_pool_infer`): on a
     CUDA tensor the hand-written kernel, on a CPU tensor its plain twin.
+
+    ``group`` with ``mp > 1``: ``folded`` holds this rank's split convs
+    (:func:`fold_batchnorm` of a split model, or :func:`shard_folded`);
+    each split conv's output is gathered over the model group, and the
+    serving stem, which takes all 32 channels, runs on conv_1's gathered
+    ``w``/``b``.
     """
+    split = {l.name for l in _split_convs(spec, group)}
+    for lspec in spec.conv_specs():
+        want = lspec.filters // group.mp if lspec.name in split \
+            else lspec.filters
+        if folded[lspec.name]["w"].shape[0] != want:
+            raise ValueError(
+                f"{lspec.name}: {folded[lspec.name]['w'].shape[0]} filters "
+                f"where this rank holds {want} of {lspec.filters} (split "
+                "params run on their grid; shard_folded splits whole ones)")
     start = 0
     if stem_supported(spec, compute_dtype):
         p0 = folded[spec.layers[0].name]
+        w, b = p0["w"], p0["b"]
+        if spec.layers[0].name in split:
+            w, b = gather_model(w, group), gather_model(b, group)
         x = _to_nchw(stem.stem_conv_pool_infer(images.float().contiguous(),
-                                               p0["w"], p0["b"]))
+                                               w, b))
         start = 2
     else:
         x = _to_nchw(images)
@@ -551,4 +674,8 @@ def apply_folded(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
     def fc(lspec: ConnectedSpec):
         return folded[lspec.name]["w"], folded[lspec.name]["b"]
 
-    return _to_nhwc(_walk(spec, x, conv_fn, fc, start=start))
+    def gather(lspec: ConvSpec, x: torch.Tensor) -> torch.Tensor:
+        return gather_channels(x, group) if lspec.name in split else x
+
+    return _to_nhwc(_walk(spec, x, conv_fn, fc, start=start,
+                          gather=gather if split else None))

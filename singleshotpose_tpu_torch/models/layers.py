@@ -58,7 +58,9 @@ def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     gradient terms) and divided by the world size.  The ranks' batches are
     the same size (the drivers split the global batch evenly), so this is
     the global mean; with a group of one it is the ungrouped form bit for
-    bit.
+    bit.  On a data × model grid the group's ``pg``/``world`` are its data
+    axis's: a split conv's channels are this rank's own, so its statistics
+    are summed over the data group only.
 
     Returns (y, batch_mean, batch_var); the statistics are f32 and still
     attached to the graph (detach them for :func:`running_stat_update`).

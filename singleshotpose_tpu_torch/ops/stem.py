@@ -538,9 +538,12 @@ def stem_conv_bn_pool_train(images: torch.Tensor, w: torch.Tensor,
       group: a ``parallel.sharding.DPGroup`` when ``images`` are this
         rank's rows of a data-parallel batch: the kernels run on them
         unchanged, and the BN statistics and the backward's c1/c2 sums are
-        all-reduced (sync-BN; the batch statistics returned are the global
-        batch's), while the gradients returned are this rank's share, for
-        the step's gradient all-reduce to sum.
+        all-reduced over its data group (sync-BN; the batch statistics
+        returned are the global batch's), while the gradients returned are
+        this rank's share, for the step's gradient all-reduce to sum.  On
+        a data × model grid the kernels take all 32 channels: the caller
+        passes conv_1's weight, scale and bias gathered over the model
+        group (``models.darknet.Darknet.forward``).
 
     Returns (pooled, batch_mean, batch_var_biased):
       pooled: (B, H//2, W//2, 32) bf16, contiguous NHWC —

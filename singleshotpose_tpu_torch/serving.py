@@ -59,8 +59,9 @@ class _ServeModule(torch.nn.Module):
 
     def __init__(self, spec: DarknetSpec, folded, *, pick: Pick = None,
                  compute_dtype=torch.bfloat16,
-                 scales_as_constants: bool = True):
+                 scales_as_constants: bool = True, group=None):
         super().__init__()
+        self.group = group
         if pick is not None and pick[0] not in _PICKS:
             raise ValueError(f"unknown pick {pick!r}")
         self.spec, self.folded = spec, folded
@@ -91,7 +92,7 @@ class _ServeModule(torch.nn.Module):
             if not images.is_floating_point():
                 images = images.float() * self.u8_scale
             head = apply_folded(spec, self.folded, images,
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype, group=self.group)
         decoded = decode_grid(head.float(), spec.num_keypoints,
                               spec.num_classes, spec.num_anchors)
         if pick is None or pick[0] == "grid":
@@ -106,7 +107,7 @@ class _ServeModule(torch.nn.Module):
 def make_serving_fn(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
                     *, pick: Pick = None, compute_dtype=torch.bfloat16,
                     scales_as_constants: bool = True, transfer: str = "rgb",
-                    out_shape: Optional[Tuple[int, int]] = None):
+                    out_shape: Optional[Tuple[int, int]] = None, group=None):
     """The serving function ``images → boxes`` over ``folded``: the folded
     weights of :func:`~singleshotpose_tpu_torch.models.darknet.fold_batchnorm`
     (bf16 forward, the serving stem's kernel), or an int8 pytree of
@@ -128,13 +129,20 @@ def make_serving_fn(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]
     converts them on the device to f32 frames at ``out_shape`` (w, h)
     before the net (``ops/yuv.yuv420_to_rgb_resized``), as JAX's eval
     forward does (``singleshotpose_tpu/drivers.py:_eval_forward``).
+
+    ``group``: a data × model grid (``parallel.sharding.make_dp_group``
+    with ``mp > 1``) whose model axis the folded weights are split over
+    (``models.darknet.shard_folded``): each split conv's channels are
+    gathered over the model group (``apply_folded``), so every rank of it
+    returns the same boxes.  The int8 forward takes whole params and has
+    no use for it.
     """
     if transfer not in ("rgb", "yuv420"):
         raise ValueError(f"unknown transfer {transfer!r}")
     if transfer == "yuv420" and out_shape is None:
         raise ValueError("transfer='yuv420' needs out_shape (w, h)")
     body = _ServeModule(spec, folded, pick=pick, compute_dtype=compute_dtype,
-                       scales_as_constants=scales_as_constants)
+                       scales_as_constants=scales_as_constants, group=group)
     device = _device(folded)
 
     if transfer == "yuv420":

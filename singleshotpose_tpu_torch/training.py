@@ -34,15 +34,15 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from .data.device_augment import INV255
-from .models.darknet import Darknet, apply_folded, fold_batchnorm
+from .models.darknet import ConvBlock, Darknet, apply_folded, fold_batchnorm
 from .ops.losses import RegionLossConfig, region_loss
 from .parallel.sharding import (DPGroup, all_reduce_grads, all_reduce_sum_,
-                                broadcast_)
+                                broadcast_, broadcast_model_, gather_model)
 
 __all__ = ["TrainState", "init_train_state", "no_decay_mask_for",
-           "shard_train_state", "schedule_lr", "sgd_update",
-           "make_train_step", "make_eval_forward", "CapturedTrainStep",
-           "capture_train_step"]
+           "shard_train_state", "gather_train_state", "schedule_lr",
+           "sgd_update", "make_train_step", "make_eval_forward",
+           "CapturedTrainStep", "capture_train_step"]
 
 Scalar = Union[float, int, torch.Tensor]
 
@@ -136,14 +136,70 @@ def shard_train_state(group: DPGroup, state: TrainState) -> TrainState:
     places every leaf on the mesh): the parameters, the BN running
     statistics, the momentum buffers (made as zeros first where there are
     none yet, which the first step would do) and ``seen``, broadcast on a
-    flat buffer per dtype.  Returns ``state``."""
-    params = list(state.model.parameters())
+    flat buffer per dtype.  Returns ``state``.
+
+    On a data × model grid (``group.mp > 1``) ``state`` is whole on every
+    rank: rank 0's reaches its model group, then each data group, and
+    every rank then keeps its output channels of each split conv
+    (``Darknet.keep_model_shard``: the weight, the BN terms and running
+    statistics, the bias) and of their momentum buffers."""
+    model = state.model
+    if group.mp > 1 and model.model_shards != 1:
+        raise ValueError("shard_train_state takes a whole state; this one "
+                         f"is split over {model.model_shards} model ranks")
+    params = list(model.parameters())
     seen = torch.tensor([int(state.seen)], dtype=torch.int64,
                         device=group.device)
-    broadcast_([*(t.data for t in params), *state.model.buffers(),
-                *_momentum_buffers(state.optimizer, params), seen], group)
+    live = [*(t.data for t in params), *model.buffers(),
+            *_momentum_buffers(state.optimizer, params), seen]
+    if group.mp > 1:
+        broadcast_model_(live, group)
+    broadcast_(live, group)
     state.seen = int(seen.item())
+    if group.mp > 1:
+        for p, rows in model.keep_model_shard(group):
+            st = state.optimizer.state[p]
+            st["momentum_buffer"] = st["momentum_buffer"][rows].clone()
     return state
+
+
+def _split(model: Darknet, key: str) -> bool:
+    """Whether the state-dict entry ``key`` (``<layer>.<tensor>``) belongs
+    to a conv split over the model axis."""
+    block = getattr(model, key.split(".", 1)[0])
+    return isinstance(block, ConvBlock) and block.model_shards > 1
+
+
+@torch.no_grad()
+def gather_train_state(group: DPGroup, state: TrainState) -> TrainState:
+    """The whole train state of a state split over ``group``'s model axis,
+    the same on every rank: a new model on the same device whose split
+    tensors are the model group's slices concatenated in model-rank order
+    (bit for bit), an SGD optimizer with the same parameter groups and
+    hyperparameters whose momentum buffers are gathered likewise, and
+    ``seen``.  Every rank of the model group must call it.  A whole state
+    is returned as it is."""
+    model = state.model
+    if model.model_shards == 1:
+        return state
+
+    def whole(key: str, t: torch.Tensor) -> torch.Tensor:
+        return gather_model(t, group) if _split(model, key) else t.clone()
+
+    full = Darknet(model.spec, device=next(model.parameters()).device)
+    full.load_state_dict({k: whole(k, v)
+                          for k, v in model.state_dict().items()})
+    names = {p: n for n, p in model.named_parameters()}
+    params = dict(full.named_parameters())
+    opt = torch.optim.SGD([
+        {**{k: v for k, v in g.items() if k != "params"},
+         "params": [params[names[p]] for p in g["params"]]}
+        for g in state.optimizer.param_groups])
+    for name, p in model.named_parameters():
+        buf = state.optimizer.state[p].get("momentum_buffer")
+        if buf is not None:
+            opt.state[params[name]]["momentum_buffer"] = whole(name, buf)
+    return TrainState(full, opt, state.seen)
 
 
 def sgd_update(optimizer: torch.optim.SGD, lr: Scalar) -> None:
@@ -202,6 +258,18 @@ def make_train_step(loss_cfg: RegionLossConfig, *,
     the global one) and ``seen`` grows by the global batch.  The state must
     start equal on every rank (:func:`shard_train_state`);
     every rank then holds the same bytes after each step.
+
+    ``group`` a data × model grid (``mp > 1``; JAX's step on a
+    ``make_mesh(dp, mp)`` mesh): the state is split over the model axis
+    (:func:`shard_train_state`) and ``images``/``target`` are the data
+    rank's rows, the same on every rank of its model group.  The forward
+    gathers each split conv's channels over the model group; the loss,
+    K2 and the targets are computed alike by the model group; BN, the
+    gradient sum, the stats sum and ``seen`` follow the data group only.
+    A replicated parameter's summed gradient is then model rank 0's on
+    every model rank (``broadcast_model_``).  Data peers hold the same
+    bytes after each step, and so do model peers for every replicated
+    tensor.
     """
     scale_u8 = {}
 
@@ -225,6 +293,10 @@ def make_train_step(loss_cfg: RegionLossConfig, *,
         loss.backward()
         if group is not None:
             all_reduce_grads(model.parameters(), group)
+            if group.mp > 1:
+                broadcast_model_(
+                    [p.grad for n, p in model.named_parameters()
+                     if p.grad is not None and not _split(model, n)], group)
             all_reduce_sum_(list(stats.values()), group)
         sgd_update(opt, _device_scalar(lr, torch.float32, dev))
         state.seen += images.shape[0] * (1 if group is None else group.world)
@@ -364,6 +436,11 @@ def capture_train_step(step: Callable, state: TrainState,
     Needs the state on a CUDA device; a failed capture raises.
     """
     group = getattr(step, "group", None)
+    if group is not None and group.mp > 1:
+        raise ValueError(
+            f"a train step on a dp×mp grid (mp={group.mp}) is not captured "
+            "yet: its channel gathers and copies are not recorded in a CUDA "
+            "graph (ROADMAP.md §1 item 3); run it eagerly")
     if group is not None and group.backend != "nccl":
         raise ValueError(
             f"a data-parallel train step over a {group.backend} group "

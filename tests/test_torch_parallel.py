@@ -444,9 +444,24 @@ def test_stem_gate_judges_the_per_rank_batch(_interpret, B, shards):
     assert want == (B % shards == 0 and 0 < B // shards < 64)
 
 
-def test_tensor_parallel_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.make_dp_group(2, mp=2, device="cpu")
+def test_grid_must_cover_the_process_group(monkeypatch):
+    """``make_dp_group(dp, mp)`` takes exactly the process group's ranks:
+    with nothing initialised only dp = mp = 1 (a group of one made here),
+    and over a group of one any other dp·mp raises with the sizes."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="dp=1, mp=2: torch.distributed "
+                       "is not initialised"):
+        TS.make_dp_group(1, mp=2, device="cpu")
+    group = TS.make_dp_group(1, mp=1, device="cpu")
+    try:
+        assert (group.world, group.mp, group.model_pg) == (1, 1, None)
+        for dp, mp in ((1, 2), (2, 1), (2, 2)):
+            with pytest.raises(ValueError, match=f"dp={dp} × mp={mp} = "
+                               f"{dp * mp} but the process group has 1 "
+                               "ranks"):
+                TS.make_dp_group(dp, mp=mp, device="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 @pytest.fixture

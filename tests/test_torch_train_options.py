@@ -335,7 +335,7 @@ def gloo_group():
 def _nccl_stub(world=1):
     """What the capture and the drivers read of an NCCL group (NCCL needs
     a card)."""
-    return types.SimpleNamespace(backend="nccl", world=world, rank=0,
+    return types.SimpleNamespace(backend="nccl", world=world, rank=0, mp=1,
                                  device=torch.device("cpu"))
 
 
