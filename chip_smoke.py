@@ -168,7 +168,20 @@ phases; any failure propagates and the exit code is nonzero:
      the JAX package's bf16 bounds, the state gathered; K2–K6 once a rank
      a step); the folded forward at batch 8, 672², on the grid (K1 on
      conv_1's gathered folded weights) against one process (every cell's
-     decoded corners and confidence within 0.05);
+     decoded corners and confidence within 0.05); then the trainers on the
+     grid: ``run_training`` for 2 epochs of 2 steps fed by ``device_bank``
+     over phase 14's renders (a checkpoint after each epoch, the
+     in-training eval after the last; K2–K6 once a rank a step, K1 once a
+     rank an eval batch), ``model.weights`` = the gathered state's weights
+     and the grid's last checkpoint restored in one process = the gathered
+     state, bit for bit; a one-process checkpoint restored on the grid =
+     each rank's slices bit for bit; ``run_training_multi`` for 1 step of
+     the full-width ``yolo_pose_multi`` at batch 32 fed by ``device_synth``
+     over phase 15's renders (finite, the ranks' losses the same bits);
+     beside them two gloo ranks as dp=2 × mp=1: each rank's rows of
+     ``Loader(group=)``'s ``device_bank`` batches (416², 8) and
+     ``device_synth`` batches (416², 32) = those rows of the one-process
+     batches on the card, bit for bit;
  19. native: a small corpus written as files (64 train and 16 held-out
      640x480 shaded renders as JPEG, PNG masks, 8 JPEG backgrounds); the
      native C++ decoder (``singleshotpose_tpu_torch/native``) built with
@@ -274,6 +287,7 @@ from singleshotpose_tpu_torch.ops.losses import region_loss
 from singleshotpose_tpu_torch.ops.pnp import pnp_batched, so3_exp
 from singleshotpose_tpu_torch.parallel.multihost import initialize_distributed
 from singleshotpose_tpu_torch.parallel.sharding import (all_reduce_grads,
+                                                        channel_rows,
                                                         free_port,
                                                         make_dp_group,
                                                         shard_host_batch)
@@ -2418,7 +2432,7 @@ def _synth_tree(host_bank, root: str):
     frame and an OCCLUSION ``.data``, and the frames by path (images, masks,
     backgrounds) for a decoder that reads them from memory.  Returns (the
     ``.data`` path, the train list, the background paths, the frames)."""
-    nf = SYNTH_FRAMES_PER_CLASS
+    nf = host_bank.images.shape[0] // len(OCCLUSION_CLASSES)
     frames, lines = {}, []
     for c, obj in enumerate(OCCLUSION_CLASSES):
         os.makedirs(f"{root}/{obj}/labels", exist_ok=True)
@@ -4235,8 +4249,202 @@ def _tp_child(rank: int, port: int, root: str, device: str) -> None:
     stem.stem_conv_pool_infer.launches = 0
     out["eval"] = _tp_serve(spec, dev, grid)
     out["k1"] = stem.stem_conv_pool_infer.launches
+    _free()
+    out["trainer"] = _tp_trainer(spec, dev, grid, root, rank)
+    _free()
+    out["restore"] = _tp_restore(spec, dev, grid, root)
+    _free()
+    out["multi"] = _tp_multi(dev, grid, root, rank)
     dist.destroy_process_group()
     torch.save(_to_cpu(out), f"{root}/tp{rank}.pt")
+
+
+# phase 20's trainers: run_training on the grid over TP_TRAIN_FRAMES of
+# phase 14's renders at batch 8 (2 steps an epoch) for TP_EPOCHS, its eval
+# over TP_EVAL_FRAMES held-out renders (one batch of 8); run_training_multi
+# for one batch-32 step over MULTI_TRAIN_BATCH of phase 15's renders
+TP_TRAIN_FRAMES, TP_EVAL_FRAMES, TP_EPOCHS = 16, 8, 2
+
+
+def _tp_corpus(root: str):
+    """Phase 14's renders, the first TP_TRAIN_FRAMES and TP_EVAL_FRAMES of
+    them, under ``root`` (each rank its own: the files are written, the
+    frames read from memory), the backgrounds as empty files for the
+    trainer's directory listing.  Returns ``_data_corpus``'s tuple."""
+    datacfg, train_list, bgs, frames = _data_corpus(
+        root, n_train=TP_TRAIN_FRAMES, n_eval=TP_EVAL_FRAMES,
+        n_backgrounds=4)
+    for b in bgs:
+        os.makedirs(os.path.dirname(b), exist_ok=True)
+        open(b, "wb").close()
+    return datacfg, train_list, bgs, frames
+
+
+def _tp_synth_tree(root: str):
+    """Phase 15's renders as a LINEMOD tree under ``root`` (``_synth_tree``)
+    and a train list of MULTI_TRAIN_BATCH frames across the classes with
+    its ``.data``: one step of the multi trainer.  Returns (the one-step
+    ``.data``, the whole train list, the backgrounds, the frames)."""
+    mod = _script("shaded_accuracy_multi")
+    host = mod.shaded_scene_bank(SYNTH_FRAMES_PER_CLASS,
+                                 *mod.palettes_and_extents())
+    _, train_list, bgs, frames = _synth_tree(host, root)
+    with open(train_list) as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    step = lines[::len(lines) // MULTI_TRAIN_BATCH][:MULTI_TRAIN_BATCH]
+    with open(f"{root}/train_step.txt", "w") as f:
+        f.write("\n".join(step) + "\n")
+    with open(f"{root}/step.data", "w") as f:
+        f.write(occlusion_datacfg(linemod_root=root,
+                                  train_list=f"{root}/train_step.txt",
+                                  backup_root=f"{root}/backup"))
+    return f"{root}/step.data", train_list, bgs, frames
+
+
+def _tp_trainer(spec, dev, grid, root: str, rank: int) -> dict:
+    """``run_training`` on the grid as a user runs it (``TrainRunConfig(
+    group=make_dp_group(1, 2))``): TP_EPOCHS epochs of 2 batch-8 steps fed
+    by ``device_bank`` over phase 14's renders, a checkpoint after each
+    epoch, the in-training eval after the last (its best saves
+    ``model.weights``); K2–K6 and K1 counted from 0.  Then the state
+    gathered: its SHA-256, and (the writer) ``model.weights`` against its
+    weights and BN statistics, bit for bit."""
+    from singleshotpose_tpu_torch.drivers import run_training
+    datacfg, _, bgs, frames = _tp_corpus(f"{root}/corpus{rank}")
+    rc = TrainRunConfig(group=grid, loader_backend="device_bank",
+                        max_epochs_override=TP_EPOCHS, num_workers=0,
+                        log_every=2, bg_dir=os.path.dirname(bgs[0]),
+                        eval_every=1, eval_after=TP_EPOCHS - 2,
+                        eval_batch_size=TRAIN_BATCH,
+                        checkpoint_dir=f"{root}/ckpt",
+                        checkpoint_every_epochs=1)
+    for f in _ALL_COUNTED:
+        f.launches = 0
+    t = time.perf_counter()
+    with _reading_renders(frames):
+        result = run_training(datacfg, spec, None, 15, rc)
+    torch.cuda.synchronize()
+    out = {"launches": _launches(), "k1": stem.stem_conv_pool_infer.launches,
+           "seconds": time.perf_counter() - t,
+           "losses": result["history"]["training_losses"],
+           "testing": result["history"]["testing_accuracies"],
+           "seen": result["state"].seen,
+           "steps": Checkpointer(f"{root}/ckpt").steps()}
+    whole = gather_train_state(grid, result["state"])
+    out["sha"] = _state_sha(whole)
+    if grid.leader:
+        _, sd = W.load_weights(spec, f"{root}/corpus0/backup/model.weights")
+        got = whole.model.state_dict()
+        out["weights_equal"] = all(_same_bits(v, got[k].cpu())
+                                   for k, v in sd.items())
+    return out
+
+
+def _tp_restore(spec, dev, grid, root: str) -> dict:
+    """A one-process checkpoint (the parent's state after DP_STEPS steps)
+    restored whole on the grid and split (``shard_train_state``), as the
+    trainers resume: this rank's tensors against the file's slices —
+    model-rank rows of a split conv, the whole of the rest — bit for
+    bit."""
+    _wait_for(f"{root}/one_done", root)
+    net = spec.net
+    state = init_train_state(Darknet(spec, device=dev),
+                             weight_decay=net.decay * net.batch,
+                             momentum=net.momentum)
+    ckpt = Checkpointer(f"{root}/one", group=grid)
+    step = ckpt.restore(state)
+    shard_train_state(grid, state)
+    payload = torch.load(f"{root}/one/{step}.pt", map_location="cpu",
+                         weights_only=True)
+    names = [n for n, _ in state.model.named_parameters()]
+    opt = payload["optimizer"]["state"]
+    want = dict(payload["model"])
+    want.update({f"momentum/{names[i]}": v["momentum_buffer"]
+                 for i, v in opt.items()})
+    got = {k: v for k, v in state.model.state_dict().items()}
+    got.update({f"momentum/{n}": state.optimizer.state[p]["momentum_buffer"]
+                for n, p in state.model.named_parameters()})
+    split = {n for n, m in state.model.named_children()
+             if getattr(m, "model_shards", 1) > 1}
+    differ = []
+    for k, v in want.items():
+        layer = k.replace("momentum/", "").split(".")[0]
+        if layer in split:
+            v = v[channel_rows(len(v), grid)]
+        if not _same_bits(got[k].cpu(), v):
+            differ.append(k)
+    return {"step": step, "seen": state.seen, "tensors": len(want),
+            "differ": differ[:3], "n_differ": len(differ)}
+
+
+def _tp_multi(dev, grid, root: str, rank: int) -> dict:
+    """``run_training_multi`` on the grid for one step of the full-width
+    ``yolo_pose_multi`` at batch 32 fed by ``device_synth`` over phase 15's
+    renders (the scene bank on the card, every rank synthesizing its
+    rows); K2–K6 counted from 0."""
+    datacfg, _, _, frames = _tp_synth_tree(f"{root}/synth{rank}")
+    rc = TrainRunConfig(group=grid, loader_backend="device_synth",
+                        max_epochs_override=1, num_workers=0, log_every=1,
+                        bg_dir=f"{root}/no_bg", eval_every=20,
+                        eval_after=-1)
+    for f in _TRAIN_COUNTED:
+        f.launches = 0
+    t = time.perf_counter()
+    with _reading_renders(frames):
+        result = run_training_multi(datacfg, yolo_pose_multi(), None, 0,
+                                    None, f"{root}/synth{rank}", rc)
+    torch.cuda.synchronize()
+    return {"launches": _launches(), "seconds": time.perf_counter() - t,
+            "losses": torch.tensor(result["history"]["training_losses"],
+                                   dtype=torch.float64),
+            "seen": result["state"].seen}
+
+
+def _rows_batches(dev, root: str, group=None) -> dict:
+    """The bank backends' batches on the card from fixed seeds: two
+    ``device_bank`` batches of 8 at 416² over phase 14's renders and one
+    ``device_synth`` batch of 32 at 416² over phase 15's, through
+    ``Loader(group=)`` (this rank's rows) or, with no group, whole."""
+    _, train_list, bgs, frames = _tp_corpus(f"{root}/bank")
+    out = {}
+    with _reading_renders(frames):
+        loader = Loader(PoseDataset(train_list, train=True,
+                                    bg_file_names=bgs),
+                        TRAIN_BATCH, fixed_shape=(TRAIN_SIZE, TRAIN_SIZE),
+                        seed=33, num_workers=0, backend="device_bank",
+                        device=dev, group=group)
+        out["bank"] = [(i.cpu(), lab.cpu()) for i, lab in loader]
+    from singleshotpose_tpu_torch.data.synth_multi import (
+        MultiObjectSynthesizer, SynthConfig)
+    _, train_list, bgs, frames = _tp_synth_tree(f"{root}/synth")
+    with _reading_renders(frames):
+        ds = PoseDataset(train_list, train=True, bg_file_names=bgs,
+                         aug=pipeline.AugmentConfig.multi(),
+                         synthesizer=MultiObjectSynthesizer(
+                             SynthConfig(linemod_root=f"{root}/synth")))
+        loader = Loader(ds, MULTI_TRAIN_BATCH,
+                        fixed_shape=(MULTI_SIZE, MULTI_SIZE), seed=34,
+                        num_workers=0, backend="device_synth", device=dev,
+                        group=group)
+        batch = next(iter(loader))
+        out["synth"] = [(batch[0].cpu(), batch[1].cpu())]
+    torch.cuda.synchronize()
+    return out
+
+
+def _rows_child(rank: int, port: int, root: str, device: str) -> None:
+    """A spawned rank of phase 20's dp=2 × mp=1 pair: its rows of the bank
+    backends' batches (:func:`_rows_batches`) to ``root/rows<rank>.pt``."""
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    initialize_distributed(backend="gloo",
+                           init_method=f"tcp://localhost:{port}",
+                           world_size=2, rank=rank, device=dev,
+                           timeout=DP_TIMEOUT)
+    group = make_dp_group(2, 1, device=dev)
+    out = _rows_batches(dev, f"{root}/rows{rank}", group)
+    dist.destroy_process_group()
+    torch.save(out, f"{root}/rows{rank}.pt")
 
 
 def phase_tp(spec, dev, card: str) -> None:
@@ -4260,15 +4468,34 @@ def phase_tp(spec, dev, card: str) -> None:
         ctx = torch.multiprocessing.start_processes(
             _tp_child, args=(free_port(), root, str(dev)),
             nprocs=TP_DP * TP_MP, join=False, start_method="spawn")
-        # the one-process references while the ranks start
+        rows_ctx = torch.multiprocessing.start_processes(
+            _rows_child, args=(free_port(), root, str(dev)), nprocs=2,
+            join=False, start_method="spawn")
+        # the one-process references while the ranks start; the state after
+        # DP_STEPS steps is the checkpoint the grid restores
         ref, ref_losses, ref_first, _ = _dp_steps(spec, dev)
         whole = _state_bytes(ref)
+        Checkpointer(f"{root}/one").save(DP_STEPS, ref)
+        open(f"{root}/one_done", "w").close()
         del ref
         ref_eval = _tp_serve(spec, dev)
+        ref_rows = _rows_batches(dev, f"{root}/rows_one")
+        while not rows_ctx.join():
+            pass
+        rows = [torch.load(f"{root}/rows{r}.pt", weights_only=True)
+                for r in range(2)]
         while not ctx.join():
             pass
         ranks = [torch.load(f"{root}/tp{r}.pt", weights_only=False)
                  for r in range(TP_DP * TP_MP)]
+        # the grid's last checkpoint restored in one process
+        net = spec.net
+        restored = init_train_state(Darknet(spec, device=dev),
+                                    weight_decay=net.decay * net.batch,
+                                    momentum=net.momentum)
+        last = Checkpointer(f"{root}/ckpt").restore(restored)
+        restored_sha = _state_sha(restored)
+        del restored
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4322,7 +4549,93 @@ def phase_tp(spec, dev, card: str) -> None:
     _check(all(r["k1"] == 1 for r in ranks),
            f"K1 launched {[r['k1'] for r in ranks]} times in the grid's "
            "eval batch")
+    _report_tp_trainers(ranks, last, restored_sha, card)
+    _report_tp_rows(rows, ref_rows, card)
     print(f"[tp] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+def _report_tp_trainers(ranks, last: int, restored_sha: str,
+                        card: str) -> None:
+    """Print and check phase 20's trainers on the grid
+    (:func:`_tp_trainer`, :func:`_tp_restore`, :func:`_tp_multi`)."""
+    tr = [r["trainer"] for r in ranks]
+    steps = TP_EPOCHS * TP_TRAIN_FRAMES // TRAIN_BATCH
+    print(f"[tp trainer] run_training on the dp={TP_DP} x mp={TP_MP} grid, "
+          f"yolo_pose_single fed by device_bank, {TP_EPOCHS} epochs of "
+          f"{TP_TRAIN_FRAMES // TRAIN_BATCH} batch-8 steps: losses "
+          f"{[[round(x, 6) for x in t['losses']] for t in tr]}, eval "
+          f"{[t['testing'] for t in tr]}, seen {[t['seen'] for t in tr]}; "
+          f"checkpoints at steps {tr[0]['steps']}; K2-K6 launched "
+          f"{[t['launches'] for t in tr]}, K1 {[t['k1'] for t in tr]}; "
+          f"model.weights = the gathered state {tr[0].get('weights_equal')};"
+          f" the last checkpoint (step {last}) restored in one process = the "
+          f"gathered state {restored_sha == tr[0]['sha']}; "
+          f"{[round(t['seconds'], 2) for t in tr]} s a rank [{card}]")
+    _check(all(len(t["losses"]) == steps and np.isfinite(t["losses"]).all()
+               and t["losses"] == tr[0]["losses"] for t in tr),
+           "the grid's run_training losses are not finite and equal")
+    _check(all(t["seen"] == steps * TRAIN_BATCH for t in tr),
+           "run_training's seen is not the global samples'")
+    _check(tr[0]["steps"] == [steps // TP_EPOCHS * (e + 1)
+                              for e in range(TP_EPOCHS)] and last == steps,
+           f"checkpoints at {tr[0]['steps']}, restored {last}")
+    _check(all(t["launches"] == [steps] * 5 and t["k1"] == 1 for t in tr),
+           "K2-K6 not once a rank a step, or K1 not once a rank an eval "
+           "batch")
+    _check(all(len(t["testing"]) == 1 for t in tr), "no in-training eval")
+    _check(tr[0]["weights_equal"] is True,
+           "model.weights is not the gathered state")
+    _check(all(t["sha"] == tr[0]["sha"] for t in tr)
+           and restored_sha == tr[0]["sha"],
+           "the grid's checkpoint restored in one process is not the "
+           "gathered state")
+    rs = [r["restore"] for r in ranks]
+    print(f"[tp trainer] a one-process checkpoint (step {rs[0]['step']}, "
+          f"seen {rs[0]['seen']}) restored on the grid: "
+          f"{[rs_['tensors'] - rs_['n_differ'] for rs_ in rs]} of "
+          f"{rs[0]['tensors']} tensors a rank its slices bit for bit "
+          f"(differ: {[rs_['differ'] for rs_ in rs]}) [{card}]")
+    _check(all(rs_["n_differ"] == 0 and rs_["seen"] == DP_STEPS * TRAIN_BATCH
+               for rs_ in rs),
+           "a one-process checkpoint restored on the grid is not each "
+           "rank's slices")
+    mu = [r["multi"] for r in ranks]
+    print(f"[tp trainer] run_training_multi on the grid, yolo_pose_multi fed "
+          f"by device_synth at batch {MULTI_TRAIN_BATCH}, {MULTI_SIZE}²: "
+          f"losses {[m['losses'].tolist() for m in mu]}, seen "
+          f"{[m['seen'] for m in mu]}; K2-K6 launched "
+          f"{[m['launches'] for m in mu]}; "
+          f"{[round(m['seconds'], 2) for m in mu]} s a rank [{card}]")
+    _check(all(len(m["losses"]) == 1 and torch.isfinite(m["losses"]).all()
+               and _same_bits(m["losses"], mu[0]["losses"])
+               and m["seen"] == MULTI_TRAIN_BATCH
+               and m["launches"] == [1] * 5 for m in mu),
+           "the grid's run_training_multi step is off")
+
+
+def _report_tp_rows(rows, ref_rows, card: str) -> None:
+    """Print and check the dp=2 pair's rows of the bank backends' batches
+    against the one-process batches, bit for bit."""
+    same = {}
+    for kind in ("bank", "synth"):
+        ok = []
+        for r, got in enumerate(rows):
+            for (gi, gl), (wi, wl) in zip(got[kind], ref_rows[kind]):
+                per = len(wi) // 2
+                sl = slice(r * per, (r + 1) * per)
+                ok.append(len(gi) == per and _same_bits(gi, wi[sl])
+                          and _same_bits(gl, wl[sl]))
+        same[kind] = ok
+    print(f"[tp rows] dp=2 x mp=1, two gloo ranks on the card: each rank's "
+          f"Loader(group=) rows = those rows of the one-process batch, bit "
+          f"for bit, images and labels: device_bank {TRAIN_SIZE}² batch "
+          f"{TRAIN_BATCH} x {len(ref_rows['bank'])} {same['bank']}, "
+          f"device_synth {MULTI_SIZE}² batch {MULTI_TRAIN_BATCH} "
+          f"{same['synth']} [{card}]")
+    _check(len(same["bank"]) == 2 * len(ref_rows["bank"]) > 0
+           and all(same["bank"]) and len(same["synth"]) == 2
+           and all(same["synth"]),
+           "a rank's bank rows are not the one-process batch's")
 
 
 def _report_dp_captured(one: dict, card: str):

@@ -55,9 +55,11 @@ with no group, ``1`` a group of one).  Under ``torchrun`` (``RANK``,
 this process, and a larger N starts N local ranks (spawned, a TCP
 rendezvous on a free local port).  Rank r runs on
 ``cuda:<local rank>`` with NCCL — N cards are needed — or, with ``--device
-cpu``, on the CPU with gloo.  ``--precompile_buckets`` captures each
-rank's step with its NCCL collectives (``--dp 1`` on one card too); over
-gloo it is refused.  ``valid --checkpoint_dir`` evaluates a
+cpu``, on the CPU with gloo.  A host loader gives each rank its shard of
+the dataset; ``device_bank`` and ``device_synth`` give each rank the whole
+bank, and each rank makes its rows of every global batch.
+``--precompile_buckets`` captures each rank's step with its NCCL
+collectives (``--dp 1`` on one card too); over gloo it is refused.  ``valid --checkpoint_dir`` evaluates a
 full-state checkpoint (JAX's ``--orbax_dir``): the offline eval of a
 data-parallel training run.
 """

@@ -37,7 +37,7 @@ Divergences (the ones the JAX package's bank carries):
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,13 +72,15 @@ class DeviceFrameBank(NamedTuple):
     def frame_shape(self) -> Tuple[int, int]:
         return self.images.shape[1], self.images.shape[2]     # (H, W)
 
-    def device_put(self, device="cuda") -> "DeviceFrameBank":
+    def device_put(self, device="cuda", group=None) -> "DeviceFrameBank":
         """The bank on ``device``, after the memory preflight
-        (:func:`~singleshotpose_tpu_torch.utils.memory.check_hbm_budget`)."""
+        (:func:`~singleshotpose_tpu_torch.utils.memory.check_hbm_budget`;
+        ``group``: every rank of its grid places a bank, each card charged
+        for all of its ranks')."""
         from ..utils.memory import check_hbm_budget
         device = torch.device(device)
         check_hbm_budget(self.nbytes(), "device_bank frame bank",
-                         device=device)
+                         device=device, group=group)
         return DeviceFrameBank(*(t.to(device) for t in self))
 
     def nbytes(self) -> int:
@@ -174,7 +176,7 @@ def _transform_rows(rows, n_rows, p, W: int, H: int, K: int):
 
 def augment_bank_batch(bank: DeviceFrameBank, idxs, bg_idxs,
                        params: AugmentParams, *, out_w: int, out_h: int,
-                       K: int = 9):
+                       K: int = 9, rows: Optional[slice] = None):
     """One augmented train batch, on the bank's device.
 
     Args:
@@ -183,10 +185,16 @@ def augment_bank_batch(bank: DeviceFrameBank, idxs, bg_idxs,
         arrays or tensors).
       params: host-drawn :class:`AugmentParams` (``draw_params`` — the same
         rng stream as the ``device`` backend).
+      rows: only these rows of the batch (a data-parallel rank's,
+        ``parallel.sharding.batch_rows``): every sample is computed alone,
+        so they are those rows of the whole batch, bit for bit.
     Returns (images (B, out_h, out_w, 3) **uint8** — JAX's f32 batch is
     these levels times f32(1/255), bit for bit, what the train step computes
     from them —, labels (B, max_num_gt·(2K+3)) f32).
     """
+    if rows is not None:
+        idxs, bg_idxs = idxs[rows], bg_idxs[rows]
+        params = AugmentParams(*(p[rows] for p in params))
     device = bank.images.device
     H, W = bank.frame_shape
     idxs, bg_idxs = (a.to(device).long() if isinstance(a, torch.Tensor)

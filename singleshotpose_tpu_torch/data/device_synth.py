@@ -134,13 +134,15 @@ class DeviceSceneBank(NamedTuple):
     def frame_shape(self) -> Tuple[int, int]:
         return self.images.shape[1], self.images.shape[2]     # (H, W)
 
-    def device_put(self, device="cuda") -> "DeviceSceneBank":
+    def device_put(self, device="cuda", group=None) -> "DeviceSceneBank":
         """The bank on ``device``, after the memory preflight
-        (:func:`~singleshotpose_tpu_torch.utils.memory.check_hbm_budget`)."""
+        (:func:`~singleshotpose_tpu_torch.utils.memory.check_hbm_budget`;
+        ``group``: every rank of its grid places a bank, each card charged
+        for all of its ranks')."""
         from ..utils.memory import check_hbm_budget
         device = torch.device(device)
         check_hbm_budget(self.nbytes(), "device_synth scene bank",
-                         device=device)
+                         device=device, group=group)
         return DeviceSceneBank(*(t.to(device) for t in self))
 
     def nbytes(self) -> int:
@@ -417,7 +419,7 @@ def _transform_rows(rows: torch.Tensor, crop: torch.Tensor, W: int, H: int,
 
 def synthesize_batch(bank: DeviceSceneBank, base_idx, draws: SynthDraws, *,
                      out_w: int, out_h: int, st: DeviceSynthStatic,
-                     binary: bool = False):
+                     binary: bool = False, rows: Optional[slice] = None):
     """A batch of composite scenes on the bank's device, from ``draws``
     (:func:`draw_synth`).
 
@@ -429,9 +431,16 @@ def synthesize_batch(bank: DeviceSceneBank, base_idx, draws: SynthDraws, *,
         composite is then a select, and the scene is composited on u8
         levels, scaled to [0, 1] once at the end: the bits of the f32
         composite, in a fraction of its passes.
+      rows: only these scenes of the batch (a data-parallel rank's,
+        ``parallel.sharding.batch_rows``), from those rows of ``base_idx``
+        and of every field of ``draws``: every scene is computed alone, so
+        they are those rows of the whole batch, bit for bit.
     Returns (images (B, out_h, out_w, 3) f32 in [0, 1], labels (B,
     max_num_gt·(2K+3)) f32).
     """
+    if rows is not None:
+        base_idx = base_idx[rows]
+        draws = SynthDraws(*(d[rows] for d in draws))
     ps = st.propose_scale
     if out_w % ps or out_h % ps:
         raise ValueError(f"propose_scale={ps} must divide the scene size "

@@ -18,8 +18,9 @@ logged), ``device`` (host decode, augment on the card:
 into device memory: ``data/device_bank.py``) and ``device_synth`` (the
 multi-object corpus in device memory, scenes synthesized on the card:
 ``data/device_synth.py``).  The ``device`` and ``device_bank`` backends
-decode with the native decoder when it builds, as JAX's do.  Left out: the
-``mesh`` option.
+decode with the native decoder when it builds, as JAX's do.  JAX's ``mesh``
+option is ``group`` here: a data-parallel rank's rows of the bank backends'
+global batches.
 
 Rebuild of ``listDataset`` + torch ``DataLoader`` (reference:
 ``dataset.py:14-141``, ``train.py:56-65``):
@@ -316,6 +317,18 @@ class Loader:
     ``device_synth``'s placement proposals per companion (None: the
     synthesizer's ``max_attempts``) and its overlap test's resolution
     divisor (``DeviceSynthStatic.from_config``).
+
+    ``group`` (a ``parallel.sharding.DPGroup``; the bank backends only):
+    JAX's ``mesh=``.  Every rank builds the whole bank on its device, in
+    the constructor (the bank's preflight is a collective over the grid,
+    ``utils/memory.check_hbm_budget``), and draws the whole global batch's
+    host stream (``device_bank``: the background picks, then
+    ``draw_params``; ``device_synth``: the generator's seed and its
+    draws), so the ranks' streams stay in lockstep; each then computes
+    only its data rows of the batch (``parallel.sharding.batch_rows``;
+    model peers the same rows), those rows of the one-process batch bit
+    for bit.  ``batch_size`` and
+    ``seen`` are global, so the multi-scale widths agree across ranks.
     """
 
     def __init__(self, dataset: PoseDataset, batch_size: int, *,
@@ -326,7 +339,7 @@ class Loader:
                  drop_last: bool = True, backend: str = "auto",
                  out_uint8: bool = False, out_yuv420: bool = False,
                  device="cuda", synth_attempts: Optional[int] = None,
-                 synth_propose_scale: int = 4):
+                 synth_propose_scale: int = 4, group=None):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -365,7 +378,14 @@ class Loader:
                 print(f"Loader backend auto: {backend} ({why})", flush=True)
         if backend not in _BACKENDS:
             raise ValueError(f"unknown loader backend {backend!r}")
+        if group is not None and backend not in ("device_bank",
+                                                 "device_synth"):
+            raise ValueError(
+                f"group= splits the bank backends' batches; the {backend} "
+                "loader under data parallelism reads its rank's shard of the "
+                "dataset instead (drivers._local_shard)")
         self.backend = backend
+        self.group = group
         if backend not in ("python", "native"):
             if backend == "device_synth":
                 if getattr(dataset.synthesizer, "cfg", None) is None:
@@ -399,6 +419,12 @@ class Loader:
         # backend runs its own threads: no host workers
         self.pool = ThreadPoolExecutor(max_workers=num_workers) \
             if num_workers > 0 and backend in ("python", "device") else None
+        if group is not None:
+            # the bank's memory preflight is a collective over the grid: it
+            # runs here, on the thread that makes the run's collectives and
+            # at the point every rank makes its loader, not on a prefetch
+            # thread at the first batch
+            self._build_bank()
 
     @property
     def nbatches(self) -> int:
@@ -458,6 +484,13 @@ class Loader:
             self.seen += len(idxs)
             yield imgs, labels
 
+    def _rows(self, B: int) -> Optional[slice]:
+        """This rank's rows of a global batch of ``B`` under ``group``."""
+        if self.group is None:
+            return None
+        from ..parallel.sharding import batch_rows
+        return batch_rows(B, self.group)
+
     def _bg_rows(self, B: int) -> np.ndarray:
         """One background draw per sample over the full list (the device
         backends' rng stream: these draws, then ``draw_params``)."""
@@ -471,31 +504,47 @@ class Loader:
                            hue=aug.hue, saturation=aug.saturation,
                            exposure=aug.exposure)
 
-    def _device_synth_batch(self, idxs, shape):
-        """One multi-object batch synthesized on the device.
-
-        The first call decodes the whole LINEMOD corpus into a
-        device-resident ``DeviceSceneBank`` (``data/device_synth.py``) and
-        logs its size and build time; afterwards each batch is device work
-        on (bank, indices, draws), the draws from a ``torch.Generator`` on
-        the device seeded from the loader's host stream.  Yields device
-        tensors (images f32 in [0, 1], labels f32)."""
-        from . import device_synth as DS
-        from .device_augment import upload
-
-        if self._synth_bank is None:
+    def _build_bank(self) -> None:
+        """Decode the corpus into the backend's device-resident bank, once
+        (``device_bank``: a ``DeviceFrameBank``, ``data/device_bank.py``;
+        ``device_synth``: a ``DeviceSceneBank``, ``data/device_synth.py``),
+        after the memory preflight, and log its size and build time."""
+        if self.backend == "device_bank" and self._frame_bank is None:
+            from .device_bank import build_frame_bank
+            t0 = time.time()
+            bank = build_frame_bank(self.ds, decode=self._decode)
+            self._frame_bank = bank.device_put(self.device, self.group)
+            print(f"device_bank: {bank.images.shape[0]} frames, "
+                  f"{bank.nbytes() / 1e6:.0f} MB on {self.device} "
+                  f"({time.time() - t0:.1f}s to build)", flush=True)
+        elif self.backend == "device_synth" and self._synth_bank is None:
+            from . import device_synth as DS
             scfg = self.ds.synthesizer.cfg
             t0 = time.time()
             bank = DS.build_scene_bank(scfg, self.ds.lines,
                                        self.ds.bg_file_names)
             self._synth_binary = DS.binary_masks(bank)
-            self._synth_bank = bank.device_put(self.device)
+            self._synth_bank = bank.device_put(self.device, self.group)
             self._synth_static = DS.DeviceSynthStatic.from_config(
                 scfg, attempts=self._synth_attempts,
                 propose_scale=self._synth_propose_scale)
             print(f"device_synth bank: {bank.images.shape[0]} frames, "
                   f"{bank.nbytes() / 1e6:.0f} MB on {self.device} "
                   f"({time.time() - t0:.1f}s to build)", flush=True)
+
+    def _device_synth_batch(self, idxs, shape):
+        """One multi-object batch synthesized on the device.
+
+        The first call (under ``group``, the constructor) decodes the whole
+        LINEMOD corpus into a device-resident ``DeviceSceneBank``
+        (:meth:`_build_bank`); afterwards each batch is device work
+        on (bank, indices, draws), the draws from a ``torch.Generator`` on
+        the device seeded from the loader's host stream.  Yields device
+        tensors (images f32 in [0, 1], labels f32)."""
+        from . import device_synth as DS
+        from .device_augment import upload
+
+        self._build_bank()
         bank, st = self._synth_bank, self._synth_static
         w, h = shape
         ih, iw = bank.frame_shape
@@ -506,29 +555,24 @@ class Loader:
                               bank.base_class[base_idx].long(), st, iw, ih)
         imgs, labels = DS.synthesize_batch(bank, base_idx, draws, out_w=w,
                                            out_h=h, st=st,
-                                           binary=self._synth_binary)
+                                           binary=self._synth_binary,
+                                           rows=self._rows(len(idxs)))
         self.seen += len(idxs)
         return imgs, labels
 
     def _device_bank_batch(self, idxs, shape):
         """One single-object train batch from the device frame bank.
 
-        The first call decodes the corpus into a device-resident
-        ``DeviceFrameBank`` (``data/device_bank.py``) and logs its size;
-        afterwards each batch is device work on (bank, indices, host-drawn
-        params).  The rng stream matches the ``device`` backend draw for
-        draw (bg picks then ``draw_params``), so given equal seeds the two
-        backends yield bit-identical images.  Yields device tensors (images
-        u8, labels f32)."""
-        from .device_bank import augment_bank_batch, build_frame_bank
+        The first call (under ``group``, the constructor) decodes the
+        corpus into a device-resident ``DeviceFrameBank``
+        (:meth:`_build_bank`); afterwards each batch is device work on
+        (bank, indices, host-drawn params).  The rng stream matches the
+        ``device`` backend draw for draw (bg picks then ``draw_params``),
+        so given equal seeds the two backends yield bit-identical images.
+        Yields device tensors (images u8, labels f32)."""
+        from .device_bank import augment_bank_batch
 
-        if self._frame_bank is None:
-            t0 = time.time()
-            bank = build_frame_bank(self.ds, decode=self._decode)
-            self._frame_bank = bank.device_put(self.device)
-            print(f"device_bank: {bank.images.shape[0]} frames, "
-                  f"{bank.nbytes() / 1e6:.0f} MB on {self.device} "
-                  f"({time.time() - t0:.1f}s to build)", flush=True)
+        self._build_bank()
         bank = self._frame_bank
         w, h = shape
         B = len(idxs)
@@ -541,7 +585,7 @@ class Loader:
         params, _ = self._draw(B, iw, ih)
         imgs, labels = augment_bank_batch(
             bank, np.asarray(idxs, np.int64), bg_rows, params, out_w=w,
-            out_h=h, K=self.ds.num_keypoints)
+            out_h=h, K=self.ds.num_keypoints, rows=self._rows(B))
         self.seen += B
         return imgs, labels
 

@@ -69,8 +69,9 @@ from .ops.losses import RegionLossConfig
 from .parallel.multihost import process_local_indices
 from .parallel.sharding import DPGroup, all_gather_rows, pad_rows
 from .serving import make_serving_fn
-from .training import (TrainState, capture_train_step, init_train_state,
-                       make_train_step, schedule_lr, shard_train_state)
+from .training import (TrainState, capture_train_step, gather_model_whole,
+                       init_train_state, make_train_step, schedule_lr,
+                       shard_train_state)
 from .utils.memory import hbm_free_bytes
 from .utils.labels import get_all_files
 from .zoo import _resolve_model
@@ -97,7 +98,7 @@ def _is_writer(group: Optional[DPGroup]) -> bool:
     data-parallel group (the ranks hold the same bytes) — on a data ×
     model grid the rank at data and model coordinate 0 —, or the one
     process."""
-    return group is None or (group.rank == 0 and group.model_rank == 0)
+    return group is None or group.leader
 
 
 def _resolve_device(device) -> torch.device:
@@ -641,12 +642,12 @@ def _resolve_eval_transfer(rc: "TrainRunConfig", need_bytes: int,
     group = rc.group
     if group is None:
         return _resolve_eval_transfer_local(rc, need_bytes, device)
-    # the choice must be the same on every rank (a rank's free memory may
-    # differ): rank 0 decides, everyone follows
+    # the choice must be the same on every rank of the grid (a rank's free
+    # memory may differ): the writer decides, everyone follows
     pick = _resolve_eval_transfer_local(rc, need_bytes, device) \
-        if group.rank == 0 else "rgb"
+        if group.leader else "rgb"
     code = torch.tensor([int(pick == "bank")], device=group.device)
-    dist.broadcast(code, group.src(), group=group.pg)
+    dist.broadcast(code, group.leader_rank, group=group.grid_pg)
     return "bank" if int(code.item()) else "rgb"
 
 
@@ -675,8 +676,11 @@ def _init_state(spec: DarknetSpec, initweightfile: Optional[str],
     but the last two blocks, ``seen`` reset to 0 as the reference does) or a
     generator seeded with ``rc.seed``; with ``rc.resume`` and a checkpoint
     in ``rc.checkpoint_dir``, from that checkpoint.  Under ``rc.group``
-    every rank restores, and rank 0's state is then broadcast to every rank
-    (``shard_train_state``).  Returns (state, checkpointer or None)."""
+    every rank restores the whole state, and rank 0's is then broadcast to
+    every rank (``shard_train_state``), which on a data × model grid then
+    keeps this rank's slices, as JAX restores a state and then places it
+    on its mesh (``singleshotpose_tpu/drivers.py:745-774``).  Returns
+    (state, checkpointer or None)."""
     net = spec.net
     gen = torch.Generator().manual_seed(rc.seed)
     if initweightfile:
@@ -703,51 +707,73 @@ def _train_device(rc: TrainRunConfig) -> torch.device:
     return _resolve_device(rc.device if rc.group is None else rc.group.device)
 
 
+_BANK_BACKENDS = ("device_bank", "device_synth")
+
+
 def _local_shard(ds: PoseDataset, batch_size: int, seen: int,
-                 group: Optional[DPGroup]) -> Tuple[int, int]:
+                 group: Optional[DPGroup],
+                 backend: str = "python") -> Tuple[int, int]:
     """Data parallel (JAX's ``_multihost_local_shard``,
     ``singleshotpose_tpu/drivers.py:870-888``): restrict ``ds`` to this
     rank's shard of the dataset and divide the cfg's (global) batch over
     the ranks.  Every rank keeps the run's loader seed, so the shuffles and
     the multi-scale widths stay in lockstep; ``seen`` is global, but the
     loader's multi-scale clock counts local samples, so the local seen is
-    returned.  Returns (the loader's batch, its seen)."""
+    returned.  The bank backends keep the whole dataset, the global batch
+    and ``seen``, as JAX's one-process mesh does (a no-op there): each
+    rank's ``Loader(group=)`` draws the global batch and computes its rows.
+    Returns (the loader's batch, its seen)."""
     if group is None:
         return batch_size, seen
     if batch_size % group.world:
         raise ValueError(f"[net] batch={batch_size} must be divisible by the "
                          f"{group.world} data-parallel ranks")
+    if backend in _BANK_BACKENDS:
+        return batch_size, seen
     idx = process_local_indices(len(ds), process_id=group.rank,
                                 num_processes=group.world)
     ds.lines = [ds.lines[i] for i in idx]
     return batch_size // group.world, seen // group.world
 
 
-def _check_dp_options(rc: TrainRunConfig, backend: str) -> None:
-    """What a data-parallel run cannot take: a bank of the train data on the
-    device (``device_bank``, ``device_synth``: one process's loaders, as in
-    JAX, ``singleshotpose_tpu/drivers.py:793-797``, ``:1123-1126``) over more
-    than one rank, and captured steps over a gloo group (gloo's collectives
-    run on the host: a CUDA graph cannot record them; an NCCL group's step
-    is captured)."""
+def _check_dp_options(rc: TrainRunConfig) -> None:
+    """What a data-parallel run cannot take: captured steps on a data ×
+    model grid (its channel gathers are not recorded yet) and over a gloo
+    group (gloo's collectives run on the host: a CUDA graph cannot record
+    them; an NCCL group's step is captured)."""
     if rc.group is None:
         return
-    if rc.group.mp > 1:
+    if rc.precompile_buckets and rc.group.mp > 1:
         raise ValueError(
-            f"the trainers do not run on a dp×mp grid (mp={rc.group.mp}) "
-            "yet: its checkpoints and in-training eval of a split state "
-            "are not ported (ROADMAP.md §1 item 3); make_train_step runs "
-            "the grid's step")
-    if rc.group.world > 1 and backend in ("device_bank", "device_synth"):
-        raise ValueError(f"loader_backend={backend!r} is single-process; "
-                         "data parallel over several ranks takes the host "
-                         "loader")
+            f"precompile_buckets: a train step on a dp×mp grid (mp="
+            f"{rc.group.mp}) is not captured yet: its channel gathers and "
+            "copies are not recorded in a CUDA graph (ROADMAP.md §1 item 3, "
+            "its last point); train eagerly")
     if rc.precompile_buckets and rc.group.backend != "nccl":
         raise ValueError(
             f"precompile_buckets: a data-parallel step over a "
             f"{rc.group.backend} group cannot be captured (its collectives "
             "run on the host, outside any CUDA graph); train eagerly, or "
             "over NCCL")
+
+
+def _bank_group(rc: TrainRunConfig, backend: str) -> Optional[DPGroup]:
+    """The group a bank backend's loader splits its batches over (None for
+    a host loader, which reads its rank's dataset shard instead)."""
+    return rc.group if backend in _BANK_BACKENDS else None
+
+
+def _rank_rows(batch_size: int, group: Optional[DPGroup]) -> int:
+    """A step's rows on this rank: the global batch over the data ranks."""
+    return batch_size if group is None else batch_size // group.world
+
+
+def _whole_weights(state: TrainState, group: Optional[DPGroup]):
+    """The model's state dict whole, for ``model.weights``: on a grid
+    gathered over the model group (every rank of it must call this)."""
+    model = state.model
+    return (model if group is None
+            else gather_model_whole(group, model)).state_dict()
 
 
 def _train_epochs(epochs, train_one, evaluate, state: TrainState, processed,
@@ -764,12 +790,15 @@ def _train_epochs(epochs, train_one, evaluate, state: TrainState, processed,
             evaluate(epoch)
     except BaseException:
         # keep what was trained: a full-state save at the current batch
-        # before the error goes on (data parallel: rank 0's, with no
-        # barrier — the other ranks may be gone or waiting in a collective)
-        if ckpt is not None and _is_writer(rc.group):
-            _log("checkpoint on failure")
+        # before the error goes on, with no barrier — the other ranks may
+        # be gone or waiting in a collective (data parallel: the writer's;
+        # on a grid gathered over a group of its own, bounded by the
+        # collective timeout: Checkpointer.save_on_failure)
+        if ckpt is not None:
+            if _is_writer(rc.group):
+                _log("checkpoint on failure")
             try:
-                ckpt.save(processed[0], state, barrier=False)
+                ckpt.save_on_failure(processed[0], state)
             except Exception as e:      # the original error matters more
                 _log(f"checkpoint on failure failed: {e!r}")
         raise
@@ -789,22 +818,33 @@ def run_training(datacfg: str, modelcfg: Union[str, DarknetSpec],
     checkpoint in ``checkpoint_dir``, from that checkpoint.  Runs on
     ``run_cfg.device``, used as given (a CUDA device that is absent raises).
 
-    Data parallel (``run_cfg.group``, JAX's multi-host recipe: a torch rank
-    is a process): the cfg's batch is the global batch and must divide by
-    the world size; each rank trains on its ``process_local_indices`` shard
-    of the dataset with the local batch and the run's loader seed; the step
-    sums the gradients and synchronises BN over the group; the lr, the
-    weight decay and ``seen`` stay global; ``model.weights``, ``costs.npz``
-    and the checkpoints are rank 0's; ``eval_transfer="auto"`` is rank 0's
-    choice; ``precompile_buckets`` captures the step of an NCCL group,
-    collectives and all, per rank.  ``device_bank`` over several ranks and
-    ``precompile_buckets`` over gloo raise.
+    Data parallel (``run_cfg.group``, JAX's ``mesh``; a torch rank is a
+    process): the cfg's batch is the global batch and must divide by the
+    data ranks; with a host loader each rank trains on its
+    ``process_local_indices`` shard of the dataset with the local batch and
+    the run's loader seed (JAX's multi-host recipe), with ``device_bank``
+    every rank holds the whole bank and computes its rows of the global
+    batch (``Loader(group=)``, JAX's one-process mesh); the step sums the
+    gradients and synchronises BN over the group; the lr, the weight decay
+    and ``seen`` stay global; ``model.weights``, ``costs.npz`` and the
+    checkpoints are the writer's (data and model coordinate 0);
+    ``eval_transfer="auto"`` is the writer's choice; ``precompile_buckets``
+    captures the step of an NCCL group, collectives and all, per rank.
+
+    A data × model grid (``make_dp_group(dp, mp)``, JAX's ``make_mesh(dp,
+    mp)``): the state starts whole — restored whole from a checkpoint too
+    — and is split (``training.shard_train_state``); the step and the
+    in-training eval run on the split model; checkpoints and
+    ``model.weights`` are written from the state gathered whole
+    (``Checkpointer``, ``training.gather_model_whole``), in the
+    one-process formats.  ``precompile_buckets`` on a grid and over gloo
+    raise.
 
     Returns {"state": the final TrainState, "best_acc": float,
     "history": dict of the training and testing curves}.
     """
     rc = run_cfg or TrainRunConfig()
-    _check_dp_options(rc, rc.loader_backend)
+    _check_dp_options(rc)
     device = _train_device(rc)
     dcfg = data_config_from_options(read_data_cfg(datacfg))
     spec = _resolve_model(modelcfg)
@@ -834,14 +874,15 @@ def run_training(datacfg: str, modelcfg: Union[str, DarknetSpec],
                      num_keypoints=spec.num_keypoints,
                      cache_decoded=rc.cache_decoded)
     loader_batch, loader_seen = _local_shard(ds, batch_size, state.seen,
-                                             rc.group)
+                                             rc.group, rc.loader_backend)
     loader = Loader(ds, loader_batch, schedule=SINGLE_SCHEDULE,
                     seen=loader_seen, num_workers=rc.num_workers,
                     seed=rc.seed, backend=rc.loader_backend, out_uint8=True,
-                    device=device)
+                    device=device, group=_bank_group(rc, rc.loader_backend))
     if rc.precompile_buckets:
         step = _precompile_buckets(step, state, SINGLE_SCHEDULE.all_widths,
-                                   loader_batch, spec.num_keypoints)
+                                   _rank_rows(batch_size, rc.group),
+                                   spec.num_keypoints)
 
     history: Dict[str, List] = {"training_iters": [], "training_losses": [],
                                 "testing_iters": [], "testing_accuracies": [],
@@ -897,8 +938,9 @@ def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
     or ``device_synth`` (f32 scenes synthesized on ``run_cfg.device``, with
     ``synth_attempts``/``synth_propose_scale``; ``precompile_buckets``
     captures f32 graphs); the single-object backends raise.  Data parallel
-    (``run_cfg.group``) as :func:`run_training` runs it; ``device_synth``
-    over several ranks raises.
+    and the data × model grid (``run_cfg.group``) as :func:`run_training`
+    runs them; ``device_synth`` as ``device_bank`` there: every rank holds
+    the scene bank and synthesizes its rows of the global batch.
     """
     rc = run_cfg or TrainRunConfig(eval_every=20, eval_after=-1)
     backend = rc.loader_backend
@@ -910,7 +952,7 @@ def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
             "data/device_synth.py)")
     if backend == "auto":
         backend = "python"
-    _check_dp_options(rc, backend)
+    _check_dp_options(rc)
     device = _train_device(rc)
     dcfg = data_config_from_options(read_data_cfg(datacfg))
     spec = _resolve_model(modelcfg)
@@ -951,16 +993,17 @@ def run_training_multi(datacfg: str, modelcfg: Union[str, DarknetSpec],
     # device_synth yields f32 scenes on the device, the host synthesizer u8
     on_device = backend == "device_synth"
     loader_batch, loader_seen = _local_shard(ds, batch_size, state.seen,
-                                             rc.group)
+                                             rc.group, backend)
     loader = Loader(ds, loader_batch, schedule=MULTI_SCHEDULE,
                     seen=loader_seen, num_workers=rc.num_workers, seed=rc.seed,
                     backend=backend, out_uint8=not on_device, device=device,
                     synth_attempts=rc.synth_attempts,
-                    synth_propose_scale=rc.synth_propose_scale)
+                    synth_propose_scale=rc.synth_propose_scale,
+                    group=_bank_group(rc, backend))
     if rc.precompile_buckets:
         step = _precompile_buckets(
-            step, state, MULTI_SCHEDULE.all_widths, loader_batch,
-            spec.num_keypoints,
+            step, state, MULTI_SCHEDULE.all_widths,
+            _rank_rows(batch_size, rc.group), spec.num_keypoints,
             image_dtype=torch.float32 if on_device else torch.uint8)
 
     history: Dict[str, List] = {"training_iters": [], "training_losses": [],
@@ -1022,8 +1065,10 @@ def _multi_eval_and_keep_best(eval_datacfgs, spec, state, rc, device,
         return best_acc
     path = os.path.join(backupdir, "model.weights")
     _log(f"[multi] best model so far! save weights to {path}")
+    # every rank gathers (a collective), the writer writes
+    weights = _whole_weights(state, rc.group)
     if writer:
-        W.save_weights(spec, state.model.state_dict(), path, seen=state.seen)
+        W.save_weights(spec, weights, path, seen=state.seen)
     return mean_acc
 
 
@@ -1160,8 +1205,10 @@ def _eval_and_keep_best(datacfg, spec, state, rc, device, backupdir, history,
         return best_acc
     path = os.path.join(backupdir, "model.weights")
     _log(f"best model so far! save weights to {path}")
+    # every rank gathers (a collective), the writer writes
+    weights = _whole_weights(state, rc.group)
     if writer:
-        W.save_weights(spec, state.model.state_dict(), path, seen=state.seen)
+        W.save_weights(spec, weights, path, seen=state.seen)
     return acc
 
 
@@ -1187,10 +1234,14 @@ def _save_final_if_unsaved(spec: DarknetSpec, state: TrainState,
     """A run that never reached the eval cadence would end with no
     ``model.weights`` (the best-model rule only writes on a new best eval):
     write the final weights once, untouched when a best save happened.
-    Data parallel: rank 0 writes."""
-    if best_acc != -float("inf") or not backupdir or not _is_writer(group):
+    Data parallel: the writer writes; on a grid every rank gathers first
+    (the same decision on every rank: the ranks' evals agree)."""
+    if best_acc != -float("inf") or not backupdir:
+        return
+    weights = _whole_weights(state, group)
+    if not _is_writer(group):
         return
     os.makedirs(backupdir, exist_ok=True)
     path = os.path.join(backupdir, "model.weights")
     _log(f"no eval ran; saving final weights to {path}")
-    W.save_weights(spec, state.model.state_dict(), path, seen=int(seen))
+    W.save_weights(spec, weights, path, seen=int(seen))

@@ -41,6 +41,7 @@ bitwise deterministic.
 
 from __future__ import annotations
 
+import datetime
 import socket
 from typing import Dict, Iterable, List, Optional, Sequence
 
@@ -49,7 +50,8 @@ import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
-__all__ = ["DPGroup", "make_dp_group", "shard_host_batch", "broadcast_",
+__all__ = ["DPGroup", "make_dp_group", "batch_rows", "shard_host_batch",
+           "broadcast_", "collective_timeout",
            "all_reduce_sum_", "all_reduce_grads",
            "sync_sum", "all_gather_rows", "pad_rows", "free_port",
            "shards_channels", "channel_rows", "copy_to_model",
@@ -69,11 +71,16 @@ class DPGroup:
     data × model grid the group of the ranks that share this rank's data
     coordinate (the channel gathers), ``mp`` its size and ``model_rank``
     this rank's model coordinate; without one ``mp`` is 1, ``model_rank``
-    0 and ``model_pg`` None."""
+    0 and ``model_pg`` None.  :attr:`grid_pg` spans every rank of both
+    axes.  ``rescue_pg``: at data coordinate 0 of a grid, a gloo group of
+    the model group's ranks that no step uses (the failure save gathers
+    over it, ``Checkpointer.save_on_failure``), else None."""
 
     def __init__(self, device, pg: Optional[dist.ProcessGroup] = None, *,
-                 model_pg: Optional[dist.ProcessGroup] = None):
+                 model_pg: Optional[dist.ProcessGroup] = None,
+                 rescue_pg: Optional[dist.ProcessGroup] = None):
         self.pg = pg
+        self.rescue_pg = rescue_pg
         self.rank = dist.get_rank(pg)
         self.world = dist.get_world_size(pg)
         self.model_pg = model_pg
@@ -89,17 +96,50 @@ class DPGroup:
         and ``broadcast``), NCCL device ones."""
         return torch.device("cpu") if self.backend == "gloo" else self.device
 
+    @property
+    def leader(self) -> bool:
+        """Whether this is the rank at data and model coordinate 0: the one
+        that writes a run's files."""
+        return self.rank == 0 and self.model_rank == 0
+
+    @property
+    def grid_pg(self) -> Optional[dist.ProcessGroup]:
+        """The group of every rank of both axes: the data group without a
+        model axis, else the default process group (a grid covers it,
+        :func:`make_dp_group`)."""
+        return self.pg if self.model_pg is None else None
+
+    @property
+    def leader_rank(self) -> int:
+        """The global rank of the :attr:`leader`: :attr:`grid_pg`'s rank
+        0 (the source of the decisions the leader makes for the grid)."""
+        pg = self.grid_pg
+        return 0 if pg is None else dist.get_global_rank(pg, 0)
+
     def src(self) -> int:
         """The global rank of this group's rank 0 (the broadcast source)."""
         return 0 if self.pg is None else dist.get_global_rank(self.pg, 0)
 
     def barrier(self) -> None:
-        """Every rank waits here for the others (an all-reduce of one value
-        on the group's device, read back, so a CUDA rank waits for its
-        stream too)."""
+        """Every rank of the grid waits here for the others (an all-reduce
+        of one value over :attr:`grid_pg` on the group's device, read back,
+        so a CUDA rank waits for its stream too)."""
         t = torch.zeros(1, device=self.device)
-        dist.all_reduce(t, group=self.pg)
+        dist.all_reduce(t, group=self.grid_pg)
         t.item()
+
+
+def collective_timeout() -> Optional[datetime.timedelta]:
+    """How long a collective of the default process group waits for the
+    other ranks before it raises (``initialize_distributed``'s
+    ``timeout``), or None where its backend does not say."""
+    pg = dist.distributed_c10d._get_default_group()
+    for dev in ("cpu", "cuda"):
+        try:
+            return pg._get_backend(torch.device(dev)).options._timeout
+        except (AttributeError, RuntimeError):
+            continue
+    return None
 
 
 def free_port() -> int:
@@ -126,7 +166,9 @@ def make_dp_group(dp: int, mp: int = 1, *, device) -> DPGroup:
 
     On a grid every rank makes every data group (the ranks of one model
     coordinate) and then every model group (the ranks of one data
-    coordinate), in that order, as ``dist.new_group`` requires."""
+    coordinate), in that order, as ``dist.new_group`` requires, and then
+    the gloo rescue group of data coordinate 0 (``DPGroup.rescue_pg``);
+    each waits as long as the default group (:func:`collective_timeout`)."""
     if dp < 1 or mp < 1:
         raise ValueError(f"dp={dp}, mp={mp}: each is at least 1")
     device = torch.device(device)
@@ -150,14 +192,20 @@ def make_dp_group(dp: int, mp: int = 1, *, device) -> DPGroup:
     if mp == 1:
         return DPGroup(device)
     rank = dist.get_rank()
-    data = [dist.new_group([d * mp + m for d in range(dp)])
+    timeout = collective_timeout()
+    data = [dist.new_group([d * mp + m for d in range(dp)], timeout=timeout)
             for m in range(mp)]
-    model = [dist.new_group([d * mp + m for m in range(mp)])
+    model = [dist.new_group([d * mp + m for m in range(mp)], timeout=timeout)
              for d in range(dp)]
-    return DPGroup(device, data[rank % mp], model_pg=model[rank // mp])
+    rescue = dist.new_group(list(range(mp)), backend="gloo", timeout=timeout)
+    return DPGroup(device, data[rank % mp], model_pg=model[rank // mp],
+                   rescue_pg=rescue if rank < mp else None)
 
 
-def _rows(n: int, group: DPGroup) -> slice:
+def batch_rows(n: int, group: DPGroup) -> slice:
+    """This rank's contiguous rows of a global batch of ``n``: the data
+    coordinate's ``n / dp`` (JAX's ``batch_sharding`` over ``data``; model
+    peers take the same rows).  The batch must split evenly."""
     if n % group.world:
         raise ValueError(f"a batch of {n} does not split over "
                          f"{group.world} ranks")
@@ -169,7 +217,7 @@ def shard_host_batch(group: DPGroup, images, target):
     """This rank's contiguous rows of a global batch (numpy arrays or
     tensors), the rows JAX's ``shard_host_batch`` places on this rank's
     device.  The batch must split evenly."""
-    rows = _rows(len(images), group)
+    rows = batch_rows(len(images), group)
     return images[rows], target[rows]
 
 

@@ -40,7 +40,8 @@ from .parallel.sharding import (DPGroup, all_reduce_grads, all_reduce_sum_,
                                 broadcast_, broadcast_model_, gather_model)
 
 __all__ = ["TrainState", "init_train_state", "no_decay_mask_for",
-           "shard_train_state", "gather_train_state", "schedule_lr",
+           "shard_train_state", "gather_train_state", "gather_model_whole",
+           "schedule_lr",
            "sgd_update", "make_train_step", "make_eval_forward",
            "CapturedTrainStep", "capture_train_step"]
 
@@ -170,25 +171,40 @@ def _split(model: Darknet, key: str) -> bool:
     return isinstance(block, ConvBlock) and block.model_shards > 1
 
 
+def _whole(model: Darknet, group: DPGroup, key: str,
+           t: torch.Tensor) -> torch.Tensor:
+    """The state-dict entry ``key`` of a split ``model`` whole: gathered
+    over the model group where its conv is split, else a copy."""
+    return gather_model(t, group) if _split(model, key) else t.clone()
+
+
+@torch.no_grad()
+def gather_model_whole(group: DPGroup, model: Darknet) -> Darknet:
+    """A model split over ``group``'s model axis, whole: a new model on the
+    same device whose split tensors are the model group's slices
+    concatenated in model-rank order (bit for bit) — what ``model.weights``
+    is written from.  Every rank of the model group must call it.  A whole
+    model is returned as it is."""
+    if model.model_shards == 1:
+        return model
+    full = Darknet(model.spec, device=next(model.parameters()).device)
+    full.load_state_dict({k: _whole(model, group, k, v)
+                          for k, v in model.state_dict().items()})
+    return full
+
+
 @torch.no_grad()
 def gather_train_state(group: DPGroup, state: TrainState) -> TrainState:
     """The whole train state of a state split over ``group``'s model axis,
-    the same on every rank: a new model on the same device whose split
-    tensors are the model group's slices concatenated in model-rank order
-    (bit for bit), an SGD optimizer with the same parameter groups and
-    hyperparameters whose momentum buffers are gathered likewise, and
-    ``seen``.  Every rank of the model group must call it.  A whole state
-    is returned as it is."""
+    the same on every rank: the model whole (:func:`gather_model_whole`),
+    an SGD optimizer with the same parameter groups and hyperparameters
+    whose momentum buffers are gathered likewise, and ``seen``.  Every rank
+    of the model group must call it.  A whole state is returned as it
+    is."""
     model = state.model
     if model.model_shards == 1:
         return state
-
-    def whole(key: str, t: torch.Tensor) -> torch.Tensor:
-        return gather_model(t, group) if _split(model, key) else t.clone()
-
-    full = Darknet(model.spec, device=next(model.parameters()).device)
-    full.load_state_dict({k: whole(k, v)
-                          for k, v in model.state_dict().items()})
+    full = gather_model_whole(group, model)
     names = {p: n for n, p in model.named_parameters()}
     params = dict(full.named_parameters())
     opt = torch.optim.SGD([
@@ -198,7 +214,8 @@ def gather_train_state(group: DPGroup, state: TrainState) -> TrainState:
     for name, p in model.named_parameters():
         buf = state.optimizer.state[p].get("momentum_buffer")
         if buf is not None:
-            opt.state[params[name]]["momentum_buffer"] = whole(name, buf)
+            opt.state[params[name]]["momentum_buffer"] = \
+                _whole(model, group, name, buf)
     return TrainState(full, opt, state.seen)
 
 

@@ -44,6 +44,8 @@ import jax
 import jax.numpy as jnp
 
 from singleshotpose_tpu.config import parse_cfg as jparse_cfg
+from singleshotpose_tpu.data import device_synth as JDS
+from singleshotpose_tpu.data.synth_multi import SynthConfig as JSynthConfig
 from singleshotpose_tpu.models.darknet import DarknetSpec as JSpec
 from singleshotpose_tpu.ops import stem as jstem
 from singleshotpose_tpu.ops.losses import RegionLossConfig as JLossConfig
@@ -59,6 +61,8 @@ from singleshotpose_tpu_torch import drivers as TDr
 from singleshotpose_tpu_torch import weights as TW
 from singleshotpose_tpu_torch.checkpoint import Checkpointer
 from singleshotpose_tpu_torch.cli import main as tcli
+from singleshotpose_tpu_torch.data import device_synth as TDS
+from singleshotpose_tpu_torch.data import pipeline as TP
 from singleshotpose_tpu_torch.models import darknet as TD
 from singleshotpose_tpu_torch.models import layers as TL
 from singleshotpose_tpu_torch.ops import stem as tstem
@@ -69,13 +73,18 @@ from singleshotpose_tpu_torch.parallel import multihost as TMH
 from singleshotpose_tpu_torch.parallel import sharding as TS
 from singleshotpose_tpu_torch.training import (init_train_state,
                                                make_train_step)
+from singleshotpose_tpu_torch.utils import memory as TM
 from singleshotpose_tpu_torch.zoo import occlusion_datacfg
 from singleshotpose_tpu_torch.zoo import yolo_pose_single as tyolo_single
 
 import torch_port_helpers  # noqa: F401  (caps torch's threads)
 from test_drivers import TINY_CFG as DRIVER_CFG, _make_synthetic_linemod
 from test_stem import _inputs as stem_inputs, _tiny_spec as stem_spec
+from test_torch_device_synth import _jax_draws
 from test_training import TINY_CFG as STEP_CFG, _tiny_target
+from torch_bank_helpers import (bank_references, check_bank_rows,
+                                check_synth_rows, synth_reference,
+                                write_backgrounds, write_occlusion_tree)
 from torch_port_helpers import TINY_MULTI_CFG, rel_err
 from linemod_fixture import make_linemod_fixture
 
@@ -182,6 +191,8 @@ def setup(tmp_path_factory):
     corpus.mkdir()
     _make_synthetic_linemod(corpus, n=8)
     (corpus / "tiny.cfg").write_text(DRIVER_CFG.replace("batch=2", "batch=4"))
+    write_backgrounds(corpus)
+    write_occlusion_tree(wd)
     return wd, inp, nets
 
 
@@ -191,6 +202,13 @@ def ranks(setup):
     wd, _, _ = setup
     assert "WORKER_OK" in _worker("steps", str(wd))
     return [dict(np.load(wd / f"rank{r}.npz")) for r in range(WORLD)]
+
+
+@pytest.fixture(scope="module")
+def bank_refs(setup):
+    """The bank backends' one-process batches (``torch_bank_helpers``)."""
+    wd = setup[0]
+    return bank_references(wd), synth_reference(wd)
 
 
 @pytest.fixture
@@ -402,6 +420,101 @@ def test_k2_rows_per_rank(setup, ranks):
                                   want.view(np.uint32))
 
 
+@pytest.mark.parametrize("rank", range(WORLD))
+def test_bank_rows_on_two_ranks(ranks, bank_refs, rank):
+    """Each rank's ``Loader(group=, backend="device_bank")`` rows over 2
+    ranks against JAX's ``Loader(mesh=make_mesh(dp=2))`` rows and the
+    one-process port batch's (``torch_bank_helpers.check_bank_rows``)."""
+    check_bank_rows(ranks[rank], bank_refs[0], rank, 2)
+
+
+@pytest.mark.parametrize("rank", range(WORLD))
+def test_synth_rows_on_two_ranks(ranks, bank_refs, rank):
+    """Each rank's ``Loader(group=, backend="device_synth")`` rows over 2
+    ranks are those rows of the one-process port batch, bit for bit."""
+    check_synth_rows(ranks[rank], bank_refs[1], rank, 2)
+
+
+@pytest.mark.parametrize("rank", range(WORLD))
+@pytest.mark.parametrize("backend", ["bank", "synth"])
+def test_loader_builds_its_bank_when_made_on_two_ranks(ranks, backend,
+                                                       rank):
+    """Under a group a bank loader's constructor builds the bank and runs
+    its preflight, a collective over the group, once, on the main thread,
+    not on the prefetch thread at the first batch."""
+    assert ranks[rank][f"built_at_init/rows/{backend}"].tolist() == [1, 1]
+
+
+@pytest.mark.parametrize("case,want", [
+    ("one_card", r"a bank on 2 ranks sharing card needs 200 MB device "
+                 r"memory plus 2048 MB activation headroom, but only 1686 MB"),
+    ("own_cards", r"^$")])
+def test_bank_preflight_counts_both_ranks_on_a_card(ranks, case, want):
+    """Two ranks on one card whose free memory holds one and a half banks
+    with their headroom: both raise (each alone would pass); on cards of
+    their own both pass."""
+    for r in ranks:
+        assert re.search(want, str(r[f"preflight/{case}"])), \
+            str(r[f"preflight/{case}"])
+
+
+@pytest.fixture(scope="module")
+def scene_banks(setup):
+    """Both packages' scene banks of the OCCLUSION tree (equal arrays)."""
+    occ = setup[0] / "occ"
+    lines = (occ / "train_occlusion.txt").read_text().split()
+    jbank = JDS.build_scene_bank(
+        JSynthConfig(linemod_root=str(occ / "LINEMOD")), lines,
+        [str(occ / "VOC" / "JPEGImages" / "bg0.jpg")])
+    return jbank, TDS.DeviceSceneBank(*(torch.from_numpy(np.array(a))
+                                        for a in jbank))
+
+
+@pytest.mark.parametrize("rank", range(WORLD))
+def test_synth_row_slice_matches_jax(scene_banks, rank):
+    """``synthesize_batch(..., rows=)`` on a rank's slice of JAX's draws
+    (``_jax_draws``: JAX's own integers from its key) is those rows of
+    JAX's ``synthesize_batch`` of the whole batch, bit for bit, images and
+    labels, on the tree's binary masks."""
+    jbank, tbank = scene_banks
+    assert TDS.binary_masks(tbank)
+    idx = np.array([0, 1, 2, 3, 1, 0, 3, 2], np.int32)
+    kw = dict(jitter=0.1, shift=10, attempts=4, propose_scale=4)
+    jst, tst = JDS.DeviceSynthStatic(**kw), TDS.DeviceSynthStatic(**kw)
+    key = jax.random.PRNGKey(21)
+    ji, jl = JDS.synthesize_batch(jbank, idx, key, out_w=64, out_h=64,
+                                  st=jst)
+    rows = slice(4 * rank, 4 * rank + 4)
+    ti, tl = TDS.synthesize_batch(tbank, idx, _jax_draws(jbank, idx, key,
+                                                         jst),
+                                  out_w=64, out_h=64, st=tst, binary=True,
+                                  rows=rows)
+    assert ti.shape[0] == 4
+    assert ti.numpy().tobytes() == np.asarray(ji)[rows].tobytes()
+    assert tl.numpy().tobytes() == np.asarray(jl)[rows].tobytes()
+
+
+@pytest.mark.parametrize("entries,fails", [
+    ([("a", 3000), ("a", 2000)], [("a", 2, 2000)]),     # two ranks, one card
+    ([("a", 3000), ("b", 2500)], []),                    # a card each
+    ([("a", 1000), (None, None)], [("a", 1, 1000)]),     # one rank too big
+    ([(None, None), (None, None)], [])])                 # the CPU: no budget
+def test_shared_budget_charges_every_rank_on_a_card(entries, fails):
+    """Each card is charged ``ranks · (bank + headroom)`` against the least
+    free memory its ranks read (a bank of 1000 and a headroom of 200
+    here)."""
+    assert TM.shared_budget_failures(entries, 1000, 200) == fails
+
+
+def test_group_splits_only_the_bank_backends(setup):
+    """``Loader(group=)`` refuses a host backend: under data parallelism it
+    reads its rank's shard of the dataset instead."""
+    wd = setup[0]
+    ds = TP.PoseDataset(str(wd / "corpus" / "train.txt"), train=True)
+    with pytest.raises(ValueError, match="group= splits the bank backends"):
+        TP.Loader(ds, 4, backend="python", group=object())
+
+
 @pytest.mark.parametrize("tag", ["f32", "bf16"])
 def test_group_of_one_is_the_ungrouped_step(ranks, tag):
     """A step with a group of one rank (``--dp 1``'s) = the step with no
@@ -563,6 +676,27 @@ def cli_runs(tmp_path_factory):
     with open(mcfg, "w") as f:
         f.write(TINY_MULTI_CFG)
 
+    # the bank backends' runs, each with a backup directory of its own
+    bank_data = tmp / "bank.data"
+    bank_data.write_text(re.sub(r"backup = .*", f"backup = {tmp / 'bk_bank'}",
+                                open(datacfg).read()))
+    occ_synth = os.path.join(root, "occlusion_synth.data")
+    with open(occ_synth, "w") as f:
+        f.write(occlusion_datacfg(linemod_root=lm, train_list=train_list,
+                                  backup_root=os.path.join(root, "bk_synth")))
+    banks = {
+        "bank": _start("cli", "train", "--datacfg", str(bank_data),
+                       "--modelcfg", str(cfg), "--initweightfile", "",
+                       "--bg_dir", "/nonexistent", "--loader_backend",
+                       "device_bank", "--max_epochs", "1", "--dp", "2",
+                       "--device", "cpu"),
+        "synth": _start("cli", "train-multi", "--datacfg", occ_synth,
+                        "--modelcfg", mcfg, "--initweightfile", "",
+                        "--linemod_root", lm, "--max_epochs", "1",
+                        "--bg_dir", "/nonexistent", "--loader_backend",
+                        "device_synth", "--synth_attempts", "4", "--dp", "2",
+                        "--device", "cpu")}
+
     # the independent runs side by side: train with multi, then the resume
     # with the eval of train's weights (a copy: the resume rewrites them)
     out = {}
@@ -587,6 +721,8 @@ def cli_runs(tmp_path_factory):
     out["multi_backup"] = os.path.join(root, "bk")
     out["resume"] = _finish(resume)
     out["trained"] = trained
+    for k, proc in banks.items():
+        out[k] = _finish(proc)
     return tmp, datacfg, str(cfg), ckpt, backup, weights, out
 
 
@@ -623,6 +759,22 @@ def test_cli_train_multi_on_two_ranks(cli_runs):
                                                        "model.weights"]
     assert sorted(re.findall(r"\[rank (\d)/2\] \[multi\] best model so far",
                              out["multi"])) == ["0", "1"]
+
+
+@pytest.mark.parametrize("run,bank", [
+    ("bank", r"^device_bank: 16 frames"),
+    ("synth", r"^device_synth bank: \d+ frames")])
+def test_cli_bank_backends_on_two_ranks(cli_runs, run, bank):
+    """``train --dp 2 --loader_backend device_bank`` (2 global batches of
+    8) and ``train-multi --dp 2 --loader_backend device_synth`` (2 of 2)
+    run: each rank builds the whole bank and trains on its rows, the same
+    finite loss logged on both ranks."""
+    out = cli_runs[-1][run]
+    assert len(re.findall(bank, out, re.M)) == 2, out[-3000:]
+    lines = _per_rank(out)
+    assert len(lines[0]) == 1 and lines[0] == lines[1], lines
+    loss = float(re.search(r"loss (\S+)", lines[0][0]).group(1))
+    assert np.isfinite(loss), lines
 
 
 def _summary_lines(out: str):

@@ -23,7 +23,20 @@ replicated beside the split ones (``route``), the fused-stem spec of
 - the bf16 fused-stem step: loss rtol 1e-3, conv_1's and conv_2's weights
   atol 6e-4, conv_1's running mean atol 1e-5 (``tests/test_torch_parallel.py``);
 - ``run_validation`` and ``run_validation_multi`` on the grid against one
-  process: rtol 1e-4, atol 1e-5 (``tests/test_drivers.py:221-250``).
+  process: rtol 1e-4, atol 1e-5 (``tests/test_drivers.py:221-250``);
+- the trainers (``run_training`` on 1×4 with the python loader and on 2×2
+  with ``device_bank``, f32, the drivers' tiny cfg at batch 4: one epoch of
+  2 steps from JAX's initial state) against JAX's ``run_training`` on the
+  same mesh: each step's loss rtol 1e-4, the final state rtol 1e-4, atol
+  1e-6, its momentum to 1e-4 of each tensor's max — the step's bounds, not
+  widened for the second step;
+- bit for bit: the device banks' rows (``Loader(group=)``) against JAX's
+  ``Loader(mesh=)`` rows (``device_bank``) and the one-process port
+  batch's rows (``device_synth``); checkpoints from the grid read in one
+  process and one process's restored on the grid; a grid run failed at a
+  step on every rank and resumed against the unbroken run (the loader's
+  batches made a function of the epoch in the worker, ``_EpochLoader``:
+  the loader, as JAX's, restarts its stream on resume).
 """
 
 import json
@@ -52,6 +65,7 @@ from singleshotpose_tpu.training import make_train_step as jmake_train_step
 
 from singleshotpose_tpu_torch import drivers as TDr
 from singleshotpose_tpu_torch import weights as TW
+from singleshotpose_tpu_torch.checkpoint import Checkpointer
 from singleshotpose_tpu_torch.models import darknet as TD
 from singleshotpose_tpu_torch.ops.losses import RegionLossConfig
 from singleshotpose_tpu_torch.parallel.sharding import shards_channels
@@ -60,10 +74,13 @@ from singleshotpose_tpu_torch.training import (init_train_state,
 from singleshotpose_tpu_torch.zoo import yolo_pose_multi, yolo_pose_single
 
 import torch_port_helpers  # noqa: F401  (caps torch's threads)
-from test_drivers import _make_synthetic_linemod
+from test_drivers import TINY_CFG as DRIVER_CFG, _make_synthetic_linemod
 from test_stem import _tiny_spec as stem_spec
 from test_torch_parallel import _bf16_target
 from test_training import TINY_CFG as STEP_CFG, _tiny_target
+from torch_bank_helpers import (bank_references, check_bank_rows,
+                                check_synth_rows, synth_reference,
+                                write_backgrounds, write_occlusion_tree)
 from torch_port_helpers import (TINY_BLOCKS, TINY_MULTI_BLOCKS,
                                 TINY_MULTI_CFG, _cfg_text)
 
@@ -160,7 +177,48 @@ def setup(tmp_path_factory):
         (obj / "labels_occlusion" / f.name).write_bytes(f.read_bytes())
     (corpus / "tiny.cfg").write_text(_cfg_text(ROUTE_BLOCKS))
     (corpus / "tiny_multi.cfg").write_text(TINY_MULTI_CFG)
+    _trainer_files(wd)
+    write_occlusion_tree(wd)
     return wd, inp, nets
+
+
+# the trainer runs, each with a .data of its own (its own backup directory):
+# the grid's and JAX's
+TRAIN_RUNS = {"python": (1, 4), "bank": (2, 2)}
+RUN_DATA = ("1x4_python", "2x2_bank", "2x2_unbroken", "2x2_fail",
+            "jax_python", "jax_bank")
+
+
+def _trainer_files(wd):
+    """The trainers' inputs: two backgrounds, the drivers' tiny cfg at
+    batch 4 (8 frames: 2 steps an epoch), a .data per run, JAX's initial
+    state (``init_params(PRNGKey(0))``, what JAX's ``run_training`` starts
+    from) as a one-process checkpoint of step 0, and a one-process
+    checkpoint after one step (its momentum nonzero)."""
+    corpus = wd / "corpus"
+    write_backgrounds(corpus)
+    rng = np.random.RandomState(11)
+    (corpus / "trainer.cfg").write_text(DRIVER_CFG.replace("batch=2",
+                                                           "batch=4"))
+    data = (corpus / "synth.data").read_text()
+    for run in RUN_DATA:
+        (corpus / f"{run}.data").write_text(re.sub(
+            r"backup = .*", f"backup = {corpus / ('backup_' + run)}", data))
+    cfg = str(corpus / "trainer.cfg")
+    tspec = TD.DarknetSpec.from_cfg(cfg)
+    params, stats = JSpec(jparse_cfg(cfg)).init_params(jax.random.PRNGKey(0))
+    model = TD.Darknet(tspec)
+    model.load_state_dict(TW.params_from_jax(
+        tspec, jax.tree.map(np.asarray, params),
+        jax.tree.map(np.asarray, stats)))
+    net = tspec.net
+    state = init_train_state(model, weight_decay=net.decay * net.batch,
+                             momentum=net.momentum)
+    Checkpointer(str(wd / "trainer_init")).save(0, state)
+    step = make_train_step(RegionLossConfig(), compute_dtype=None)
+    step(state, torch.from_numpy(rng.rand(4, 64, 64, 3).astype(np.float32)),
+         torch.from_numpy(_tiny_target(4)), LR, EPOCH)
+    Checkpointer(str(wd / "one_process")).save(1, state)
 
 
 def _jax_step(tag, nets, inp, grid):
@@ -214,6 +272,28 @@ def _port_steps(tag, setup):
     return losses, states
 
 
+def _jax_train(wd, run):
+    """JAX's ``run_training`` of the trainer cfg for one epoch on the run's
+    mesh (1×4: the python loader; 2×2: ``device_bank``), evals off: the
+    losses and the final state in the port's form."""
+    dp, mp = TRAIN_RUNS[run]
+    corpus = wd / "corpus"
+    rc = JDr.TrainRunConfig(
+        mesh=make_mesh(jax.devices()[:dp * mp], dp=dp, mp=mp),
+        loader_backend="python" if run == "python" else "device_bank",
+        num_workers=0, log_every=1, bg_dir=str(corpus / "bg"),
+        eval_every=100, eval_after=100, max_epochs_override=1)
+    rc.compute_dtype = None
+    cfg = str(corpus / "trainer.cfg")
+    r = JDr.run_training(str(corpus / f"jax_{run}.data"), cfg, None, 100, rc)
+    tspec = TD.DarknetSpec.from_cfg(cfg)
+    st = r["state"]
+    sd = TW.params_from_jax(tspec, jax.tree.map(np.asarray, st.params),
+                            jax.tree.map(np.asarray, st.batch_stats))
+    mom = TW.params_from_jax(tspec, jax.tree.map(np.asarray, st.momentum))
+    return np.asarray(r["history"]["training_losses"]), sd, mom
+
+
 @pytest.fixture(scope="module")
 def runs(setup):
     """One spawn per grid shape, started together; JAX's mesh steps while
@@ -227,6 +307,10 @@ def runs(setup):
     try:
         jax_refs = {(g, tag): _jax_step(tag, nets, inp, g)
                     for g in JAX_GRIDS for tag in TAGS}
+        jax_refs.update({("train", run): _jax_train(wd, run)
+                         for run in TRAIN_RUNS})
+        jax_refs["bank_rows"] = bank_references(wd)
+        jax_refs["synth"] = synth_reference(wd)
     finally:
         jstem.FORCE_INTERPRET = False
         outs = {}
@@ -459,19 +543,18 @@ def test_mp_1_grid_is_the_dp_step(runs, grid):
 
 
 REFUSALS = {
-    "run_training": r"ValueError: the trainers do not run on a dp×mp grid "
-                    r"\(mp=\d\).*ROADMAP.md §1 item 3",
-    "run_training_multi": r"ValueError: the trainers do not run on a dp×mp "
-                          r"grid.*ROADMAP.md §1 item 3",
+    "precompile_buckets": r"ValueError: precompile_buckets: a train step on "
+                          r"a dp×mp grid \(mp=\d\) is not captured yet.*"
+                          r"ROADMAP.md §1 item 3, its last point",
     "capture": r"ValueError: a train step on a dp×mp grid \(mp=\d\) is not "
                r"captured yet.*ROADMAP.md §1 item 3",
-    "checkpointer": r"ValueError: checkpoints of a state split over a dp×mp "
-                    r"grid.*ROADMAP.md §1 item 3",
     "grid_size": r"ValueError: dp=\d+ × mp=1 = \d+ but the process group "
                  r"has \d ranks",
     "grid_shape": r"ValueError: dp=\d × mp=\d = \d+ but the process group "
                   r"has \d ranks",
     "shard_twice": r"ValueError: shard_train_state takes a whole state",
+    "restore_split": r"ValueError: restore loads a whole state: restore into "
+                     r"a whole model, then split it",
     "no_grid": r"ValueError: the model is split over \d model ranks but "
                r"runs on a group of mp=1",
     "whole_on_grid": r"ValueError: the model is split over 1 model ranks "
@@ -483,9 +566,10 @@ REFUSALS = {
 @pytest.mark.parametrize("grid", GRIDS, ids=_gid)
 def test_refusals_name_their_reason(runs, grid, name):
     """What the grid does not run yet raises with the reason and the
-    ROADMAP item: the trainers, the captured step, checkpoints; and so
-    do a dp·mp that is not the process group's size, a split state split
-    again, a split model run without its grid and a whole one on it."""
+    ROADMAP item: the captured step, by ``capture_train_step`` and by the
+    trainers' ``precompile_buckets``; and so do a dp·mp that is not the
+    process group's size, a split state split again or restored into, a
+    split model run without its grid and a whole one on it."""
     for r in ranks_of(runs, grid):
         msg = str(r[f"refusal/{name}"])
         assert re.match(REFUSALS[name], msg), msg
@@ -527,3 +611,252 @@ def test_run_validation_multi_on_the_grid(runs, grid):
             np.testing.assert_allclose(r[f"eval/multi/grid/{k}"],
                                        r[f"eval/multi/alone/{k}"],
                                        rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the trainers and their checkpoints on the grid
+# ---------------------------------------------------------------------------
+
+
+def _final(r, run):
+    """A rank's gathered final state of a trainer run: (state dict,
+    momentum by parameter name, seen)."""
+    pre = f"trainer/{run}/final/"
+    sd = {k[len(pre):]: v for k, v in r.items()
+          if k.startswith(pre) and "/momentum/" not in k
+          and not k.endswith("/seen")}
+    mom = {k[len(pre) + len("momentum/"):]: v for k, v in r.items()
+           if k.startswith(pre + "momentum/")}
+    return sd, mom, int(r[pre + "seen"])
+
+
+def _trainer_spec(setup):
+    return TD.DarknetSpec.from_cfg(str(setup[0] / "corpus" / "trainer.cfg"))
+
+
+def _file_state(path, spec):
+    """A checkpoint file's state dict, momentum by parameter name, seen and
+    step."""
+    payload = torch.load(path, weights_only=True)
+    names = [n for n, _ in TD.Darknet(spec).named_parameters()]
+    opt = payload["optimizer"]
+    order = [i for g in opt["param_groups"] for i in g["params"]]
+    mom = {names[i]: opt["state"][i]["momentum_buffer"].numpy()
+           for i in order if i in opt["state"]}
+    sd = {k: v.numpy() for k, v in payload["model"].items()}
+    return sd, mom, payload["seen"], payload["step"]
+
+
+def _same_bytes(got: dict, want: dict):
+    assert set(got) == set(want)
+    for k in want:
+        assert np.asarray(got[k]).tobytes() == np.asarray(want[k]).tobytes(), k
+
+
+@pytest.mark.parametrize("run", sorted(TRAIN_RUNS))
+def test_run_training_matches_jax_mesh(runs, run):
+    """``run_training`` on the grid (1×4 with the python loader, 2×2 with
+    ``device_bank``) against JAX's ``run_training`` on the same mesh from
+    the same state and data: each step's loss rtol 1e-4; the final state
+    rtol 1e-4, atol 1e-6; its momentum to 1e-4 of each tensor's max."""
+    ranks, refs = runs
+    want_losses, want_sd, want_mom = refs[("train", run)]
+    assert len(want_losses) == 2
+    for r in ranks[TRAIN_RUNS[run]]:
+        np.testing.assert_allclose(r[f"trainer/{run}/losses"], want_losses,
+                                   rtol=1e-4)
+        sd, mom, seen = _final(r, run)
+        assert seen == 8 and set(sd) == set(want_sd)
+        for k, v in want_sd.items():
+            np.testing.assert_allclose(sd[k], v.numpy(), rtol=1e-4,
+                                       atol=1e-6, err_msg=k)
+        for k, v in want_mom.items():
+            d = np.abs(mom[k] - v.numpy()).max()
+            assert d <= 1e-4 * np.abs(v.numpy()).max(), (k, d)
+
+
+@pytest.mark.parametrize("run", sorted(TRAIN_RUNS))
+def test_grid_checkpoint_loads_in_one_process(setup, runs, run):
+    """The grid's final checkpoint is the one-process format: its model,
+    momentum and ``seen`` are the gathered state bit for bit, and a whole
+    model in one process restores it."""
+    wd = setup[0]
+    grid = TRAIN_RUNS[run]
+    spec = _trainer_spec(setup)
+    ckpt = wd / f"grid{_gid(grid)}" / f"ckpt_{run}"
+    sd, mom, seen, step = _file_state(ckpt / "2.pt", spec)
+    assert (seen, step) == (8, 2)
+    for r in ranks_of(runs, grid):
+        got_sd, got_mom, got_seen = _final(r, run)
+        _same_bytes(got_sd, sd)
+        _same_bytes(got_mom, mom)
+        assert got_seen == seen
+    state = init_train_state(TD.Darknet(spec), weight_decay=DECAY,
+                             momentum=MOMENTUM)
+    assert Checkpointer(str(ckpt)).restore(state) == 2
+    _same_bytes({k: v.numpy() for k, v in state.model.state_dict().items()},
+                sd)
+
+
+@pytest.mark.parametrize("run", sorted(TRAIN_RUNS))
+def test_model_weights_are_the_gathered_state(setup, runs, run):
+    """``model.weights`` (the final save: no eval ran) is the gathered
+    state's weights and BN statistics bit for bit, ``seen`` the global
+    samples."""
+    grid = TRAIN_RUNS[run]
+    spec = _trainer_spec(setup)
+    header, sd = TW.load_weights(spec, str(
+        setup[0] / "corpus" / f"backup_{_gid(grid)}_{run}" /
+        "model.weights"))
+    assert header.seen == 8
+    got, _, _ = _final(ranks_of(runs, grid)[0], run)
+    _same_bytes({k: got[k] for k in sd}, {k: v.numpy() for k, v in
+                                          sd.items()})
+
+
+# each grid's writes on its writer (global rank 0): checkpoints and weights
+# files.  1×4: the python run's epoch-0 and final checkpoints, its final
+# weights.  2×2: the bank run's 2 and 1; the unbroken run's 3 (two epochs
+# and the final) and 1; the failing run's failure save; the resumed run's
+# final checkpoint and weights; the multi run's 2 and its best weights.
+WRITES = {(1, 4): [2, 1], (2, 2): [9, 4]}
+
+
+@pytest.mark.parametrize("grid", sorted(WRITES), ids=_gid)
+def test_one_rank_writes(runs, grid):
+    """Every checkpoint and weights file of the trainers' runs was written
+    by one rank, the writer (data and model coordinate 0)."""
+    for g, r in enumerate(ranks_of(runs, grid)):
+        want = WRITES[grid] if g == 0 else [0, 0]
+        assert r["trainer/writes"].tolist() == want, g
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=_gid)
+def test_one_process_checkpoint_restores_on_the_grid(setup, runs, grid):
+    """A one-process checkpoint (after a step: nonzero momentum) restored on
+    the grid and split: each rank's tensors are its slices of the file's
+    (the model rank's rows of a split conv, the whole of the rest), bit for
+    bit, momentum too, and ``seen`` the file's."""
+    spec = _trainer_spec(setup)
+    sd, mom, seen, step = _file_state(setup[0] / "one_process" / "1.pt",
+                                      spec)
+    split = _split_keys(spec, grid[1])
+    for r in ranks_of(runs, grid):
+        m, mp = r["layout"][3], r["layout"][4]
+
+        def mine(k, v):
+            if k not in split:
+                return v
+            per = len(v) // mp
+            return v[m * per:(m + 1) * per]
+        assert int(r["restore/step"]) == step
+        assert int(r["restore/local/seen"]) == seen
+        for k, v in sd.items():
+            assert r[f"restore/local/{k}"].tobytes() == \
+                mine(k, v).tobytes(), k
+        for k, v in mom.items():
+            assert r[f"restore/local/momentum/{k}"].tobytes() == \
+                mine(k, v).tobytes(), k
+
+
+def test_failure_save_when_every_rank_raises(setup, runs):
+    """A 2×2 run whose third step raises on every rank: the error goes on
+    from every rank, and the failure save (its periodic saves off) wrote
+    step 2 — the state after two steps, gathered — the unbroken run's
+    step-2 checkpoint bit for bit."""
+    wd = setup[0]
+    spec = _trainer_spec(setup)
+    for r in ranks_of(runs, (2, 2)):
+        assert str(r["trainer/fail/error"]) == "step 3 fails on every rank"
+    got = _file_state(wd / "grid2x2" / "ckpt_fail" / "2.pt", spec)
+    want = _file_state(wd / "grid2x2" / "ckpt_unbroken" / "2.pt", spec)
+    assert got[2:] == want[2:] == (8, 2)
+    _same_bytes(got[0], want[0])
+    _same_bytes(got[1], want[1])
+
+
+def test_resumed_grid_run_equals_the_unbroken_one(runs):
+    """The failed run resumed from its failure save for its second epoch
+    ends with the state of the unbroken two-epoch run, bit for bit, on
+    every rank."""
+    for r in ranks_of(runs, (2, 2)):
+        got, want = _final(r, "resumed"), _final(r, "unbroken")
+        _same_bytes(got[0], want[0])
+        _same_bytes(got[1], want[1])
+        assert got[2] == want[2] == 16
+
+
+def test_run_training_multi_on_the_grid(runs):
+    """``run_training_multi`` on 2×2 fed by ``device_synth``: one epoch of
+    2 steps, finite losses, the same bits on every rank, its epoch-0 eval a
+    finite best, and the ranks' gathered states the same bytes."""
+    ranks = ranks_of(runs, (2, 2))
+    first = ranks[0]["trainer/multi/losses"]
+    assert len(first) == 2 and np.isfinite(first).all()
+    assert np.isfinite(float(ranks[0]["trainer/multi/best_acc"]))
+    for r in ranks:
+        assert r["trainer/multi/losses"].tobytes() == first.tobytes()
+        assert float(r["trainer/multi/best_acc"]) == \
+            float(ranks[0]["trainer/multi/best_acc"])
+        assert int(r["trainer/multi/final/seen"]) == 4
+        for k in (k for k in r if k.startswith("trainer/multi/final/")):
+            assert r[k].tobytes() == ranks[0][k].tobytes(), k
+
+
+# ---------------------------------------------------------------------------
+# the device banks' rows under the grid
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_bank_rows_match_jax_mesh(runs, rank):
+    """Each rank's ``device_bank`` rows on 2×2 (an epoch: 2 batches of 4 at
+    the drawn multi-scale widths, 416² here) against JAX's ``Loader(mesh=
+    make_mesh(dp=2))`` rows and the one-process port batch's
+    (``torch_bank_helpers.check_bank_rows``)."""
+    ranks, refs = runs
+    check_bank_rows(ranks[(2, 2)][rank], refs["bank_rows"], rank // 2, 2)
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_synth_rows_match_one_process(runs, rank):
+    """Each rank's ``device_synth`` rows on 2×2 are those rows of the
+    one-process port batch from the same seed, bit for bit."""
+    ranks, refs = runs
+    check_synth_rows(ranks[(2, 2)][rank], refs["synth"], rank // 2, 2)
+
+
+@pytest.mark.parametrize("rank", range(4))
+@pytest.mark.parametrize("backend", ["bank", "synth"])
+def test_grid_loader_builds_its_bank_when_made(runs, backend, rank):
+    """Under the grid a bank loader's constructor builds the bank and runs
+    its preflight, a collective over the grid, once, on the main thread
+    (the thread of the run's other collectives), not on the prefetch
+    thread at the first batch."""
+    got = ranks_of(runs, (2, 2))[rank][f"built_at_init/rows/{backend}"]
+    assert got.tolist() == [1, 1]
+
+
+def test_model_peers_hold_the_same_rows(runs):
+    """The ranks of one data coordinate make the same rows."""
+    ranks = ranks_of(runs, (2, 2))
+    for d in range(2):
+        a, b = ranks[2 * d], ranks[2 * d + 1]
+        keys = [k for k in a if k.startswith("rows/")]
+        assert len(keys) > 4
+        for k in keys:
+            assert a[k].tobytes() == b[k].tobytes(), k
+
+
+@pytest.mark.parametrize("case,want", [
+    ("one_card", r"a bank on 4 ranks sharing card needs 400 MB device "
+                 r"memory plus 4096 MB activation headroom, but only 1686 MB"),
+    ("own_cards", r"^$")])
+def test_bank_preflight_counts_the_ranks_on_a_card(runs, case, want):
+    """The banks' preflight under the grid charges a card for every rank on
+    it: four ranks on one card whose free memory holds one and a half
+    banks with their headroom all raise; on cards of their own they
+    pass."""
+    for r in ranks_of(runs, (2, 2)):
+        assert re.search(want, str(r[f"preflight/{case}"])), \
+            str(r[f"preflight/{case}"])

@@ -352,10 +352,8 @@ def test_gloo_steps_are_refused_with_the_reason(gloo_group, tmp_path):
         TTr.capture_train_step(step, _state(tspec), [64], 2, 1050)
     rc = TDr.TrainRunConfig(group=gloo_group, precompile_buckets=True,
                             device="cpu")
-    for backend in ("python", "device_bank"):
-        with pytest.raises(ValueError, match="gloo group cannot be "
-                                             "captured"):
-            TDr._check_dp_options(rc, backend)
+    with pytest.raises(ValueError, match="gloo group cannot be captured"):
+        TDr._check_dp_options(rc)
     with pytest.raises(ValueError, match="gloo group cannot be captured"):
         TDr.run_training_multi(str(tmp_path / "none.data"), tspec, None, 0,
                                [], None, rc)
@@ -363,15 +361,13 @@ def test_gloo_steps_are_refused_with_the_reason(gloo_group, tmp_path):
 
 def test_nccl_steps_are_not_refused_on_the_option():
     """An NCCL group with ``precompile_buckets`` passes the drivers' check
-    (a group of one may take the device banks too), and
+    (whatever the train loader: the check no longer reads it), and
     ``capture_train_step`` takes its step: on the CPU it stops only at the
     device, as it does for a step with no group."""
     for world in (1, 2):
         rc = TDr.TrainRunConfig(group=_nccl_stub(world),
                                 precompile_buckets=True)
-        TDr._check_dp_options(rc, "python")
-    TDr._check_dp_options(TDr.TrainRunConfig(
-        group=_nccl_stub(1), precompile_buckets=True), "device_bank")
+        TDr._check_dp_options(rc)
     step = TTr.make_train_step(RegionLossConfig(), group=_nccl_stub())
     with pytest.raises(ValueError, match="needs a CUDA device"):
         TTr.capture_train_step(step, _state(TSpec(TINY_BLOCKS)), [64], 2,

@@ -3,7 +3,8 @@ data-parallel paths on gloo ranks on the CPU.
 
     python torch_parallel_worker.py steps WORKDIR
         two spawned gloo ranks run the step-level checks on WORKDIR/
-        inputs.npz (and the states and cfgs beside it) and each writes
+        inputs.npz (and the states and cfgs beside it) and the bank
+        backends' rows over WORKDIR/corpus and WORKDIR/occ, and each writes
         WORKDIR/rank<r>.npz;
     python torch_parallel_worker.py cli ARGS...
         ``singleshotpose_tpu_torch.cli.main(ARGS)`` (``--dp N`` starts its
@@ -46,6 +47,9 @@ from singleshotpose_tpu_torch.parallel.sharding import (  # noqa: E402
     shard_host_batch)
 from singleshotpose_tpu_torch.training import (  # noqa: E402
     init_train_state, make_train_step, shard_train_state)
+# the bank backends' rows and preflight under a group, as the grid's
+# worker takes them
+from torch_tp_worker import _bank_rows, _preflight  # noqa: E402
 
 WORLD = 2
 LR, EPOCH, DECAY, MOMENTUM = 0.00025, 100, 0.002, 0.9
@@ -252,8 +256,11 @@ def _rank(rank: int, port: int, workdir: str) -> None:
             for k in bits[0]))
     _train(workdir, group, out)
     _ragged_eval(workdir, group, out)
+    _bank_rows(workdir, group, out)
+    _preflight(group, out)
     np.savez(os.path.join(workdir, f"rank{rank}.npz"),
-             **{k: v.detach().numpy() for k, v in out.items()})
+             **{k: v.detach().numpy() if isinstance(v, torch.Tensor) else v
+                for k, v in out.items()})
     dist.destroy_process_group()
 
 

@@ -4,7 +4,8 @@ data × model grid on gloo ranks on the CPU.
     python torch_tp_worker.py WORKDIR DP MP
         DP·MP spawned gloo ranks make ``make_dp_group(DP, MP)`` and run the
         checks on the nets and inputs under WORKDIR; each writes
-        WORKDIR/grid<DP>x<MP>/rank<r>.npz.
+        WORKDIR/grid<DP>x<MP>/rank<r>.npz.  The trainers' runs write their
+        checkpoints and weights under WORKDIR/grid<DP>x<MP>/ too.
 
 ``jax`` and ``singleshotpose_tpu`` are blocked before anything is imported,
 here and in every spawned rank (a spawned child runs this module's top level
@@ -12,9 +13,12 @@ again as its ``__mp_main__``), so the grid's paths are shown to run without
 them.
 """
 
+import dataclasses
 import json
 import os
+import shutil
 import sys
+import threading
 
 sys.modules["jax"] = None                  # any `import jax` now raises
 sys.modules["singleshotpose_tpu"] = None   # and so does the JAX package
@@ -30,7 +34,12 @@ import torch.distributed as dist  # noqa: E402
 import torch.multiprocessing as mp  # noqa: E402
 
 from singleshotpose_tpu_torch import drivers  # noqa: E402
+from singleshotpose_tpu_torch import weights as W  # noqa: E402
 from singleshotpose_tpu_torch.checkpoint import Checkpointer  # noqa: E402
+from singleshotpose_tpu_torch.data import pipeline  # noqa: E402
+from singleshotpose_tpu_torch.data.synth_multi import (  # noqa: E402
+    MultiObjectSynthesizer, SynthConfig)
+from singleshotpose_tpu_torch.utils import memory  # noqa: E402
 from singleshotpose_tpu_torch.models.darknet import (Darknet,  # noqa: E402
                                                      DarknetSpec)
 from singleshotpose_tpu_torch.ops import stem  # noqa: E402
@@ -181,18 +190,16 @@ def _refusals(workdir, grid, dp, mp_, out) -> None:
     rc = drivers.TrainRunConfig(group=grid, device="cpu", num_workers=0,
                                 bg_dir="/nonexistent")
     cases = {
-        "run_training": lambda: drivers.run_training(
+        "precompile_buckets": lambda: drivers.run_training(
             os.path.join(corpus, "synth.data"),
-            os.path.join(corpus, "tiny.cfg"), None, 100, rc),
-        "run_training_multi": lambda: drivers.run_training_multi(
-            os.path.join(corpus, "synth.data"),
-            os.path.join(corpus, "tiny_multi.cfg"), run_cfg=rc),
+            os.path.join(corpus, "tiny.cfg"), None, 100,
+            dataclasses.replace(rc, precompile_buckets=True)),
         "capture": lambda: capture_train_step(step, state, [64], 2, 1050),
-        "checkpointer": lambda: Checkpointer(
-            os.path.join(workdir, f"ckpt{dp}x{mp_}"), group=grid),
         "grid_size": lambda: make_dp_group(dp * mp_ + 1, 1, device="cpu"),
         "grid_shape": lambda: make_dp_group(dp, mp_ + 1, device="cpu"),
         "shard_twice": lambda: shard_train_state(grid, state),
+        "restore_split": lambda: Checkpointer(
+            os.path.join(workdir, "one_process")).restore(state),
         "no_grid": lambda: state.model(torch.zeros(1, 64, 64, 3)),
         "whole_on_grid": lambda: _state(workdir, "f32").model(
             torch.zeros(1, 64, 64, 3), group=grid),
@@ -282,6 +289,238 @@ def _evals(workdir, grid, out) -> None:
         out[f"eval/multi/{tag}/n_samples"] = np.int64(s["n_samples"])
 
 
+# ---------------------------------------------------------------------------
+# the bank backends' rows and the trainers on the grid
+# ---------------------------------------------------------------------------
+
+
+def _bank_rows(workdir, grid, out, prefix: str = "rows") -> None:
+    """An epoch of ``Loader(group=grid)`` on the device banks: this rank's
+    rows of each global batch (``device_bank`` over the corpus with its
+    backgrounds, the multi-scale widths drawn; ``device_synth`` over the
+    OCCLUSION tree at a fixed 64²)."""
+    corpus = os.path.join(workdir, "corpus")
+    bgs = sorted(os.path.join(corpus, "bg", f)
+                 for f in os.listdir(os.path.join(corpus, "bg")))
+    ds = pipeline.PoseDataset(os.path.join(corpus, "train.txt"), train=True,
+                              bg_file_names=bgs)
+    loader = _made_with_its_bank(
+        out, f"built_at_init/{prefix}/bank", lambda: pipeline.Loader(
+            ds, 4, seed=3, num_workers=0, backend="device_bank",
+            device="cpu", group=grid))
+    for i, (images, labels) in enumerate(loader):
+        out[f"{prefix}/bank/{i}/images"] = images
+        out[f"{prefix}/bank/{i}/labels"] = labels
+    out[f"{prefix}/bank/seen"] = torch.tensor(loader.seen)
+    occ = os.path.join(workdir, "occ")
+    lm = os.path.join(occ, "LINEMOD")
+    ds = pipeline.PoseDataset(
+        os.path.join(occ, "train_occlusion.txt"), train=True,
+        bg_file_names=[os.path.join(occ, "VOC", "JPEGImages", "bg0.jpg")],
+        aug=pipeline.AugmentConfig.multi(),
+        synthesizer=MultiObjectSynthesizer(SynthConfig(linemod_root=lm)))
+    loader = _made_with_its_bank(
+        out, f"built_at_init/{prefix}/synth", lambda: pipeline.Loader(
+            ds, 4, seed=5, num_workers=0, fixed_shape=(64, 64),
+            backend="device_synth", device="cpu", synth_attempts=4,
+            group=grid))
+    for i, (images, labels) in enumerate(loader):
+        out[f"{prefix}/synth/{i}/images"] = images
+        out[f"{prefix}/synth/{i}/labels"] = labels
+
+
+def _made_with_its_bank(out, key: str, make):
+    """``make()`` (a bank loader under a group), recording under ``key``
+    how many bank preflights its construction ran and how many of those
+    ran on the main thread: the preflight is a collective, so the
+    constructor, not the first batch, builds the bank."""
+    real, calls = memory.check_hbm_budget, []
+
+    def spy(*a, **k):
+        calls.append(threading.current_thread() is threading.main_thread())
+        return real(*a, **k)
+
+    memory.check_hbm_budget = spy
+    try:
+        loader = make()
+    finally:
+        memory.check_hbm_budget = real
+    out[key] = np.array([len(calls), sum(calls)])
+    return loader
+
+
+def _preflight(grid, out, prefix: str = "preflight") -> None:
+    """The device banks' preflight under the grid, with the free memory and
+    the card each rank reads stubbed: every rank on one card, where one
+    rank's bank and headroom fit but not two ranks', then each rank on a
+    card of its own.  Each case's message ("" when nothing was raised)."""
+    need, room = 100 << 20, memory.DEFAULT_HEADROOM
+    real = memory.hbm_free_bytes, memory.card_key
+    memory.hbm_free_bytes = lambda device=None: 3 * (need + room) // 2
+    try:
+        for case, key in (("one_card", lambda d: "card"),
+                          ("own_cards", lambda d: f"card{dist.get_rank()}")):
+            memory.card_key = key
+            try:
+                memory.check_hbm_budget(need, "a bank", device="cpu",
+                                        group=grid)
+                msg = ""
+            except RuntimeError as e:
+                msg = str(e)
+            out[f"{prefix}/{case}"] = np.array(msg)
+    finally:
+        memory.hbm_free_bytes, memory.card_key = real
+
+
+class _EpochLoader(pipeline.Loader):
+    """The port's loader with its stream reseeded from (seed, epoch) at each
+    pass, the epoch read from ``seen``: an epoch's batches then depend on
+    the epoch alone, so a resumed run sees the batches the unbroken run saw
+    (the loader itself, as JAX's, restarts its stream on resume)."""
+
+    def __init__(self, *a, seed: int = 0, **k):
+        super().__init__(*a, seed=seed, **k)
+        self._seed = seed
+
+    def __iter__(self):
+        epoch = self.seen // (self.nbatches * self.batch_size)
+        self.rng = np.random.RandomState([self._seed, epoch])
+        return super().__iter__()
+
+
+def _failing_steps(at: int):
+    """``drivers.make_train_step`` whose steps raise at the ``at``-th call,
+    on every rank, before the step runs."""
+    real = drivers.make_train_step
+
+    def make(*a, **k):
+        step, calls = real(*a, **k), [0]
+
+        def failing(*args):
+            calls[0] += 1
+            if calls[0] == at:
+                raise RuntimeError(f"step {at} fails on every rank")
+            return step(*args)
+        return failing
+    return make
+
+
+def _train_run(workdir, grid, gid, run, *, backend, epochs=1,
+               ckpt_every=1, init=True):
+    """``run_training`` of the trainer cfg on the grid, resumed from the
+    one-process checkpoint of JAX's initial state (``init``: copied into
+    the run's checkpoint directory by the writer first), evals off."""
+    corpus = os.path.join(workdir, "corpus")
+    ckpt = os.path.join(workdir, f"grid{gid}", f"ckpt_{run}")
+    if init and grid.leader:
+        os.makedirs(ckpt, exist_ok=True)
+        shutil.copy(os.path.join(workdir, "trainer_init", "0.pt"), ckpt)
+    grid.barrier()
+    rc = drivers.TrainRunConfig(
+        group=grid, device="cpu", num_workers=0, log_every=1,
+        bg_dir=os.path.join(corpus, "bg"), compute_dtype=None,
+        eval_every=100, eval_after=100, max_epochs_override=epochs,
+        checkpoint_dir=ckpt, checkpoint_every_epochs=ckpt_every,
+        resume=True, loader_backend=backend)
+    return drivers.run_training(
+        os.path.join(corpus, f"{gid}_{run}.data"),
+        os.path.join(corpus, "trainer.cfg"), None, 100, rc)
+
+
+def _trainers(workdir, grid, dp, mp_, out) -> None:
+    """The trainers on the grid: ``run_training`` from JAX's initial state
+    for one epoch (1×4: the python loader; 2×2: ``device_bank``), each run's
+    losses and gathered final state; on 2×2 an unbroken two-epoch run, the
+    same run failing at its third step on every rank, and that run resumed
+    (batches a function of the epoch: ``_EpochLoader``), and
+    ``run_training_multi`` on ``device_synth`` with its epoch-0 eval.  The
+    checkpoint and weights writes are counted on every rank."""
+    gid = f"{dp}x{mp_}"
+    writes = {"checkpoint": 0, "weights": 0}
+    real_write, real_weights = Checkpointer._write, W.save_weights
+
+    def count(kind, fn):
+        def wrapped(*a, **k):
+            writes[kind] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    Checkpointer._write = count("checkpoint", real_write)
+    W.save_weights = count("weights", real_weights)
+    real_loader, real_make = drivers.Loader, drivers.make_train_step
+    try:
+        runs = {(1, 4): ("python", "python"), (2, 2): ("bank", "device_bank")}
+        if (dp, mp_) in runs:
+            run, backend = runs[(dp, mp_)]
+            r = _train_run(workdir, grid, gid, run, backend=backend)
+            out[f"trainer/{run}/losses"] = torch.tensor(
+                r["history"]["training_losses"], dtype=torch.float64)
+            out.update(_flat_state(gather_train_state(grid, r["state"]),
+                                   f"trainer/{run}/final"))
+        if (dp, mp_) == (2, 2):
+            drivers.Loader = _EpochLoader
+            r = _train_run(workdir, grid, gid, "unbroken",
+                           backend="device_bank", epochs=2)
+            out.update(_flat_state(gather_train_state(grid, r["state"]),
+                                   "trainer/unbroken/final"))
+            drivers.make_train_step = _failing_steps(3)
+            try:
+                _train_run(workdir, grid, gid, "fail", backend="device_bank",
+                           epochs=2, ckpt_every=0)
+                out["trainer/fail/error"] = np.array("")
+            except RuntimeError as e:
+                out["trainer/fail/error"] = np.array(str(e))
+            drivers.make_train_step = real_make
+            r = _train_run(workdir, grid, gid, "fail", backend="device_bank",
+                           epochs=2, ckpt_every=0, init=False)
+            out.update(_flat_state(gather_train_state(grid, r["state"]),
+                                   "trainer/resumed/final"))
+            drivers.Loader = real_loader
+            _train_multi(workdir, grid, gid, out)
+    finally:
+        Checkpointer._write, W.save_weights = real_write, real_weights
+        drivers.Loader, drivers.make_train_step = real_loader, real_make
+    out["trainer/writes"] = torch.tensor([writes["checkpoint"],
+                                          writes["weights"]])
+
+
+def _train_multi(workdir, grid, gid, out) -> None:
+    """``run_training_multi`` on the grid for one epoch of the OCCLUSION
+    tree (4 frames, global batch 2: one scene a data rank) fed by
+    ``device_synth``, with its epoch-0 eval over ape."""
+    occ = os.path.join(workdir, "occ")
+    rc = drivers.TrainRunConfig(
+        group=grid, device="cpu", num_workers=0, log_every=1,
+        bg_dir=os.path.join(occ, "VOC", "JPEGImages"), compute_dtype=None,
+        eval_every=20, eval_after=-1, eval_batch_size=2,
+        max_epochs_override=1, loader_backend="device_synth",
+        synth_attempts=4,
+        checkpoint_dir=os.path.join(workdir, f"grid{gid}", "ckpt_multi"))
+    r = drivers.run_training_multi(
+        os.path.join(occ, f"occlusion_{gid}.data"),
+        os.path.join(occ, "tiny_multi.cfg"), None, 0,
+        [os.path.join(occ, "ape_occlusion.data")], None, rc)
+    out["trainer/multi/losses"] = torch.tensor(
+        r["history"]["training_losses"], dtype=torch.float64)
+    out["trainer/multi/best_acc"] = torch.tensor(r["best_acc"],
+                                                 dtype=torch.float64)
+    out.update(_flat_state(gather_train_state(grid, r["state"]),
+                           "trainer/multi/final"))
+
+
+def _restore_on_grid(workdir, grid, out) -> None:
+    """A one-process checkpoint (with momentum) restored whole on every rank
+    of the grid, then split: this rank's tensors and ``seen``."""
+    spec = DarknetSpec.from_cfg(os.path.join(workdir, "corpus",
+                                             "trainer.cfg"))
+    state = init_train_state(Darknet(spec), weight_decay=DECAY,
+                             momentum=MOMENTUM)
+    ckpt = Checkpointer(os.path.join(workdir, "one_process"), group=grid)
+    out["restore/step"] = torch.tensor(ckpt.restore(state))
+    shard_train_state(grid, state)
+    out.update(_flat_state(state, "restore/local"))
+
+
 def _rank(rank: int, port: int, workdir: str, dp: int, mp_: int) -> None:
     torch.set_num_threads(1)
     initialize_distributed(backend="gloo",
@@ -296,6 +535,11 @@ def _rank(rank: int, port: int, workdir: str, dp: int, mp_: int) -> None:
     _evals(workdir, grid, out)
     _refusals(workdir, grid, dp, mp_, out)
     _mp1_step(inp, workdir, grid, out)
+    _restore_on_grid(workdir, grid, out)
+    _trainers(workdir, grid, dp, mp_, out)
+    if (dp, mp_) == (2, 2):
+        _bank_rows(workdir, grid, out)
+        _preflight(grid, out)
     dest = os.path.join(workdir, f"grid{dp}x{mp_}")
     os.makedirs(dest, exist_ok=True)
     np.savez(os.path.join(dest, f"rank{rank}.npz"),
