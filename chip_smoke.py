@@ -181,7 +181,15 @@ phases; any failure propagates and the exit code is nonzero:
      beside them two gloo ranks as dp=2 × mp=1: each rank's rows of
      ``Loader(group=)``'s ``device_bank`` batches (416², 8) and
      ``device_synth`` batches (416², 32) = those rows of the one-process
-     batches on the card, bit for bit;
+     batches on the card, bit for bit; then, where two cards are visible,
+     the captured grid: two NCCL ranks on cuda:0 and cuda:1 as a dp=1 ×
+     mp=2 grid, the split step captured per width
+     (``drivers._precompile_buckets`` at 3 widths; K2–K6 and every
+     all-reduce, channel gather and broadcast of an eager step recorded in
+     each graph) = the grid's eager steps bit for bit over 10 steps across
+     the widths and the pretrain gate; on one card it prints that it did
+     not run and why (NCCL takes one rank a card; a gloo grid's step
+     cannot be captured);
  19. native: a small corpus written as files (64 train and 16 held-out
      640x480 shaded renders as JPEG, PNG masks, 8 JPEG backgrounds); the
      native C++ decoder (``singleshotpose_tpu_torch/native``) built with
@@ -208,7 +216,8 @@ the synth (K2–K6), phase 16's int8 serves and evals (the int8
 conv), phase 17's calls of the loaded artifacts (K1, the int8
 conv), in phase 18 each rank's DP steps (K2–K6) and its share of the
 DP eval (K1) (and the NCCL rank's graphs: captures and replays), in phase
-20 each grid rank's steps (K2–K6) and its eval batch (K1), and in
+20 each grid rank's steps (K2–K6) and its eval batch (K1) (and, with two
+cards, the captured grid's graphs and replays a rank), and in
 phase 19 the native-fed steps (K2–K6) and each
 eval (K1).  On the captured paths (11–13) a kernel's
 wrapper runs only while a graph records it, so what is counted there is
@@ -3732,33 +3741,46 @@ def _dp_gloo_rank(spec, dev, rank: int, port: int, root: str) -> dict:
     return out
 
 
-def _counting_all_reduces(counts: dict):
-    """While active, ``torch.distributed.all_reduce`` counts its calls in
-    ``counts``: under ``"captured"`` those issued while the current stream
-    records a CUDA graph (so recorded into it), under ``"eager"`` the
-    rest."""
-    real = dist.all_reduce
+def _counting_collectives(counts: collections.Counter,
+                          ops=("all_reduce",)):
+    """While active, each ``torch.distributed`` function named in ``ops``
+    counts its calls in ``counts``: under ``"captured"`` those issued while
+    the current stream records a CUDA graph (so recorded into it), under
+    ``"eager"`` the rest, and under ``"<op> captured"``/``"<op> eager"``
+    each op's own."""
+    def counting(op, real):
+        def fn(*args, **kwargs):
+            mode = ("captured" if torch.cuda.is_available() and
+                    torch.cuda.is_current_stream_capturing() else "eager")
+            counts[mode] += 1
+            counts[f"{op} {mode}"] += 1
+            return real(*args, **kwargs)
+        return fn
 
-    def all_reduce(*args, **kwargs):
-        capturing = torch.cuda.is_current_stream_capturing()
-        counts["captured" if capturing else "eager"] += 1
-        return real(*args, **kwargs)
+    return mock.patch.multiple(dist, **{op: counting(op, getattr(dist, op))
+                                        for op in ops})
 
-    return mock.patch.object(dist, "all_reduce", all_reduce)
+
+# what a grid step runs besides the all-reduces: the model group's channel
+# gathers and the broadcast of the replicated gradients
+GRID_COLLECTIVES = ("all_reduce", "all_gather", "broadcast")
 
 
 def _dp_captured(spec, dev, group, *, decay_bn_bias: bool = True,
-                 timed: bool = False) -> dict:
+                 timed: bool = False, ops=("all_reduce",)) -> dict:
     """The NCCL group-of-one step captured by ``drivers._precompile_buckets``
     at DP_CAPTURED_WIDTHS, as ``run_training(precompile_buckets=True)``
     builds it for a group, against the eager step of the same group: from
     one seeded state (``init_train_state(decay_bn_bias=)``, broadcast over
-    the group), 10 steps over DP_CAPTURED_SEQUENCE and DP_CAPTURED_EPOCHS
-    each way on the same host batches through ``drivers._to_device``.
-    Records what each graph recorded (K2–K6 and the all-reduces), the
-    capture's seconds and the memory it reserved, the replays, the bits of
-    the losses and of every state tensor; ``timed``: the captured and the
-    eager step at 416² in turns."""
+    the group and split on a grid), 10 steps over DP_CAPTURED_SEQUENCE and
+    DP_CAPTURED_EPOCHS each way on this rank's rows of the same host
+    batches through ``drivers._to_device``.
+    Records what each graph recorded (K2–K6 and the collectives named in
+    ``ops``), the capture's seconds and the memory it reserved, the
+    replays, the bits of the losses and of every state tensor (on a data ×
+    model grid this rank's split state, and the SHA-256 of each state
+    gathered whole); ``timed``: the captured and the eager step at 416² in
+    turns, (median, min, max) ms of TIMED_STEPS steps each."""
     net = spec.net
     cfg = loss_config_from_spec(spec, pretrain_num_epochs=15, im_width=IM_W,
                                 im_height=IM_H)
@@ -3774,16 +3796,17 @@ def _dp_captured(spec, dev, group, *, decay_bn_bias: bool = True,
 
     (cap_state, cap_step), (eager_state, step) = setup(), setup()
     host = torch.device("cpu")
-    batches = [tuple(t.numpy() for t in _train_batches(
-        host, 1, seed=DP_SEED * 10 + i, size=w)[0])
+    batches = [shard_host_batch(group, *(t.numpy() for t in _train_batches(
+        host, 1, seed=DP_SEED * 10 + i, size=w)[0]))
         for i, w in enumerate(DP_CAPTURED_SEQUENCE)]
-    counts = {"captured": 0, "eager": 0}
+    counts = collections.Counter()
     torch.cuda.synchronize()
     reserved = torch.cuda.memory_reserved(dev)
     t0 = time.perf_counter()
-    with _counting_captures(), _counting_all_reduces(counts):
+    with _counting_captures(), _counting_collectives(counts, ops):
         captured = _precompile_buckets(cap_step, cap_state,
-                                       DP_CAPTURED_WIDTHS, TRAIN_BATCH,
+                                       DP_CAPTURED_WIDTHS,
+                                       TRAIN_BATCH // group.world,
                                        spec.num_keypoints)
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
@@ -3792,7 +3815,11 @@ def _dp_captured(spec, dev, group, *, decay_bn_bias: bool = True,
         _scribble(dev)
         out = {"per_graph": [c[1:] for c in _CountingGraph.captured],
                "reduces_captured": counts["captured"],
+               "collectives_captured": {op: counts[f"{op} captured"]
+                                        for op in ops},
                "capture_s": capture_s,
+               "capture_s_per_width": {shape[2]: t for shape, t in
+                                       captured.capture_seconds.items()},
                "reserved_gib": (torch.cuda.memory_reserved(dev) - reserved)
                / 2**30,
                "reserved_total_gib": torch.cuda.memory_reserved(dev) / 2**30}
@@ -3801,13 +3828,18 @@ def _dp_captured(spec, dev, group, *, decay_bn_bias: bool = True,
         cap_losses = _run_steps(captured, cap_state, batches,
                                 DP_CAPTURED_EPOCHS, spec, dev)
         out["wrapped"] = _launches()
-        counts.update(captured=0, eager=0)
+        counts.clear()
         eager_losses = _run_steps(step, eager_state, batches,
                                   DP_CAPTURED_EPOCHS, spec, dev)
         torch.cuda.synchronize()
         out["reduces_eager_step"] = counts["eager"] / len(batches)
+        out["collectives_eager_step"] = {
+            op: counts[f"{op} eager"] / len(batches) for op in ops}
         out["replays"] = _CountingGraph.replays
     diffs, n = _state_diffs(cap_state, eager_state)
+    if group.mp > 1:
+        out["sha"] = [_state_sha(gather_train_state(group, st))
+                      for st in (cap_state, eager_state)]
     out.update(replays_step=captured.replays, tensors=n, diffs=diffs[:10],
                same_losses=_same_bits(cap_losses, eager_losses),
                losses=cap_losses, finite=bool(torch.isfinite(
@@ -3823,9 +3855,9 @@ def _dp_captured(spec, dev, group, *, decay_bn_bias: bool = True,
         for which in ("captured", "eager", "eager", "captured"):
             fn, st = (captured, cap_state) if which == "captured" else \
                 (step, eager_state)
-            turns[which].append(_time_ms(
+            turns[which].append(_time_spread(
                 lambda: fn(st, frames, labels, _lr(spec, 0), TRAIN_EPOCH),
-                iters=TIMED_STEPS, warmup=0))
+                iters=TIMED_STEPS))
         out["turns"] = turns
     return out
 
@@ -4447,7 +4479,117 @@ def _rows_child(rank: int, port: int, root: str, device: str) -> None:
     torch.save(out, f"{root}/rows{rank}.pt")
 
 
-def phase_tp(spec, dev, card: str) -> None:
+def _tp_captured_child(rank: int, port: int, root: str) -> None:
+    """A spawned rank of phase 20's captured grid: rank ``rank`` on
+    cuda:<rank> of a dp=1 × mp=2 grid over NCCL, its split step captured
+    by ``drivers._precompile_buckets`` against its eager steps
+    (:func:`_dp_captured`, the model group's gathers and broadcasts
+    counted beside the all-reduces); the result to ``root/tpc<rank>.pt``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    initialize_distributed(backend="nccl",
+                           init_method=f"tcp://localhost:{port}",
+                           world_size=TP_DP * TP_MP, rank=rank, device=dev,
+                           timeout=DP_TIMEOUT)
+    grid = make_dp_group(TP_DP, TP_MP, device=dev)
+    out = _dp_captured(yolo_pose_single(), dev, grid, ops=GRID_COLLECTIVES)
+    out.update(backend=grid.backend,
+               layout=[grid.rank, grid.world, grid.model_rank, grid.mp])
+    dist.destroy_process_group()
+    torch.save(_to_cpu(out), f"{root}/tpc{rank}.pt")
+
+
+def _grid_collectives_recorded(c: dict, graphs: int) -> bool:
+    """Whether ``graphs`` graphs of a grid step (:func:`_dp_captured`'s
+    ``c``) recorded every collective an eager step runs — all-reduces and
+    channel gathers at least; a broadcast where a parameter is replicated
+    (none is where mp divides every conv's filters)."""
+    eager, captured = c["collectives_eager_step"], c["collectives_captured"]
+    return eager["all_reduce"] > 0 and eager["all_gather"] > 0 and all(
+        captured[op] == eager[op] * graphs for op in GRID_COLLECTIVES)
+
+
+def _tp_captured(card: str) -> Optional[dict]:
+    """Phase 20's captured grid, where two cards are visible: two NCCL
+    ranks on cuda:0 and cuda:1 as a dp=1 × mp=2 grid
+    (:func:`_tp_captured_child`).  Holds, on each rank: K2–K6 recorded
+    once in each of the DP_CAPTURED_WIDTHS graphs; every all-reduce,
+    channel gather and broadcast of an eager step recorded in each graph;
+    the replays giving the eager steps' losses and split state bit for
+    bit, and the states gathered whole the same SHA-256; the two ranks'
+    losses the same bits.  On one card it prints why it did not run and
+    returns None (NCCL takes one rank a card; a gloo grid's step cannot be
+    captured); else K2–K6's graphs and replays a rank."""
+    n = torch.cuda.device_count()
+    if n < TP_DP * TP_MP:
+        print(f"[tp captured] not run: {n} card visible; the captured "
+              f"dp={TP_DP} x mp={TP_MP} grid needs {TP_DP * TP_MP} cards "
+              "(NCCL takes one rank a card, and a gloo grid's step cannot "
+              f"be captured: its collectives run on the host) [{card}]")
+        return None
+    t = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ssp_tpc_")
+    try:
+        torch.multiprocessing.start_processes(
+            _tp_captured_child, args=(free_port(), root),
+            nprocs=TP_DP * TP_MP, join=True, start_method="spawn")
+        ranks = [torch.load(f"{root}/tpc{r}.pt", weights_only=False)
+                 for r in range(TP_DP * TP_MP)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = _report_tp_captured(ranks, card)
+    print(f"[tp captured] {time.perf_counter() - t:.1f} s [{card}]")
+    return out
+
+
+def _report_tp_captured(ranks, card: str) -> dict:
+    """Print and check the captured grid's ranks (:func:`_tp_captured`);
+    returns K2–K6's graphs and replays a rank."""
+    n_widths = len(DP_CAPTURED_WIDTHS)
+    for r, c in enumerate(ranks):
+        print(f"[tp captured] rank {r} of the dp={TP_DP} x mp={TP_MP} grid "
+              f"over {c['backend']} on cuda:{r} (layout {c['layout']}): "
+              f"{n_widths} widths {DP_CAPTURED_WIDTHS} captured at batch "
+              f"{TRAIN_BATCH} in {c['capture_s']:.2f} s, "
+              f"{c['reserved_gib']:.2f} GiB more reserved; K2-K6 recorded "
+              f"in each graph {c['per_graph']}; recorded in the graphs "
+              f"{c['collectives_captured']} (an eager step: "
+              f"{c['collectives_eager_step']}); {c['replays']} replays; "
+              f"losses {float(c['losses'][0]):.8g} ... "
+              f"{float(c['losses'][-1]):.8g}; captured = eager bit for bit: "
+              f"losses {c['same_losses']}, "
+              f"{c['tensors'] - len(c['diffs'])} of {c['tensors']} split "
+              f"state tensors, gathered SHA-256 {c['sha'][0][:16]} / "
+              f"{c['sha'][1][:16]}; seen {c['seen']} [{card}]")
+        for name, k, d in c["diffs"]:
+            print(f"[tp captured]   rank {r} captured != eager: {name}: {k} "
+                  f"elements, max|d| {d:.6g}")
+        _check(c["backend"] == "nccl", f"rank {r}'s grid is {c['backend']}")
+        _check(c["per_graph"] == [[1] * 5] * n_widths,
+               f"K2-K6 were not recorded once in each grid graph of rank "
+               f"{r}: {c['per_graph']}")
+        _check(_grid_collectives_recorded(c, n_widths),
+               f"rank {r}'s graphs recorded {c['collectives_captured']}, an "
+               f"eager step runs {c['collectives_eager_step']}")
+        _check(c["wrapped"] == [0] * 5 and c["replays"] == c["replays_step"]
+               == len(DP_CAPTURED_SEQUENCE),
+               f"rank {r}: replays {c['replays']}, wrappers {c['wrapped']}")
+        _check(c["same_losses"] and not c["diffs"] and c["finite"]
+               and c["sha"][0] == c["sha"][1],
+               f"rank {r}'s captured grid steps do not give the eager steps' "
+               "bits")
+        _check(c["seen"] == (len(DP_CAPTURED_SEQUENCE) * TRAIN_BATCH,) * 2,
+               f"rank {r}: seen {c['seen']}")
+    _check(_same_bits(ranks[0]["losses"], ranks[1]["losses"])
+           and ranks[0]["sha"] == ranks[1]["sha"],
+           "the model ranks' captured losses or gathered states differ")
+    return {"captures": [len(c["per_graph"]) for c in ranks],
+            "replays": [c["replays"] for c in ranks]}
+
+
+def phase_tp(spec, dev, card: str) -> Optional[dict]:
     """Phase 20: tensor parallelism on this card at full width.  Two gloo
     ranks (spawned; NCCL takes one rank a card) as a dp=1 × mp=2 grid
     (``make_dp_group(1, 2)``): each holds half of every conv's output
@@ -4461,7 +4603,10 @@ def phase_tp(spec, dev, card: str) -> None:
     seeded model's folded forward at batch 8, 672², on the grid (K1 on
     conv_1's gathered folded weights, once a rank) against one process:
     every cell's decoded corners and confidence within 0.05 (JAX's limit
-    for a serve's boxes) and the best boxes' gap printed."""
+    for a serve's boxes) and the best boxes' gap printed.  Then the
+    trainers on the grid, the dp=2 pair's bank rows and, where two cards
+    are visible, the captured grid over NCCL (:func:`_tp_captured`, whose
+    counts it returns; None on one card)."""
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="ssp_tp_")
     try:
@@ -4551,7 +4696,9 @@ def phase_tp(spec, dev, card: str) -> None:
            "eval batch")
     _report_tp_trainers(ranks, last, restored_sha, card)
     _report_tp_rows(rows, ref_rows, card)
+    captured = _tp_captured(card)
     print(f"[tp] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return captured
 
 
 def _report_tp_trainers(ranks, last: int, restored_sha: str,
@@ -4681,8 +4828,9 @@ def _report_dp_captured(one: dict, card: str):
     turns = one["captured"]["turns"]
     print(f"[dp nccl captured] {TRAIN_SIZE}² b{TRAIN_BATCH} step of the "
           f"NCCL group of one, ms in turns captured/eager/eager/captured, "
-          f"CUDA events, median of {TIMED_STEPS} steps each: "
-          + "; ".join(f"{k} " + " ".join(f"{t:.4f}" for t in v)
+          f"CUDA events, median (min-max) of {TIMED_STEPS} steps each: "
+          + "; ".join(f"{k} " + " ".join(f"{m:.4f} ({lo:.4f}-{hi:.4f})"
+                                         for m, lo, hi in v)
                       for k, v in turns.items()) + f" [{card}]")
     r = one["run_training"]
     steps = r["frames"] // TRAIN_BATCH
@@ -5128,8 +5276,9 @@ def main(argv=None) -> int:
     dp = phase_dp(spec, dev, card)
     _free()
     # tensor parallel: K2-K6 counted from 0 on each rank of the dp=1 x mp=2
-    # grid over its steps, K1 over its eval batch
-    phase_tp(spec, dev, card)
+    # grid over its steps, K1 over its eval batch; with two cards, the grid
+    # captured over NCCL
+    tp = phase_tp(spec, dev, card)
     _free()
     # the native decoder and the yuv420 transfer: K2-K6 counted from 0 over
     # the native-fed epoch (where the library builds), K1 over each eval
@@ -5162,7 +5311,9 @@ def main(argv=None) -> int:
     # launches_dp_eval, their shares of the DP eval); captures_dp_nccl,
     # replays_dp_nccl: the NCCL rank's graphs of its captured DP step (phase
     # 18: 3 + 3 widths and run_training's 20) and their replays;
-    # launches_native_train:
+    # captures_grid, replays_grid: per rank, the graphs of the dp=1 x mp=2
+    # grid's captured step over NCCL (phase 20, where two cards are
+    # visible; null on one card) and their replays; launches_native_train:
     # the native-fed epoch's eager steps (phase 19; null where the native
     # library does not build), K1's launches_native_eval: the rgb and the
     # yuv420 eval of phase 19
@@ -5176,7 +5327,9 @@ def main(argv=None) -> int:
                       "captures_multi": captured_multi["captures"],
                       "replays_multi": captured_multi["replays"],
                       "captures_dp_nccl": dp["captures"],
-                      "replays_dp_nccl": dp["replays"]}
+                      "replays_dp_nccl": dp["replays"],
+                      "captures_grid": tp and tp["captures"],
+                      "replays_grid": tp and tp["replays"]}
     kernels = [{
         "name": "stem_conv_pool_infer", "route": "cuda",
         "source": "singleshotpose_tpu_torch/csrc/stem_serve.cu",

@@ -737,18 +737,12 @@ def _local_shard(ds: PoseDataset, batch_size: int, seen: int,
 
 
 def _check_dp_options(rc: TrainRunConfig) -> None:
-    """What a data-parallel run cannot take: captured steps on a data ×
-    model grid (its channel gathers are not recorded yet) and over a gloo
-    group (gloo's collectives run on the host: a CUDA graph cannot record
-    them; an NCCL group's step is captured)."""
+    """What a data-parallel run cannot take: captured steps over a gloo
+    group, grid or not (gloo's collectives run on the host: a CUDA graph
+    cannot record them; an NCCL group's step is captured, on a data ×
+    model grid too)."""
     if rc.group is None:
         return
-    if rc.precompile_buckets and rc.group.mp > 1:
-        raise ValueError(
-            f"precompile_buckets: a train step on a dp×mp grid (mp="
-            f"{rc.group.mp}) is not captured yet: its channel gathers and "
-            "copies are not recorded in a CUDA graph (ROADMAP.md §1 item 3, "
-            "its last point); train eagerly")
     if rc.precompile_buckets and rc.group.backend != "nccl":
         raise ValueError(
             f"precompile_buckets: a data-parallel step over a "
@@ -837,8 +831,10 @@ def run_training(datacfg: str, modelcfg: Union[str, DarknetSpec],
     in-training eval run on the split model; checkpoints and
     ``model.weights`` are written from the state gathered whole
     (``Checkpointer``, ``training.gather_model_whole``), in the
-    one-process formats.  ``precompile_buckets`` on a grid and over gloo
-    raise.
+    one-process formats.  ``precompile_buckets`` captures the grid's step
+    over NCCL, its channel gathers and input-gradient sums recorded with
+    its other collectives, after any checkpoint restore (the graphs bind
+    the split tensors); over gloo it raises.
 
     Returns {"state": the final TrainState, "best_acc": float,
     "history": dict of the training and testing curves}.
@@ -1100,7 +1096,11 @@ def _precompile_buckets(step: Callable, state: TrainState,
     Logs each bucket's time.  A data-parallel step (NCCL; gloo is refused
     before, :func:`_check_dp_options`) is captured with its collectives: every
     rank captures the same widths in the same order, and replays in
-    lockstep."""
+    lockstep.  On a data × model grid (JAX's ``_precompile_buckets`` under
+    ``make_mesh(dp, mp)``) each rank captures its split step, the model
+    group's channel gathers and input-gradient sums among the recorded
+    collectives; ``batch`` is the data rank's rows, the same on every rank
+    of its model group."""
     device = next(state.model.parameters()).device
     if device.type != "cuda":
         _log(f"nothing to precompile on {device}: the step runs eagerly")

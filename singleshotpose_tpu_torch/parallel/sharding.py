@@ -37,6 +37,12 @@ group sums them.  A replicated parameter's gradient is summed over the
 data group and then taken from model rank 0 (:func:`broadcast_model_`),
 so model peers hold the same bytes even where a backward kernel is not
 bitwise deterministic.
+
+Every collective of the step is synchronous (no ``async_op``): over NCCL
+each joins the caller's stream before the step goes on, so a CUDA graph of
+the step (``training.capture_train_step``) records them as one chain, in
+one order on every rank — two communicators whose kernels ran
+concurrently in different orders on different ranks could deadlock.
 """
 
 from __future__ import annotations

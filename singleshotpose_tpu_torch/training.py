@@ -22,7 +22,8 @@ The step runs eagerly on the model's device and updates the state in place
 (the torch idiom) instead of returning a new one.  :func:`capture_train_step`
 records it once per input shape as a ``torch.cuda.CUDAGraph``, the
 counterpart of the JAX package's one compiled program per bucket; a
-data-parallel step over NCCL is captured with its collectives.
+data-parallel step over NCCL, on a data × model grid too, is captured with
+its collectives.
 """
 
 from __future__ import annotations
@@ -410,8 +411,9 @@ class CapturedTrainStep:
 
 # eager steps on a side stream before each capture: they build the kernels'
 # libraries, cuDNN's plans, the step's cached device constants and, for a
-# data-parallel step, NCCL's communicator (made at its first collective),
-# none of which may happen inside a capture
+# data-parallel step, NCCL's communicators (each made at its first
+# collective: the data group's, and on a grid the model group's), none of
+# which may happen inside a capture
 _WARMUP_STEPS = 2
 
 
@@ -450,14 +452,27 @@ def capture_train_step(step: Callable, state: TrainState,
     host.  A gloo group's collectives run on the host and cannot be
     recorded: its step raises.
 
+    On a data × model grid (``group.mp > 1``, the state split by
+    :func:`shard_train_state`) a graph records, in the eager step's order:
+    the forward's channel gathers over the model group (conv_1's gathered
+    weight, scale and bias for K3–K6 among them), the sync-BN all-reduces
+    over the data group, forward and backward, the input-gradient
+    all-reduces of each split conv's backward over the model group, the
+    flat gradient all-reduce, the broadcast of the replicated gradients
+    from model rank 0, the stats' all-reduce, K2 on the data rank's rows
+    and the SGD of this rank's split state.  Every collective is
+    synchronous, so the graph is one chain and every rank runs its
+    collectives in one order.  The warm-up steps make both communicators,
+    the data group's (of one rank at dp 1) and the model group's; the
+    split parameters, momentum buffers and BN running statistics are
+    among the tensors written back.  A replay adds the global batch (the
+    rows times the data ranks) to ``seen``.  Free the captured step before
+    ``torch.distributed.destroy_process_group``: with a live graph of a
+    grid's communicators ProcessGroupNCCL's destroy waited forever.
+
     Needs the state on a CUDA device; a failed capture raises.
     """
     group = getattr(step, "group", None)
-    if group is not None and group.mp > 1:
-        raise ValueError(
-            f"a train step on a dp×mp grid (mp={group.mp}) is not captured "
-            "yet: its channel gathers and copies are not recorded in a CUDA "
-            "graph (ROADMAP.md §1 item 3); run it eagerly")
     if group is not None and group.backend != "nccl":
         raise ValueError(
             f"a data-parallel train step over a {group.backend} group "

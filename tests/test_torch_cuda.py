@@ -17,7 +17,8 @@ same cells above the 0.6 silencing threshold.  The train stem's kernels
 another order: y and pooled as the serving stem (K3 runs the serving
 stem's tensor-core conv); the sums of K3 and K5 rel 1e-5 of max|ref|; K6's
 dW rel 1e-4 of max|ref|.  The captured paths (a data-parallel step over an NCCL group of one
-among them) hold the CUDA graphs to the eager calls bit for bit; there the kernels' ``launches`` counters count
+among them, and, with two cards, a dp=1 × mp=2 grid's step over NCCL) hold
+the CUDA graphs to the eager calls bit for bit; there the kernels' ``launches`` counters count
 captures (a wrapper runs while a graph records it, not when it replays).
 The device-resident data paths (plain PyTorch ops: the frame bank, the
 augment, the eval bank, the scene synth) hold the card's batches to the
@@ -708,6 +709,111 @@ def test_captured_nccl_group_of_one_equals_eager(dev):
                 _bits(eager.optimizer.state[q]["momentum_buffer"]))
     finally:
         dist.destroy_process_group()
+
+
+GRID_WIDTHS = (96, 64, 64, 96, 64)
+GRID_EPOCHS = (15, 15, 16, 16, 16)
+
+
+def _grid_steps(dev, grid) -> dict:
+    """The tiny net's split step on ``grid`` captured by
+    ``drivers._precompile_buckets`` at 64² and 96² and run over
+    GRID_WIDTHS against the same grid's eager steps from the same state:
+    what this rank saw.  The graphs are freed when it returns."""
+    from singleshotpose_tpu_torch.training import (CapturedTrainStep,
+                                                   shard_train_state)
+    eager, cap = (shard_train_state(grid, _tiny_train_state(dev))
+                  for _ in range(2))
+    step = make_train_step(RegionLossConfig(), fused_stem=True, group=grid)
+    captured = _precompile_buckets(
+        make_train_step(RegionLossConfig(), fused_stem=True, group=grid),
+        cap, (64, 96), 2, 9)
+    _scribble(dev)
+    g = torch.Generator().manual_seed(13)
+    losses = []
+    for w, e in zip(GRID_WIDTHS, GRID_EPOCHS):
+        target = torch.zeros((2, 50, 21))
+        target[:, 0, 1:19] = torch.rand((2, 18), generator=g) * 0.6 + 0.2
+        target[:, 0, 19:21] = 0.3
+        x = torch.randint(0, 256, (2, w, w, 3), generator=g,
+                          dtype=torch.uint8).to(dev)
+        t = target.reshape(2, -1).to(dev)
+        losses.append((captured(cap, x, t, 1e-3, e)["loss"],
+                       step(eager, x, t, 1e-3, e)["loss"]))
+    torch.cuda.synchronize()
+    tensors = [(a, b) for a, b in zip(cap.model.state_dict().values(),
+                                      eager.model.state_dict().values())]
+    tensors += [(cap.optimizer.state[p]["momentum_buffer"],
+                 eager.optimizer.state[q]["momentum_buffer"])
+                for p, q in zip(cap.model.parameters(),
+                                eager.model.parameters())]
+    return {"captured": isinstance(captured, CapturedTrainStep),
+            "backend": grid.backend, "mp": grid.mp,
+            "split": cap.model.model_shards,
+            "replays": getattr(captured, "replays", None),
+            "seen": (cap.seen, eager.seen),
+            "losses": [float(got) for got, _ in losses],
+            "same_losses": all(torch.equal(_bits(a), _bits(b))
+                               for a, b in losses),
+            "same_state": all(torch.equal(_bits(a), _bits(b))
+                              for a, b in tensors),
+            "tensors": len(tensors)}
+
+
+def _grid_rank(rank: int, port: int, out: str) -> None:
+    """Rank ``rank`` (on cuda:<rank>) of a dp=1 × mp=2 grid over NCCL:
+    :func:`_grid_steps`, its result to ``out<rank>.pt``.  The process
+    group is destroyed once the graphs are freed: with a live graph of
+    the grid's communicators ProcessGroupNCCL's destroy waits forever."""
+    import datetime
+    import torch.distributed as dist
+    from singleshotpose_tpu_torch.parallel.multihost import (
+        initialize_distributed)
+    from singleshotpose_tpu_torch.parallel.sharding import make_dp_group
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    initialize_distributed(backend="nccl",
+                           init_method=f"tcp://localhost:{port}",
+                           world_size=2, rank=rank, device=dev,
+                           timeout=datetime.timedelta(seconds=120))
+    result = _grid_steps(dev, make_dp_group(1, 2, device=dev))
+    dist.destroy_process_group()
+    torch.save(result, f"{out}{rank}.pt")
+
+
+@pytest.mark.cuda
+def test_precompiled_buckets_on_an_nccl_grid_equal_eager(dev, tmp_path):
+    """A dp=1 × mp=2 grid over NCCL, one rank a card: the trainers'
+    ``_precompile_buckets`` returns a ``CapturedTrainStep`` of the split
+    step (the model group's channel gathers and input-gradient sums
+    recorded with the other collectives), and its replays over
+    interleaved widths and the pretrain gate give the eager grid steps'
+    losses, split parameters, BN statistics and momentum buffers bit for
+    bit on both ranks; the two ranks' losses agree."""
+    import time
+    from singleshotpose_tpu_torch.parallel.sharding import free_port
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL takes one rank a card, and a "
+                    "gloo grid's step cannot be captured")
+    ctx = torch.multiprocessing.start_processes(
+        _grid_rank, args=(free_port(), str(tmp_path / "rank")), nprocs=2,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + 180
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail("the grid's ranks did not finish in 180 s")
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    for r in ranks:
+        assert r["captured"] and r["backend"] == "nccl"
+        assert r["mp"] == r["split"] == 2
+        assert r["replays"] == len(GRID_WIDTHS)
+        assert r["seen"] == (2 * len(GRID_WIDTHS),) * 2
+        assert r["same_losses"] and r["same_state"] and r["tensors"] > 0
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    assert all(np.isfinite(ranks[0]["losses"]))
 
 
 @pytest.mark.cuda

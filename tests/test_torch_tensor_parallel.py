@@ -543,11 +543,11 @@ def test_mp_1_grid_is_the_dp_step(runs, grid):
 
 
 REFUSALS = {
-    "precompile_buckets": r"ValueError: precompile_buckets: a train step on "
-                          r"a dp×mp grid \(mp=\d\) is not captured yet.*"
-                          r"ROADMAP.md §1 item 3, its last point",
-    "capture": r"ValueError: a train step on a dp×mp grid \(mp=\d\) is not "
-               r"captured yet.*ROADMAP.md §1 item 3",
+    "precompile_buckets": r"ValueError: precompile_buckets: a data-parallel "
+                          r"step over a gloo group cannot be captured \(its "
+                          r"collectives run on the host",
+    "capture": r"ValueError: a data-parallel train step over a gloo group "
+               r"cannot be captured: its collectives run on the host",
     "grid_size": r"ValueError: dp=\d+ × mp=1 = \d+ but the process group "
                  r"has \d ranks",
     "grid_shape": r"ValueError: dp=\d × mp=\d = \d+ but the process group "
@@ -565,11 +565,13 @@ REFUSALS = {
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 @pytest.mark.parametrize("grid", GRIDS, ids=_gid)
 def test_refusals_name_their_reason(runs, grid, name):
-    """What the grid does not run yet raises with the reason and the
-    ROADMAP item: the captured step, by ``capture_train_step`` and by the
-    trainers' ``precompile_buckets``; and so do a dp·mp that is not the
-    process group's size, a split state split again or restored into, a
-    split model run without its grid and a whole one on it."""
+    """What the grid does not run raises with the reason: a captured step
+    over gloo, by ``capture_train_step`` and by the trainers'
+    ``precompile_buckets`` (a CPU grid's group is gloo, whose collectives
+    run on the host; an NCCL grid's step is captured); and so do a dp·mp
+    that is not the process group's size, a split state split again or
+    restored into, a split model run without its grid and a whole one on
+    it."""
     for r in ranks_of(runs, grid):
         msg = str(r[f"refusal/{name}"])
         assert re.match(REFUSALS[name], msg), msg

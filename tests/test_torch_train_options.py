@@ -339,6 +339,16 @@ def _nccl_stub(world=1):
                                  device=torch.device("cpu"))
 
 
+def _grid_stub(backend, dp, mp):
+    """What the capture and the drivers read of a data × model grid: the
+    data axis's ``world`` and ``rank``, the model axis's ``mp``."""
+    return types.SimpleNamespace(backend=backend, world=dp, rank=0, mp=mp,
+                                 model_rank=0, device=torch.device("cpu"))
+
+
+GRID_SHAPES = [(1, 2), (2, 2), (1, 4)]
+
+
 def _state(tspec):
     return TTr.init_train_state(Darknet(tspec), weight_decay=0.0,
                                 momentum=0.9)
@@ -372,6 +382,60 @@ def test_nccl_steps_are_not_refused_on_the_option():
     with pytest.raises(ValueError, match="needs a CUDA device"):
         TTr.capture_train_step(step, _state(TSpec(TINY_BLOCKS)), [64], 2,
                                1050)
+
+
+@pytest.mark.parametrize("dp,mp", GRID_SHAPES)
+def test_nccl_grid_steps_are_not_refused(dp, mp):
+    """An NCCL data × model grid with ``precompile_buckets`` passes the
+    drivers' check, and ``capture_train_step`` takes its step: on the CPU
+    it stops only at the device, as for a step with no group."""
+    rc = TDr.TrainRunConfig(group=_grid_stub("nccl", dp, mp),
+                            precompile_buckets=True)
+    TDr._check_dp_options(rc)
+    step = TTr.make_train_step(RegionLossConfig(),
+                               group=_grid_stub("nccl", dp, mp))
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        TTr.capture_train_step(step, _state(TSpec(TINY_BLOCKS)), [64], 2,
+                               1050)
+
+
+@pytest.mark.parametrize("dp,mp", GRID_SHAPES)
+def test_gloo_grid_steps_are_refused_with_the_gloo_reason(dp, mp):
+    """A gloo grid's captured step is refused by name, for gloo (its
+    collectives run on the host), by the drivers' check and by
+    ``capture_train_step``; no reason names the grid."""
+    rc = TDr.TrainRunConfig(group=_grid_stub("gloo", dp, mp),
+                            precompile_buckets=True)
+    with pytest.raises(ValueError, match=r"^precompile_buckets: a "
+                       "data-parallel step over a gloo group cannot be "
+                       r"captured \(its collectives run on the host"):
+        TDr._check_dp_options(rc)
+    step = TTr.make_train_step(RegionLossConfig(),
+                               group=_grid_stub("gloo", dp, mp))
+    with pytest.raises(ValueError, match="^a data-parallel train step over "
+                       "a gloo group cannot be captured: its collectives "
+                       "run on the host"):
+        TTr.capture_train_step(step, _state(TSpec(TINY_BLOCKS)), [64], 2,
+                               1050)
+
+
+@pytest.mark.parametrize("dp,mp", [(1, 2), (2, 2)])
+def test_captured_grid_step_counts_the_global_batch(dp, mp):
+    """On a grid a replay adds the data rank's rows times the data ranks
+    to ``seen`` — the global batch, JAX's count under ``make_mesh(dp,
+    mp)`` — not times every rank of the grid."""
+    state = _state(TSpec(TINY_BLOCKS))
+    step = TTr.make_train_step(RegionLossConfig(),
+                               group=_grid_stub("nccl", dp, mp))
+    images = torch.zeros((2, 64, 64, 3), dtype=torch.uint8)
+    graph = types.SimpleNamespace(replay=lambda: None)
+    captured = TTr.CapturedTrainStep(
+        step, state, {tuple(images.shape): (graph, images, {})},
+        torch.zeros((2, 1050)), torch.zeros(()),
+        torch.zeros((), dtype=torch.int64), {})
+    captured(state, images, torch.zeros((2, 1050)), 1e-3, 3)
+    captured(state, images, torch.zeros((2, 1050)), 1e-3, 3)
+    assert captured.replays == 2 and state.seen == 2 * 2 * dp
 
 
 @pytest.mark.parametrize("world", [None, 1, 2])
