@@ -47,6 +47,7 @@ from typing import Callable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..tracing import span
 from ..utils.labels import (label_path_from_image, mask_path_from_image,
                             read_truths, read_truths_args)
 from . import augment
@@ -306,7 +307,8 @@ class Loader:
     ``ops/yuv.py`` converts on the device; on the ``device`` backend u8
     images on ``device`` and host labels; on the ``device_bank`` backend
     both on ``device``; on the ``device_synth`` backend f32 images in
-    [0, 1] and labels, both on ``device``.
+    [0, 1] and labels, both on ``device``.  While a torch profiler records,
+    making each batch is the span ``ssp.loader.batch``.
 
     ``backend="auto"`` is ``native`` when the native library builds and the
     dataset has no scene synthesizer, else ``python``, as in JAX; it logs
@@ -446,43 +448,43 @@ class Loader:
         end = self.nbatches * self.batch_size if self.drop_last else len(order)
         for start in range(0, end, self.batch_size):
             idxs = order[start:start + self.batch_size]
-            shape = self._batch_shape()
-            if self.backend == "device_synth":
-                yield self._device_synth_batch(idxs, shape)
-                continue
-            if self.backend == "device_bank":
-                yield self._device_bank_batch(idxs, shape)
-                continue
-            if self.backend == "device":
-                yield self._device_batch(idxs, shape)
-                continue
-            if self.backend == "native":
-                yield self._native_batch(idxs, shape)
-                continue
-            if self.ds.train:
-                seeds = self.rng.randint(0, 2 ** 31 - 1, size=len(idxs))
-                def one(args):
-                    i, s = args
-                    return self.ds.get_train(int(i), shape,
-                                             np.random.RandomState(int(s)),
-                                             as_uint8=self.out_uint8)
-                work = list(zip(idxs, seeds))
-            else:
-                def one(i):
-                    img, lab = self.ds.get_test(int(i), shape)
-                    if self.out_uint8:
-                        img = (img * 255.0).astype(np.uint8)
-                    return img, lab
-                work = list(idxs)
+            with span("ssp.loader.batch"):
+                batch = self._batch(idxs, self._batch_shape())
+            yield batch
 
-            if self.pool is not None:
-                results = list(self.pool.map(one, work))
-            else:
-                results = [one(wk) for wk in work]
-            imgs = np.stack([r[0] for r in results])
-            labels = np.stack([r[1] for r in results])
-            self.seen += len(idxs)
-            yield imgs, labels
+    def _batch(self, idxs: np.ndarray, shape: Tuple[int, int]):
+        if self.backend == "device_synth":
+            return self._device_synth_batch(idxs, shape)
+        if self.backend == "device_bank":
+            return self._device_bank_batch(idxs, shape)
+        if self.backend == "device":
+            return self._device_batch(idxs, shape)
+        if self.backend == "native":
+            return self._native_batch(idxs, shape)
+        if self.ds.train:
+            seeds = self.rng.randint(0, 2 ** 31 - 1, size=len(idxs))
+            def one(args):
+                i, s = args
+                return self.ds.get_train(int(i), shape,
+                                         np.random.RandomState(int(s)),
+                                         as_uint8=self.out_uint8)
+            work = list(zip(idxs, seeds))
+        else:
+            def one(i):
+                img, lab = self.ds.get_test(int(i), shape)
+                if self.out_uint8:
+                    img = (img * 255.0).astype(np.uint8)
+                return img, lab
+            work = list(idxs)
+
+        if self.pool is not None:
+            results = list(self.pool.map(one, work))
+        else:
+            results = [one(wk) for wk in work]
+        imgs = np.stack([r[0] for r in results])
+        labels = np.stack([r[1] for r in results])
+        self.seen += len(idxs)
+        return imgs, labels
 
     def _rows(self, B: int) -> Optional[slice]:
         """This rank's rows of a global batch of ``B`` under ``group``."""

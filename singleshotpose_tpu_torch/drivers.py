@@ -69,6 +69,7 @@ from .ops.losses import RegionLossConfig
 from .parallel.multihost import process_local_indices
 from .parallel.sharding import DPGroup, all_gather_rows, pad_rows
 from .serving import make_serving_fn
+from .tracing import span
 from .training import (TrainState, capture_train_step, gather_model_whole,
                        init_train_state, make_train_step, schedule_lr,
                        shard_train_state)
@@ -1070,13 +1071,15 @@ def _multi_eval_and_keep_best(eval_datacfgs, spec, state, rc, device,
 
 def _to_device(a, device: torch.device) -> torch.Tensor:
     """A batch on ``device``: a tensor (a device backend's) as it is; a host
-    array to a card through pinned memory, without waiting for the copy."""
-    if isinstance(a, torch.Tensor):
-        return a.to(device)
-    t = torch.from_numpy(a)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    array to a card through pinned memory, without waiting for the copy;
+    the span ``ssp.train.to_device``."""
+    with span("ssp.train.to_device"):
+        if isinstance(a, torch.Tensor):
+            return a.to(device)
+        t = torch.from_numpy(a)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
 
 
 def _precompile_buckets(step: Callable, state: TrainState,
@@ -1120,7 +1123,9 @@ class _ProfileWindow:
     batches from ``rc.profile_steps[0]`` to ``rc.profile_steps[1]``, written
     as a chrome trace under ``rc.profile_dir`` (the JAX package's
     ``jax.profiler`` window, ``singleshotpose_tpu/drivers.py:944-955``); a
-    run that ends inside the window writes what it traced."""
+    run that ends inside the window writes what it traced.  Every thread is
+    profiled, so the loader's ``ssp.loader.batch`` spans on the prefetch
+    thread have their own lane beside the step's ``ssp.train.*`` spans."""
 
     def __init__(self, rc: TrainRunConfig, device: torch.device):
         # data parallel: rank 0 traces its own steps
@@ -1134,7 +1139,10 @@ class _ProfileWindow:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
-            self._prof = torch.profiler.profile(activities=acts)
+            every_thread = torch._C._profiler._ExperimentalConfig(
+                profile_all_threads=True)
+            self._prof = torch.profiler.profile(
+                activities=acts, experimental_config=every_thread)
             self._prof.__enter__()
 
     def after(self, processed: int) -> None:

@@ -28,6 +28,7 @@ from .models.darknet import DarknetSpec, apply_folded
 from .models.quantize import Int8Forward
 from .ops.decode import (best_box_for_class, best_boxes, best_boxes_per_class,
                          decode_grid)
+from .tracing import span
 
 __all__ = ["make_serving_fn", "aot_serving", "export_serving", "save_exported",
            "load_serving", "MicroBatcher"]
@@ -199,10 +200,14 @@ def aot_serving(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
     or a numpy array) into the graph's input on the current stream, replays
     the graph (counted in the function's ``replays``) and returns a clone of
     its outputs, so a later call cannot overwrite a result not yet read.
-    With the weights on the CPU the function runs eagerly.  Either way any
-    other shape or dtype raises.  Capture before a :class:`MicroBatcher`
-    that serves it starts (``start=False``): it raises while any
-    MicroBatcher's threads run.
+    While a torch profiler records, the frames' check and copy are the span
+    ``ssp.serve.copy_in`` (:mod:`~singleshotpose_tpu_torch.tracing`); the
+    replay and the clone have none, as a range around them costs a traced
+    call more than it tells.  With the weights on the CPU the function runs
+    eagerly on the frames where they are, ``ssp.serve.copy_in`` their check
+    alone.  Either way any other shape or dtype raises.  Capture before a
+    :class:`MicroBatcher` that serves it starts (``start=False``): it
+    raises while any MicroBatcher's threads run.
     """
     serve = make_serving_fn(spec, folded, pick=pick,
                             compute_dtype=compute_dtype)
@@ -218,7 +223,11 @@ def aot_serving(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
         return images
 
     if device.type != "cuda":
-        return lambda images: serve(checked(images))
+        def eager(images):
+            with span("ssp.serve.copy_in"):
+                images = checked(images)
+            return serve(images)
+        return eager
 
     with _RUNNING_LOCK:
         if _RUNNING:
@@ -237,7 +246,8 @@ def aot_serving(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
         static_out = serve(static_in)
 
     def replay(images):
-        static_in.copy_(checked(images))
+        with span("ssp.serve.copy_in"):
+            static_in.copy_(checked(images))
         graph.replay()
         replay.replays += 1
         return _map(torch.Tensor.clone, static_out)

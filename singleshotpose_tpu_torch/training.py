@@ -39,6 +39,7 @@ from .models.darknet import ConvBlock, Darknet, apply_folded, fold_batchnorm
 from .ops.losses import RegionLossConfig, region_loss
 from .parallel.sharding import (DPGroup, all_reduce_grads, all_reduce_sum_,
                                 broadcast_, broadcast_model_, gather_model)
+from .tracing import span
 
 __all__ = ["TrainState", "init_train_state", "no_decay_mask_for",
            "shard_train_state", "gather_train_state", "gather_model_whole",
@@ -363,7 +364,10 @@ class CapturedTrainStep:
     Each call copies its arguments into the graphs' static inputs on the
     current stream, replays the graph of the images' shape, adds the batch
     (the global batch under data parallelism) to ``state.seen`` and returns
-    a clone of the graph's stats, which the next replay overwrites.  ``replays`` counts the replays; the kernels'
+    a clone of the graph's stats, which the next replay overwrites: the
+    spans ``ssp.train.copy_in``, ``ssp.train.replay`` and
+    ``ssp.train.stats_clone`` while a torch profiler records.
+    ``replays`` counts the replays; the kernels'
     own ``launches`` counters ran once per graph, at its capture.
     ``capture_seconds``: for each images shape captured, the host seconds
     its warm-up steps and capture took.  Any other state, images shape or
@@ -399,14 +403,17 @@ class CapturedTrainStep:
             raise ValueError(f"target {tuple(target.shape)} != the captured "
                              f"{tuple(self._target.shape)}")
         graph, static_images, stats = entry
-        static_images.copy_(images)
-        self._target.copy_(target)
-        _set(self._lr, lr)
-        _set(self._epoch, epoch)
-        graph.replay()
+        with span("ssp.train.copy_in"):
+            static_images.copy_(images)
+            self._target.copy_(target)
+            _set(self._lr, lr)
+            _set(self._epoch, epoch)
+        with span("ssp.train.replay"):
+            graph.replay()
         self.replays += 1
         state.seen += images.shape[0] * self._world
-        return {k: v.clone() for k, v in stats.items()}
+        with span("ssp.train.stats_clone"):
+            return {k: v.clone() for k, v in stats.items()}
 
 
 # eager steps on a side stream before each capture: they build the kernels'

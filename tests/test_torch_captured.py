@@ -201,7 +201,9 @@ def test_run_training_multi_with_precompile_buckets_trains_the_same(
 
 def test_cli_train_precompile_buckets_and_profile_dir(synth, capsys):
     """Four epochs of three batches take the processed batches past the
-    profiler window's default steps 5-10."""
+    profiler window's default steps 5-10; the trace holds the step's
+    ``ssp.train.to_device`` spans and, in the prefetch thread's own lane,
+    the loader's ``ssp.loader.batch``."""
     datacfg, cfgfile, tmp = synth
     prof = str(tmp / "profile")
     assert tcli(["train", "--datacfg", datacfg, "--modelcfg", cfgfile,
@@ -215,6 +217,10 @@ def test_cli_train_precompile_buckets_and_profile_dir(synth, capsys):
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
     assert any("conv" in e.get("name", "") for e in events)
+    lanes = {name: {e["tid"] for e in events if e.get("name") == name}
+             for name in ("ssp.train.to_device", "ssp.loader.batch")}
+    assert all(lanes.values()), lanes
+    assert lanes["ssp.train.to_device"].isdisjoint(lanes["ssp.loader.batch"])
 
 
 @pytest.fixture(scope="module")

@@ -43,6 +43,7 @@ from singleshotpose_tpu_torch.models.darknet import (DarknetSpec, Darknet,
 from singleshotpose_tpu_torch.ops import max_corner_confidence as mcc
 from singleshotpose_tpu_torch.models import quantize
 from singleshotpose_tpu_torch.ops import int8_conv, stem
+from singleshotpose_tpu_torch import tracing
 from singleshotpose_tpu_torch.ops.targets import build_targets
 from singleshotpose_tpu_torch.training import (capture_train_step,
                                                init_train_state,
@@ -627,7 +628,8 @@ def test_precompiled_buckets_fed_as_the_trainers_feed_them(dev, tmp_path):
     fed host batches through ``drivers._to_device`` (pinned, non-blocking,
     no sync between steps) over interleaved widths it gives the eager
     steps' losses and weights bit for bit, and the trainers' profiler
-    window traces its replays' kernels."""
+    window traces its replays' kernels and its ``ssp.train.*`` spans, one
+    of each a step of the window."""
     step = make_train_step(RegionLossConfig(), fused_stem=True)
     eager, cap = _tiny_train_state(dev), _tiny_train_state(dev)
     captured = _precompile_buckets(
@@ -645,6 +647,7 @@ def test_precompiled_buckets_fed_as_the_trainers_feed_them(dev, tmp_path):
                         target.reshape(2, -1)))
     window = _ProfileWindow(TrainRunConfig(profile_dir=str(tmp_path),
                                            profile_steps=(1, 4)), dev)
+    tracing.reset()
     losses = []
     for i, (x, t) in enumerate(batches):
         window.before(i)
@@ -664,6 +667,12 @@ def test_precompiled_buckets_fed_as_the_trainers_feed_them(dev, tmp_path):
     with open(tmp_path / "train_steps_1_4.json") as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
+    for name in ("ssp.train.copy_in", "ssp.train.replay",
+                 "ssp.train.stats_clone"):
+        assert sum(r.name == name for r in tracing.records()) == 3, name
+        assert sum(e.get("name") == name and e.get("cat") == "user_annotation"
+                   for e in events) == 3, name
+    tracing.reset()
 
 
 @pytest.mark.cuda
