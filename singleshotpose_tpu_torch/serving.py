@@ -178,6 +178,12 @@ def _map(fn, out):
     return type(out)(*(_map(fn, v) for v in out))
 
 
+def _bytes(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor's bytes as a flat numpy array (a view of a contiguous
+    tensor)."""
+    return t.reshape(-1).view(torch.uint8).numpy()
+
+
 # The MicroBatchers whose threads run.  A CUDA graph capture in CUDA's
 # global mode fails when another thread of the process uses the card
 # meanwhile, so aot_serving refuses to capture while one runs; the set is
@@ -196,18 +202,37 @@ def aot_serving(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
     On a card the function's body — u8 normalize, the folded forward with
     the serving stem's kernel (or, over an int8 pytree, the int8 forward
     with the int8 conv kernel), decode and the pick — is recorded once as a
-    CUDA graph after a warm-up call.  Each call copies its frames (a tensor
-    or a numpy array) into the graph's input on the current stream, replays
-    the graph (counted in the function's ``replays``) and returns a clone of
-    its outputs, so a later call cannot overwrite a result not yet read.
-    While a torch profiler records, the frames' check and copy are the span
-    ``ssp.serve.copy_in`` (:mod:`~singleshotpose_tpu_torch.tracing`); the
-    replay and the clone have none, as a range around them costs a traced
-    call more than it tells.  With the weights on the CPU the function runs
-    eagerly on the frames where they are, ``ssp.serve.copy_in`` their check
-    alone.  Either way any other shape or dtype raises.  Capture before a
-    :class:`MicroBatcher` that serves it starts (``start=False``): it
-    raises while any MicroBatcher's threads run.
+    CUDA graph after a warm-up call.  Each call fills the graph's input with
+    its frames, replays the graph on the current stream (counted in the
+    function's ``replays``) and returns a clone of its outputs, so a later
+    call cannot overwrite a result not yet read.  Nothing in a call waits
+    for the card: it returns once its work is queued.
+
+    Frames on the host (a CPU tensor or a numpy array) take a staged way in,
+    counted in ``staged``, so that their copy to the card runs on the copy
+    engine while the previous call's graph runs.  The function holds two
+    pinned host slots and two landing slots on the card of the input's shape,
+    taken in turn, and a stream of its own for the copies.  The host copies
+    the frames into pinned slot ``k``, so the caller's array is free once
+    the call returns; the copy stream waits for the event that says the
+    graph's input has taken landing slot ``k``'s last frames, copies pinned
+    ``k`` into landing ``k`` without blocking and records that the frames
+    landed; the current stream waits for that and copies landing ``k`` into
+    the graph's input.  Before refilling a pinned slot the host waits for
+    that slot's previous copy to the card to end; ``slot_waits`` counts the
+    calls that found it still running (with two calls in flight, none does).
+    Frames already on the card are copied into the graph's input on the
+    current stream.  While a torch profiler records, the frames' check and
+    their way into the graph's input are the span ``ssp.serve.copy_in``
+    (:mod:`~singleshotpose_tpu_torch.tracing`); the replay and the clone
+    have none, as a range around them costs a traced call more than it
+    tells.
+
+    With the weights on the CPU the function runs eagerly on the frames
+    where they are, ``ssp.serve.copy_in`` their check alone.  Either way any
+    other shape or dtype raises.  Capture before a :class:`MicroBatcher`
+    that serves it starts (``start=False``): it raises while any
+    MicroBatcher's threads run.
     """
     serve = make_serving_fn(spec, folded, pick=pick,
                             compute_dtype=compute_dtype)
@@ -245,14 +270,46 @@ def aot_serving(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
     with torch.cuda.graph(graph, stream=side):
         static_out = serve(static_in)
 
+    pinned = [torch.empty(shape, dtype=input_dtype, pin_memory=True)
+              for _ in range(2)]
+    pinned_bytes = [_bytes(slot) for slot in pinned]
+    landing = [torch.empty(shape, dtype=input_dtype, device=device)
+               for _ in range(2)]
+    copier = torch.cuda.Stream(device)
+    for slot in landing:
+        # written on the copy stream: freed, its memory waits for that too
+        slot.record_stream(copier)
+    landed = [torch.cuda.Event() for _ in range(2)]
+    taken = [torch.cuda.Event() for _ in range(2)]
+
     def replay(images):
         with span("ssp.serve.copy_in"):
-            static_in.copy_(checked(images))
+            images = checked(images)
+            if images.device.type != "cpu":
+                static_in.copy_(images)
+            else:
+                k = replay.staged % 2
+                replay.staged += 1
+                if not landed[k].query():
+                    replay.slot_waits += 1
+                    landed[k].synchronize()
+                # on this thread alone: Tensor.copy_ splits a copy this size
+                # over the intra-op threads, and one of them scheduled late
+                # holds the call for milliseconds
+                np.copyto(pinned_bytes[k], _bytes(images))
+                copier.wait_event(taken[k])
+                with torch.cuda.stream(copier):
+                    landing[k].copy_(pinned[k], non_blocking=True)
+                    landed[k].record()
+                stream = torch.cuda.current_stream(device)
+                stream.wait_event(landed[k])
+                static_in.copy_(landing[k])
+                taken[k].record(stream)
         graph.replay()
         replay.replays += 1
         return _map(torch.Tensor.clone, static_out)
 
-    replay.replays = 0
+    replay.replays = replay.staged = replay.slot_waits = 0
     # the graph reads tensors that only ``serve`` holds (the u8 divisor, a
     # for_class pick's class, the int8 forward's scales and packed
     # weights): freed, their memory would be reused under it

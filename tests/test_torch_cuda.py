@@ -28,6 +28,7 @@ where the kernel does), and so does the int8 serve built on each.
 """
 
 import json
+import threading
 from unittest import mock
 
 import numpy as np
@@ -852,22 +853,105 @@ def _tiny_folded(dev):
 @pytest.mark.cuda
 def test_aot_serving_result_survives_a_later_call(dev):
     """The graph's outputs are cloned out: an answer not yet read keeps its
-    values after the next replay; each equals the eager serve bit for bit."""
+    values after the next replay; each equals the eager serve bit for bit,
+    whether its frames came from the host (staged through the pinned slots)
+    or were on the card already (copied straight in, not staged)."""
     spec, folded = _tiny_folded(dev)
     fn = aot_serving(spec, folded, batch=2, width=64, height=64)
     _scribble(dev)
     serve = make_serving_fn(spec, folded, pick=("best",))
     g = torch.Generator().manual_seed(10)
-    x1, x2 = (torch.randint(0, 256, (2, 64, 64, 3), generator=g,
-                            dtype=torch.uint8) for _ in range(2))
+    x1, x2, x3 = (torch.randint(0, 256, (2, 64, 64, 3), generator=g,
+                                dtype=torch.uint8) for _ in range(3))
     a = fn(x1)
     b = fn(x2.to(dev))
+    c = fn(x3.numpy())
     torch.cuda.synchronize()
-    assert fn.replays == 2
+    assert fn.replays == 3 and fn.staged == 2 and fn.slot_waits == 0
     assert torch.equal(a, serve(x1)) and torch.equal(b, serve(x2))
-    assert not torch.equal(a, b)
+    assert torch.equal(c, serve(x3))
+    assert not torch.equal(a, b) and not torch.equal(b, c)
     with pytest.raises(ValueError, match="takes"):
         fn(x1[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("as_numpy", [True, False])
+def test_aot_serving_takes_the_frames_before_it_returns(dev, as_numpy):
+    """Eight calls launched back to back on four batches, none read or
+    synchronised between them, the caller's frames overwritten in place
+    after each call: every answer is the eager serve's on the frames as
+    they were at the call, bit for bit.  So a call has copied its frames
+    out of the caller's memory before it returns, and no pinned slot is
+    refilled while its copy to the card runs."""
+    spec, folded = _tiny_folded(dev)
+    fn = aot_serving(spec, folded, batch=2, width=64, height=64)
+    _scribble(dev)
+    serve = make_serving_fn(spec, folded, pick=("best",))
+    g = torch.Generator().manual_seed(11)
+    batches = [torch.randint(0, 256, (2, 64, 64, 3), generator=g,
+                             dtype=torch.uint8) for _ in range(4)]
+    frames = torch.empty((2, 64, 64, 3), dtype=torch.uint8)
+    caller = frames.numpy() if as_numpy else frames
+    answers = []
+    for i in range(8):
+        frames.copy_(batches[i % 4])
+        answers.append(fn(caller))
+        frames.fill_(i)              # the caller reuses its buffer at once
+    torch.cuda.synchronize()
+    assert fn.staged == 8 and fn.replays == 8
+    for i, got in enumerate(answers):
+        assert torch.equal(got, serve(batches[i % 4])), i
+    assert not torch.equal(answers[0], answers[1])
+
+
+@pytest.mark.cuda
+def test_aot_serving_behind_a_batcher_with_concurrent_clients(dev):
+    """Two graph serves, buckets 1 and 2, behind one MicroBatcher, fed by
+    four client threads at once: each batch the batcher formed is answered
+    as the eager serve answers it, bit for bit, every frame gets its row of
+    its batch, and every call took the staged way in."""
+    spec, folded = _tiny_folded(dev)
+    fns = {b: aot_serving(spec, folded, batch=b, width=64, height=64)
+           for b in (1, 2)}
+    _scribble(dev)
+    serve = make_serving_fn(spec, folded, pick=("best",))
+    frames = torch.randint(0, 256, (16, 64, 64, 3),
+                           generator=torch.Generator().manual_seed(12),
+                           dtype=torch.uint8).numpy()
+    ran = []
+
+    def recorded(b):
+        def fn(imgs):
+            out = fns[b](imgs)
+            ran.append((imgs.copy(), out))
+            return out
+        return fn
+
+    answers = [None] * len(frames)
+    mb = MicroBatcher({b: recorded(b) for b in fns}, height=64, width=64,
+                      buckets=(1, 2), max_delay_ms=1.0, start=False)
+    with mb:
+        def client(c):
+            for i in range(c, len(frames), 4):
+                answers[i] = mb.infer(frames[i], timeout=60)
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert sum(fn.staged for fn in fns.values()) == len(ran)
+    assert sum(fn.replays for fn in fns.values()) == len(ran)
+    rows = {}
+    for imgs, out in ran:
+        want = serve(imgs).cpu()
+        assert torch.equal(out.cpu(), want)
+        for j, img in enumerate(imgs):
+            rows.setdefault(img.tobytes(), []).append(want[j])
+    for frame, got in zip(frames, answers):
+        assert any(torch.equal(got, w) for w in rows[frame.tobytes()])
 
 
 @pytest.mark.cuda
@@ -1265,7 +1349,8 @@ def test_int8_aot_serving_equals_eager(dev):
         got = fn(x)
         assert int8_conv.int8_conv.launches == mark
         assert torch.equal(_bits(got), _bits(serve(x)))
-    assert fn.replays == 2 and recorded == 2 * 7    # warm-up and capture
+    assert fn.replays == fn.staged == 2
+    assert recorded == 2 * 7                        # warm-up and capture
 
 
 @pytest.mark.cuda
