@@ -1,0 +1,10 @@
+"""The Darknet-53 trunk of a net with several heads: device ms a batch of
+the work launched under the program's span ``ssp.net.trunk`` (the layers up
+to the last shortcut), from eager serving calls on one pool batch after the
+traced window (``runners/serve_heads.py``)."""
+
+
+def read(r):
+    if r.get("kind") != "serve" or r.get("trace") is None:
+        return None
+    return r.get("trunk_ms")

@@ -43,7 +43,8 @@ other's), with ``--checkpoint_dir`` in place of
 the artifact (``torch.export``) is traced on that device, and
 ``serving.load_serving(path, device=)`` runs it on any device (the card by
 default), its kernels' ops dispatching by device.  ``--modelcfg`` also takes
-the zoo names ``yolo-pose``, ``yolo-pose-multi``, ``yolo-pose-pre``.  The
+the zoo names ``yolo-pose``, ``yolo-pose-multi``, ``yolo-pose-pre`` and
+``yolov3-pose`` (which trains, quantizes and exports not yet).  The
 default device is ``cuda``: without a CUDA device a command fails rather
 than run on the CPU; ``--device cpu`` asks for the CPU explicitly.
 

@@ -23,9 +23,12 @@ __all__ = [
     "read_data_cfg",
     "NetConfig",
     "RegionConfig",
+    "YoloConfig",
     "DataConfig",
     "net_config_from_block",
     "region_config_from_block",
+    "yolo_config_from_block",
+    "upsample_stride_from_block",
     "data_config_from_options",
     "occlusion_sweep",
     "format_cfg_table",
@@ -188,6 +191,45 @@ def region_config_from_block(block: Dict[str, str]) -> RegionConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class YoloConfig:
+    """Typed view of a YOLOv3 ``[yolo]`` block (darknet's
+    ``cfg/yolov3.cfg``): the anchors it uses (``mask`` indexes the
+    ``anchors`` pairs), the class count and the total anchor count ``num``.
+    The pose decode uses no anchor, so the anchors are carried only; the
+    block's training keys (``jitter``, ``ignore_thresh``, ...) stay in the
+    raw block."""
+
+    mask: Tuple[int, ...] = ()
+    anchors: Tuple[float, ...] = ()
+    classes: int = 1
+    num: int = 1
+
+    @property
+    def num_anchors(self) -> int:
+        """The anchors of this head: those its ``mask`` names."""
+        return len(self.mask)
+
+
+def yolo_config_from_block(block: Dict[str, str]) -> YoloConfig:
+    assert block.get("type") == "yolo"
+    kw: Dict[str, object] = {}
+    if "mask" in block:
+        kw["mask"] = tuple(int(v) for v in _floats(block["mask"]))
+    if "anchors" in block:
+        kw["anchors"] = _floats(block["anchors"])
+    for key in ("classes", "num"):
+        if key in block:
+            kw[key] = int(block[key])
+    return YoloConfig(**kw)
+
+
+def upsample_stride_from_block(block: Dict[str, str]) -> int:
+    """An ``[upsample]`` block's stride (darknet's default 2)."""
+    assert block.get("type") == "upsample"
+    return int(block.get("stride", 2))
+
+
+@dataclasses.dataclass(frozen=True)
 class DataConfig:
     """Typed view of a ``.data`` file (reference: e.g. ``cfg/ape.data:1-14``)."""
 
@@ -338,6 +380,16 @@ def format_cfg_table(blocks: Sequence[Dict[str, str]]) -> str:
                 prev_filters = out_filters[layers[0]] + out_filters[layers[1]]
         elif btype == "region":
             lines.append("%5d %-6s" % (ind, "detection"))
+        elif btype == "yolo":
+            lines.append("%5d %-6s" % (ind, "yolo"))
+        elif btype == "upsample":
+            stride = upsample_stride_from_block(block)
+            width, height = prev_width * stride, prev_height * stride
+            lines.append(
+                "%5d %-6s           %2dx   %3d x %3d x%4d   ->   %3d x %3d x%4d"
+                % (ind, "upsample", stride, prev_width, prev_height,
+                   prev_filters, width, height, prev_filters))
+            prev_width, prev_height = width, height
         elif btype == "shortcut":
             from_id = int(block["from"])
             from_id = from_id if from_id > 0 else from_id + ind

@@ -527,7 +527,9 @@ def loss_config_from_spec(spec: DarknetSpec, *, pretrain_num_epochs: int,
     (``singleshotpose_tpu/drivers.py:67-95``) — or, with
     ``honor_cfg_scales``, the [region] block's scales and ``thresh``;
     ``multi`` adds the class term where the region has more than one
-    class."""
+    class.  A net with several [yolo] heads has no region loss yet
+    (``ValueError``)."""
+    spec.require_one_head("the region loss (training)")
     r = spec.region
     scales = dict(coord_scale=r.coord_scale, noobject_scale=r.noobject_scale,
                   object_scale=r.object_scale, class_scale=r.class_scale,

@@ -12,10 +12,18 @@ the serving kernel in ``ops/stem.py``.
 Layout: NHWC at the public boundary (images ``(B, H, W, 3)`` in, the head
 ``(B, H/32, W/32, D)`` out, as in the JAX package), channels_last NCHW inside
 so cuDNN runs its NHWC convolutions.
+
+A YOLOv3-style net (``[upsample]`` layers and one ``[yolo]`` block a head,
+which the JAX package does not parse) has several heads: each ``[yolo]``
+block marks its input as one, and the forwards return a tuple of NHWC heads
+in cfg order in place of the one head.  While a profiler records, such a
+forward's layers are the spans ``ssp.net.trunk`` (up to the last shortcut)
+and ``ssp.net.neck`` (the rest, through the last head conv).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -24,19 +32,22 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..config import (NetConfig, RegionConfig, format_cfg_table,
+from ..config import (NetConfig, RegionConfig, YoloConfig, format_cfg_table,
                       net_config_from_block, parse_cfg,
-                      region_config_from_block)
+                      region_config_from_block, upsample_stride_from_block,
+                      yolo_config_from_block)
 from ..ops import stem
 from ..parallel.sharding import (DPGroup, channel_rows, copy_to_model,
                                   gather_channels, gather_model,
                                   shards_channels)
+from ..tracing import span
 from . import layers as L
 
 __all__ = ["ConvSpec", "MaxPoolSpec", "ReorgSpec", "RouteSpec",
            "ShortcutSpec", "AvgPoolSpec", "SoftmaxSpec", "ConnectedSpec",
-           "RegionSpec", "DarknetSpec", "Darknet", "fold_batchnorm",
-           "apply_folded", "shard_folded", "gather_folded", "stem_supported"]
+           "RegionSpec", "UpsampleSpec", "YoloSpec", "DarknetSpec", "Darknet",
+           "fold_batchnorm", "apply_folded", "shard_folded", "gather_folded",
+           "stem_supported"]
 
 
 # ---------------------------------------------------------------------------
@@ -102,8 +113,21 @@ class RegionSpec:
     region: RegionConfig
 
 
+@dataclasses.dataclass(frozen=True)
+class UpsampleSpec:
+    stride: int
+
+
+@dataclasses.dataclass(frozen=True)
+class YoloSpec:
+    """A ``[yolo]`` block: marks its input as a head; a no-op in the
+    forward (the pose decode applies its own activations)."""
+    yolo: YoloConfig
+
+
 LayerSpec = Union[ConvSpec, MaxPoolSpec, ReorgSpec, RouteSpec, ShortcutSpec,
-                  AvgPoolSpec, SoftmaxSpec, ConnectedSpec, RegionSpec]
+                  AvgPoolSpec, SoftmaxSpec, ConnectedSpec, RegionSpec,
+                  UpsampleSpec, YoloSpec]
 
 
 class DarknetSpec:
@@ -171,6 +195,11 @@ class DarknetSpec:
             elif btype == "region":
                 self.region = region_config_from_block(block)
                 self.layers.append(RegionSpec(self.region))
+            elif btype == "upsample":
+                self.layers.append(UpsampleSpec(
+                    upsample_stride_from_block(block)))
+            elif btype == "yolo":
+                self.layers.append(YoloSpec(yolo_config_from_block(block)))
             else:
                 raise ValueError(f"unknown block type {btype!r}")
             out_filters.append(prev_filters)
@@ -186,6 +215,30 @@ class DarknetSpec:
                 needed.add(i - 1)
         self._live = frozenset(needed)
 
+        # the [yolo] heads, in cfg order, and where the trunk and the neck end
+        self.heads: Tuple[YoloConfig, ...] = tuple(
+            l.yolo for l in self.layers if isinstance(l, YoloSpec))
+        if self.heads:
+            if self.region is not None:
+                raise ValueError("a cfg has [yolo] heads or a [region] "
+                                 "head, not both")
+            for y in self.heads:
+                if (y.classes, y.num_anchors) != (self.heads[0].classes,
+                                                  self.heads[0].num_anchors):
+                    raise ValueError(
+                        "every [yolo] head must have the same classes and "
+                        "anchor count, to decode into one grid")
+                if not y.num_anchors:
+                    raise ValueError("a [yolo] block needs a mask")
+            yolo = [i for i, l in enumerate(self.layers)
+                    if isinstance(l, YoloSpec)]
+            shortcuts = [i for i, l in enumerate(self.layers)
+                         if isinstance(l, ShortcutSpec)]
+            # the trunk: up to the last shortcut; the neck: through the
+            # conv that feeds the last head
+            self.trunk_end = shortcuts[-1] if shortcuts else -1
+            self.neck_end = yolo[-1] - 1
+
     @classmethod
     def from_cfg(cls, cfgfile: str) -> "DarknetSpec":
         return cls(parse_cfg(cfgfile))
@@ -196,11 +249,26 @@ class DarknetSpec:
 
     @property
     def num_classes(self) -> int:
+        if self.heads:
+            return self.heads[0].classes
         return self.region.classes if self.region else 0
 
     @property
     def num_anchors(self) -> int:
+        """The anchors of the head (of each head, in a net with [yolo]
+        heads)."""
+        if self.heads:
+            return self.heads[0].num_anchors
         return self.region.num if self.region else 1
+
+    def require_one_head(self, what: str) -> None:
+        """Raise ``ValueError`` when the net has [yolo] heads: ``what`` is a
+        path that knows one head."""
+        if self.heads:
+            raise ValueError(
+                f"{what} knows one head of one grid; this net has "
+                f"{len(self.heads)} [yolo] heads (a net with several heads "
+                "is served by serving.make_serving_fn and aot_serving)")
 
     @property
     def anchors(self) -> Tuple[float, ...]:
@@ -286,32 +354,55 @@ def _walk_other(spec: DarknetSpec, lspec, i: int, x: torch.Tensor,
         flat = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1) \
             if x.dim() == 4 else x
         return _activate(flat.float() @ w.t().float() + b, lspec.activation)
-    if isinstance(lspec, RegionSpec):
+    if isinstance(lspec, UpsampleSpec):
+        return L.upsample_nearest(x, lspec.stride)
+    if isinstance(lspec, (RegionSpec, YoloSpec)):
         return x
     raise ValueError(f"unhandled layer spec {lspec!r}")
 
 
+def _segments(spec: DarknetSpec, start: int):
+    """``spec.layers[start:]`` as (first, end, span name or None) runs: one
+    unnamed run, or for a net with [yolo] heads the trunk's, the neck's and
+    what follows the last head conv."""
+    n = len(spec.layers)
+    if not spec.heads:
+        return [(start, n, None)]
+    trunk, neck = spec.trunk_end + 1, spec.neck_end + 1
+    return [(max(start, lo), hi, name) for lo, hi, name in
+            ((start, trunk, "ssp.net.trunk"), (trunk, neck, "ssp.net.neck"),
+             (neck, n, None)) if hi > max(start, lo)]
+
+
 def _walk(spec: DarknetSpec, x: torch.Tensor, conv_fn, fc_params,
-          start: int = 0, gather=None) -> torch.Tensor:
+          start: int = 0, gather=None):
     """Run ``spec.layers[start:]`` on NCHW ``x``.  ``conv_fn(spec, x)``
     supplies the conv + norm + bias body; every other layer type has one
     implementation here, and only outputs a later layer re-reads are kept.
     ``gather(spec, x)``, when given, takes each conv's activated output (on
-    a data × model grid: a split conv's channels gathered)."""
+    a data × model grid: a split conv's channels gathered).  Returns the
+    last layer's output, or for a net with [yolo] heads the tuple of each
+    head's input, in cfg order."""
     cache: Dict[int, torch.Tensor] = {}
-    for i, lspec in enumerate(spec.layers[start:], start):
-        if isinstance(lspec, ConvSpec):
-            x = _activate(conv_fn(lspec, x), lspec.activation)
-            if gather is not None:
-                x = gather(lspec, x)
-        elif isinstance(lspec, MaxPoolSpec):
-            x = L.max_pool(x, lspec.size, lspec.stride) if lspec.stride > 1 \
-                else L.max_pool_stride1(x)
-        else:
-            x = _walk_other(spec, lspec, i, x, cache, fc_params)
-        if i in spec._live:
-            cache[i] = x
-    return x
+    heads: List[torch.Tensor] = []
+    for lo, hi, name in _segments(spec, start):
+        with span(name) if name else contextlib.nullcontext():
+            for i in range(lo, hi):
+                lspec = spec.layers[i]
+                if isinstance(lspec, ConvSpec):
+                    x = _activate(conv_fn(lspec, x), lspec.activation)
+                    if gather is not None:
+                        x = gather(lspec, x)
+                elif isinstance(lspec, MaxPoolSpec):
+                    x = L.max_pool(x, lspec.size, lspec.stride) \
+                        if lspec.stride > 1 else L.max_pool_stride1(x)
+                else:
+                    if isinstance(lspec, YoloSpec):
+                        heads.append(x)
+                    x = _walk_other(spec, lspec, i, x, cache, fc_params)
+                if i in spec._live:
+                    cache[i] = x
+    return tuple(heads) if spec.heads else x
 
 
 def _to_nchw(images: torch.Tensor) -> torch.Tensor:
@@ -322,7 +413,11 @@ def _to_nchw(images: torch.Tensor) -> torch.Tensor:
     return images.permute(0, 3, 1, 2)
 
 
-def _to_nhwc(x: torch.Tensor) -> torch.Tensor:
+def _to_nhwc(x):
+    """NCHW → NHWC view of a 4-d tensor (others as they are), or of each
+    head of a tuple."""
+    if isinstance(x, tuple):
+        return tuple(_to_nhwc(h) for h in x)
     return x.permute(0, 2, 3, 1) if x.dim() == 4 else x
 
 
@@ -497,6 +592,7 @@ class Darknet(nn.Module):
         if self.model_shards != 1:
             raise ValueError(f"the model is already split over "
                              f"{self.model_shards} model ranks")
+        self.spec.require_one_head("the dp × mp split")
         kept = []
         for lspec in self.spec.conv_specs():
             if shards_channels(lspec.filters, group.mp):
@@ -513,7 +609,8 @@ class Darknet(nn.Module):
     def forward(self, images: torch.Tensor, compute_dtype=None,
                 fused_stem: bool = False,
                 group: Optional[DPGroup] = None) -> torch.Tensor:
-        """``images`` NHWC float in [0, 1] → the raw head, NHWC.  ``group``:
+        """``images`` NHWC float in [0, 1] → the raw head, NHWC (a tuple of
+        heads in cfg order for a net with [yolo] heads).  ``group``:
         ``images`` are this rank's rows of a data-parallel batch, and
         training-mode BN is synchronised over the data group (the fused
         stem's too, gated on the per-data-rank batch).  A model split over
@@ -594,6 +691,8 @@ def fold_batchnorm(model: Darknet) -> Dict[str, Dict[str, torch.Tensor]]:
 
 def _split_convs(spec: DarknetSpec, group: Optional[DPGroup]) -> List[ConvSpec]:
     mp = 1 if group is None else group.mp
+    if mp > 1:
+        spec.require_one_head("the dp × mp split")
     return [l for l in spec.conv_specs() if shards_channels(l.filters, mp)]
 
 
@@ -625,11 +724,14 @@ def apply_folded(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]],
                  images: torch.Tensor, *, compute_dtype=None,
                  group: Optional[DPGroup] = None) -> torch.Tensor:
     """Inference with BN folded into the convs — the serving forward
-    (``DarknetSpec.apply_folded``).  ``images`` NHWC float in [0, 1].
+    (``DarknetSpec.apply_folded``).  ``images`` NHWC float in [0, 1]; the
+    raw head NHWC, or for a net with [yolo] heads the tuple of its heads in
+    cfg order.
 
     bf16 policy: the backbone convs (the ones that had BN) add their f32 bias
     in f32 and store bf16; the head conv keeps its f32 bias-add, since its
-    regression output feeds the decoder and no later conv re-rounds it.
+    regression output feeds the decoder and no later conv re-rounds it.  A
+    shortcut adds its two bf16 inputs and stores bf16; an upsample copies.
 
     With ``compute_dtype=torch.bfloat16`` and the stem pattern present the
     first conv + leaky + pool run as one kernel

@@ -19,7 +19,8 @@ from ..parallel.sharding import DPGroup, sync_sum
 
 __all__ = ["BN_EPS", "BN_MOMENTUM", "batch_norm", "batch_norm_train",
            "running_stat_update", "leaky_relu", "max_pool",
-           "max_pool_stride1", "reorg", "global_avg_pool"]
+           "max_pool_stride1", "reorg", "upsample_nearest",
+           "global_avg_pool"]
 
 BN_EPS = 1e-4  # singleshotpose_tpu/models/layers.py:27; torch's default is 1e-5
 BN_MOMENTUM = 0.1
@@ -143,6 +144,13 @@ def reorg(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
     x = x.reshape(b, c, h // s, s, w // s, s)          # b c i j k l
     x = x.permute(0, 3, 5, 1, 2, 4)                     # b j l c i k
     return x.reshape(b, s * s * c, h // s, w // s)
+
+
+def upsample_nearest(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
+    """Darknet's ``[upsample]``: ``out[b, c, i, j] = x[b, c, i // s, j //
+    s]``, each value copied without rounding, in ``x``'s memory format
+    (channels_last stays channels_last)."""
+    return F.interpolate(x, scale_factor=stride, mode="nearest")
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

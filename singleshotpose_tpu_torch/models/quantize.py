@@ -106,6 +106,7 @@ def calibrate_activations(spec: DarknetSpec, folded, images: torch.Tensor,
     compute-dtype output with no cast back.  The absmax is the default and
     the percentile measured harmful on this task (the JAX docstring has the
     protocol); per-channel ranges are what ``valid --quantize`` uses."""
+    spec.require_one_head("int8 quantization")
     records: Dict[str, torch.Tensor] = {}
 
     def conv_fn(cspec: ConvSpec, x):
@@ -142,6 +143,7 @@ def quantize_folded(spec: DarknetSpec, folded, act_absmax: Dict[str, object],
     Per-channel ranges are floored at 1e-3 of their largest, so a dead
     channel cannot blow up the int8 grid.  Every operation is the JAX
     function's eager one, so ``wq``, ``sw`` and ``sa`` are its bits."""
+    spec.require_one_head("int8 quantization")
     skip = frozenset(skip_layers) if skip_layers is not None \
         else default_skip_layers(spec)
     out = {}
@@ -369,6 +371,7 @@ class Int8Forward:
 
     def __init__(self, spec: DarknetSpec, qparams, *,
                  scales_as_constants: bool = False):
+        spec.require_one_head("the int8 forward")
         self.spec, self.qparams = spec, qparams
         self.convs = {l.name: _QuantConv(qparams[l.name], scales_as_constants)
                       for l in spec.layers if isinstance(l, ConvSpec)

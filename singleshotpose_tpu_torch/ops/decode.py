@@ -25,7 +25,8 @@ import numpy as np
 import torch
 from torch.utils import _pytree
 
-__all__ = ["DecodedGrid", "split_activate", "decode_grid", "best_boxes",
+__all__ = ["DecodedGrid", "split_activate", "decode_grid", "decode_heads",
+           "best_boxes",
            "best_box_for_class", "best_boxes_per_class",
            "multi_region_boxes_np", "bbox_iou", "bbox_ious", "nms"]
 
@@ -88,6 +89,18 @@ def decode_grid(output: torch.Tensor, num_keypoints: int, num_classes: int,
     cls_probs = torch.softmax(cls_logits, dim=-1) if C > 0 else \
         torch.ones((B, nA * H * W, 0), dtype=output.dtype, device=output.device)
     return DecodedGrid(corners, det_conf, cls_probs)
+
+
+def decode_heads(heads, num_keypoints: int, num_classes: int,
+                 num_anchors: int) -> DecodedGrid:
+    """Decode a net's several NHWC heads (a YOLOv3-style net's, one a
+    ``[yolo]`` block) into one grid: each head as :func:`decode_grid`,
+    normalized by its own H and W, and their cells in order, head by head
+    in cfg order (anchor-major within a head), so that one flat S runs
+    over all of them and the first-max picks stay defined."""
+    grids = [decode_grid(h, num_keypoints, num_classes, num_anchors)
+             for h in heads]
+    return DecodedGrid(*(torch.cat(parts, dim=1) for parts in zip(*grids)))
 
 
 def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

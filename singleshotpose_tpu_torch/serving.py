@@ -27,7 +27,7 @@ from .data.device_augment import INV255
 from .models.darknet import DarknetSpec, apply_folded
 from .models.quantize import Int8Forward
 from .ops.decode import (best_box_for_class, best_boxes, best_boxes_per_class,
-                         decode_grid)
+                         decode_grid, decode_heads)
 from .tracing import span
 
 __all__ = ["make_serving_fn", "aot_serving", "export_serving", "save_exported",
@@ -52,8 +52,9 @@ class _ServeModule(torch.nn.Module):
     """The body of the serving function, ``images → boxes``, as a module:
     u8 frames scaled by f32(1/255) (or float frames in [0, 1]), the folded
     bf16 forward (or the int8 forward over an int8 pytree), decode and the
-    pick.  :func:`make_serving_fn` calls it eagerly; :func:`export_serving`
-    exports it.  The weights, the int8 forward's scales and packed weights,
+    pick; a net with several [yolo] heads decodes them into one grid
+    (``ops.decode.decode_heads``).  :func:`make_serving_fn` calls it
+    eagerly; :func:`export_serving` exports it.  The weights, the int8 forward's scales and packed weights,
     the u8 scale and a for_class pick's class are held here, as tensors
     (not parameters or buffers), so an export bakes them in as
     constants."""
@@ -94,8 +95,13 @@ class _ServeModule(torch.nn.Module):
                 images = images.float() * self.u8_scale
             head = apply_folded(spec, self.folded, images,
                                 compute_dtype=compute_dtype, group=self.group)
-        decoded = decode_grid(head.float(), spec.num_keypoints,
-                              spec.num_classes, spec.num_anchors)
+        if spec.heads:
+            decoded = decode_heads([h.float() for h in head],
+                                   spec.num_keypoints, spec.num_classes,
+                                   spec.num_anchors)
+        else:
+            decoded = decode_grid(head.float(), spec.num_keypoints,
+                                  spec.num_classes, spec.num_anchors)
         if pick is None or pick[0] == "grid":
             return decoded
         if pick[0] == "best":
@@ -341,8 +347,10 @@ def export_serving(spec: DarknetSpec, folded: Dict[str, Dict[str, torch.Tensor]]
     device the weights are on, and :func:`load_serving` (``device=``) moves
     it to another.  Its ops dispatch by device when it runs, so a program
     exported on the CPU launches the kernels on a card.  Persist it with
-    :func:`save_exported`.
+    :func:`save_exported`.  A net with several [yolo] heads is not exported
+    yet (``ValueError``).
     """
+    spec.require_one_head("export_serving")
     body = _ServeModule(spec, folded, pick=pick, compute_dtype=compute_dtype,
                         scales_as_constants=True)
     # a symbolic batch is traced at 2: an example of 1 would specialize it

@@ -82,7 +82,9 @@ def init_train_state(model: Darknet, *, weight_decay: float, momentum: float,
     go into a second parameter group with weight decay 0 — where JAX's
     ``make_train_step(decay_bn_bias=False)`` went (JAX keeps the decay in
     the step, the port in the optimizer's groups, which every step and
-    checkpoint carry)."""
+    checkpoint carry).  A net with several [yolo] heads does not train yet
+    (``ValueError``): the region loss and its targets know one grid."""
+    model.spec.require_one_head("training")
     if decay_bn_bias:
         groups = [{"params": list(model.parameters())}]
     else:

@@ -4,7 +4,9 @@ Mirrors ``singleshotpose_tpu/zoo.py``: the same block dicts (Darknet-19 to a
 13×13×1024 map, a passthrough route → 1×1×64 conv → reorg → concat, a 3×3
 fuse conv and a 1×1 linear head with ``nA·(2K+1+C)`` filters), built into
 this package's jax-free :class:`DarknetSpec`; and the LINEMOD and OCCLUSION
-``.data`` renderers.
+``.data`` renderers.  Beyond the JAX zoo: YOLOv3's Darknet-53 and
+three-scale FPN as a pose net (:func:`yolov3_pose`), which the port alone
+serves.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 from .models.darknet import DarknetSpec
 
 __all__ = ["yolo_pose_blocks", "yolo_pose_single", "yolo_pose_multi",
-           "yolo_pose_pretrain", "MULTI_ANCHORS", "LINEMOD_OBJECTS",
+           "yolo_pose_pretrain", "yolov3_pose_blocks", "yolov3_pose",
+           "YOLOV3_ANCHORS", "MULTI_ANCHORS", "LINEMOD_OBJECTS",
            "LINEMOD_DIAMETERS", "linemod_datacfg", "OCCLUSION_OBJECTS",
            "occlusion_datacfg"]
 
@@ -124,6 +127,77 @@ def yolo_pose_pretrain(**overrides) -> DarknetSpec:
     return DarknetSpec(yolo_pose_blocks(**kw))
 
 
+# yolov3.cfg's nine anchor (w, h) pairs in pixels, as written there; the
+# pose decode uses none
+YOLOV3_ANCHORS = ("10,13,  16,30,  33,23,  30,61,  62,45,  59,119,  "
+                  "116,90,  156,198,  373,326")
+
+# Darknet-53: (filters of the stride-2 conv, residual blocks) a stage
+_DARKNET53_STAGES: Tuple[Tuple[int, int], ...] = (
+    (64, 1), (128, 2), (256, 8), (512, 8), (1024, 4))
+
+
+def _conv_s(filters: int, size: int, stride: int = 1,
+            activation: str = "leaky", bn: bool = True) -> Dict[str, str]:
+    """A conv block as ``parse_cfg`` reads yolov3.cfg's: ``batch_normalize``
+    first (the parser's default "0" where the cfg has none)."""
+    b = _conv(filters, size, activation, bn)
+    b["stride"] = str(stride)
+    return b
+
+
+def yolov3_pose_blocks(*, num_classes: int = 1,
+                       num_keypoints: int = 9) -> List[Dict[str, str]]:
+    """The blocks of darknet's ``cfg/yolov3.cfg`` (Redmon & Farhadi 2018:
+    Darknet-53, then a three-scale FPN neck with a ``[yolo]`` head at 1/32,
+    1/16 and 1/8), as ``parse_cfg`` reads them, made a pose net the way
+    SingleShotPose made ``yolo-pose.cfg`` of ``yolo-voc.cfg``: each 255-wide
+    detection conv becomes 3 anchors × (2K + 1 + C) filters, each ``[yolo]``
+    takes ``classes=C``, and ``[net]`` gains ``num_keypoints=K``.  Every
+    other width, the depth and the 608² input are as published."""
+    head = 3 * (2 * num_keypoints + 1 + num_classes)
+    net = {"type": "net", "batch": "64", "subdivisions": "16",
+           "width": "608", "height": "608", "channels": "3",
+           "momentum": "0.9", "decay": "0.0005", "angle": "0",
+           "saturation": "1.5", "exposure": "1.5", "hue": ".1",
+           "learning_rate": "0.001", "burn_in": "1000",
+           "max_batches": "500200", "policy": "steps",
+           "steps": "400000,450000", "scales": ".1,.1",
+           "num_keypoints": str(num_keypoints)}
+    blocks: List[Dict[str, str]] = [net, _conv_s(32, 3)]
+    for filters, repeats in _DARKNET53_STAGES:
+        blocks.append(_conv_s(filters, 3, stride=2))
+        for _ in range(repeats):
+            blocks += [_conv_s(filters // 2, 1), _conv_s(filters, 3),
+                       {"type": "shortcut", "from": "-3",
+                        "activation": "linear"}]
+    # the neck: a scale's five convs, its 3×3 and 1×1 head convs and
+    # [yolo]; then back to the fifth conv, 1×1, ×2 up and concatenated
+    # with the trunk's output of the next finer stage (layers 61, 36)
+    for scale, (width, mask, skip) in enumerate(
+            ((512, "6,7,8", 61), (256, "3,4,5", 36), (128, "0,1,2", None))):
+        for _ in range(2):
+            blocks += [_conv_s(width, 1), _conv_s(2 * width, 3)]
+        blocks += [_conv_s(width, 1), _conv_s(2 * width, 3),
+                   _conv_s(head, 1, activation="linear", bn=False),
+                   {"type": "yolo", "mask": mask, "anchors": YOLOV3_ANCHORS,
+                    "classes": str(num_classes), "num": "9", "jitter": ".3",
+                    "ignore_thresh": ".7", "truth_thresh": "1",
+                    "random": "1"}]
+        if skip is not None:
+            blocks += [{"type": "route", "layers": "-4"},
+                       _conv_s(width // 2, 1),
+                       {"type": "upsample", "stride": "2"},
+                       {"type": "route", "layers": f"-1, {skip}"}]
+    return blocks
+
+
+def yolov3_pose(**overrides) -> DarknetSpec:
+    """YOLOv3 as a single-object pose net (≡ ``cfg/yolov3.cfg`` with 60-wide
+    heads): 107 layers, three [yolo] heads of 3 anchors, 1 class."""
+    return DarknetSpec(yolov3_pose_blocks(**overrides))
+
+
 # Published LINEMOD object diameters in meters (reference: cfg/<obj>.data:7,
 # e.g. ape.data "diam = 0.103"); the order is the 13 class ids.
 LINEMOD_DIAMETERS: Dict[str, float] = {
@@ -215,11 +289,13 @@ def occlusion_datacfg(obj: Optional[str] = None,
 
 _BUILDERS = {"yolo-pose": yolo_pose_single,
              "yolo-pose-multi": yolo_pose_multi,
-             "yolo-pose-pre": yolo_pose_pretrain}
+             "yolo-pose-pre": yolo_pose_pretrain,
+             "yolov3-pose": yolov3_pose}
 
 
 def _resolve_model(modelcfg: Union[str, DarknetSpec]) -> DarknetSpec:
-    """A zoo name (``yolo-pose``, ``yolo-pose-multi``, ``yolo-pose-pre``), a
+    """A zoo name (``yolo-pose``, ``yolo-pose-multi``, ``yolo-pose-pre``,
+    ``yolov3-pose``), a
     darknet ``.cfg`` path, or a built spec → a :class:`DarknetSpec`."""
     if isinstance(modelcfg, DarknetSpec):
         return modelcfg
